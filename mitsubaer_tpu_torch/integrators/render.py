@@ -1,0 +1,161 @@
+"""Render entry point (port of mitsubaer_tpu/integrators/render.py::render
+on the boxwalk road, plus the collimated-beam splat).
+
+The JAX package takes boxwalk only on a TPU backend; here a CUDA device is
+its counterpart and the CPU runs the same road through the plain versions
+of the kernels. Every other road raises NotImplementedError with the ROADMAP
+Queue 1 step that will port it.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import replace
+
+import torch
+
+from ..core import rng
+from ..models import medium as medium_m
+from ..models import phase as phase_m
+from ..models import sensor as sensor_m
+from ..scene.types import EM_COLLIMATED, MED_HETEROGENEOUS, RenderConfig, Scene
+from . import boxwalk, common
+from . import volpath as volpath_m
+
+_NOT_PORTED = {
+    "path": 9, "direct": 9, "ao": 9, "field": 9, "volpath_er": 7,
+    "ptracer": 12, "vpl": 12, "bdpt": 12, "pssmlt": 12, "pssmlt_volpath": 12,
+    "mlt": 12, "erpt": 12, "singlescatter": 12, "singlescatter_mesh": 12,
+    "dipole": 12, "photonmapper": 12, "ppm": 12, "sppm": 12, "bre": 12,
+    "irrcache": 12,
+}
+
+
+def _not_ported(what: str, step: int):
+    return NotImplementedError(
+        f"{what} is not ported to mitsubaer_tpu_torch yet (ROADMAP Queue 1 "
+        f"step {step})")
+
+
+def _use_wavefront(cfg: RenderConfig) -> bool:
+    if cfg.engine == "wavefront2":
+        raise ValueError("engine='wavefront2' was a measured negative result "
+                         "of the JAX package; use engine='wavefront'")
+    if cfg.engine == "wavefront":
+        return True
+    if cfg.engine == "loop":
+        return False
+    return (cfg.integrator in ("volpath", "path") and cfg.n_frames == 1
+            and cfg.modulation == "none" and cfg.filter == "box")
+
+
+def _has_beam(scene: Scene) -> bool:
+    return bool((scene.emitters.kind == EM_COLLIMATED).any())
+
+
+def beam_splat_pass(scene: Scene, splat, cfg: RenderConfig, n_samples: int,
+                    seed: int, pass_idx: int):
+    """Single-scatter light-tracing splat for a collimated beam: sample y
+    on the beam equiangularly w.r.t. the camera, project it to the film and
+    add power * Tr(o_b, y) * sigma_s(y) * rho * Tr(y, cam) / (d^2 pdf(s)).
+    Accumulates into `splat` (H, W, 3) in place and returns it."""
+    if cfg.n_frames != 1:
+        raise _not_ported("the transient beam splat", 10)
+    H, W = cfg.height, cfg.width
+    dev = splat.device
+    beam = volpath_m.get_beam(scene)
+    eps = common.scene_epsilon(scene)
+    lane = torch.arange(n_samples, dtype=torch.int64, device=dev)
+    smp = rng.make_sampler(seed ^ 0xBEA11, lane, pass_idx)
+    u, smp = rng.next_1d(smp)
+
+    cam = scene.sensor.to_world[:3, 3].expand(n_samples, 3)
+    y, sdist, pdf_s, dist, d_yc = volpath_m.sample_beam_point(beam, cam, u)
+    active = beam.exists.expand(n_samples)
+    media = scene.media
+    bmed = beam.medium.expand(n_samples)
+    kind, _, ss, scale = medium_m.params(media, bmed)
+    dens = torch.where(kind == MED_HETEROGENEOUS,
+                       medium_m.density_at(media, y) * scale, 1.0)
+    sigma_s_y = ss * dens.unsqueeze(-1)
+    rho = phase_m.eval(media.phase, bmed, beam.d.expand(n_samples, 3), d_yc)
+
+    bricks = medium_m.DensityGrid(media)
+    tau = volpath_m.build_beam_tau(scene, beam, bricks)
+    tr1 = volpath_m.beam_transmittance(beam, tau, sdist)
+    tr2, smp = volpath_m.attenuated_visibility(
+        scene, eps, y + d_yc * eps, d_yc, dist - 2 * eps, bmed, smp, active,
+        bricks=bricks)
+    value = (beam.power * tr1 * sigma_s_y * tr2
+             * (rho / torch.clamp_min(pdf_s * dist * dist, 1e-12)
+                ).unsqueeze(-1))
+
+    fs = sensor_m.project(scene.sensor, y, W, H)
+    value = value * fs.inv_pixel_omega.unsqueeze(-1)
+    ok = active & fs.valid & torch.all(torch.isfinite(value), dim=-1)
+    value = torch.where(ok.unsqueeze(-1), value, 0.0)
+    px = torch.clamp(torch.nan_to_num(fs.px).to(torch.int64), 0, W - 1)
+    py = torch.clamp(torch.nan_to_num(fs.py).to(torch.int64), 0, H - 1)
+    # scatter-add: on CUDA the order of the adds, and so the rounding, varies
+    splat.view(H * W, 3).index_add_(0, py * W + px, value)
+    return splat
+
+
+def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
+           seed: int = 0, device=None, stats: dict | None = None):
+    """Render to a developed (H, W, 3) image on `device` (default: the
+    scene's). If `stats` is a dict, it receives per-pass boxwalk stats
+    ("passes": list of [segments, taps, iters, unfinished]) and the seconds
+    the boxwalk passes took ("boxwalk_s", timed with a device synchronize
+    around each pass)."""
+    if spp is not None:
+        cfg = replace(cfg, spp=spp)
+    if device is not None:
+        scene = scene.to(device)
+    if cfg.integrator in _NOT_PORTED:
+        raise _not_ported(f"integrator {cfg.integrator!r}",
+                          _NOT_PORTED[cfg.integrator])
+    if not _use_wavefront(cfg):
+        raise _not_ported("the loop engine (gaussian/tent filters, "
+                          "engine='loop')", 4)
+    if not boxwalk.supported(scene, cfg):
+        raise _not_ported("the wavefront engine (scenes outside the boxwalk "
+                          "class)", 5)
+    dev = scene.aabb_min.device
+    npix = cfg.width * cfg.height
+    # as in the JAX render(): the per-pass budget is fixed before the
+    # engine is chosen, so boxwalk runs min(spp, 2^21 // npix) per pass
+    spp_per_pass = max(1, min(cfg.spp, (1 << 21) // max(npix, 1)))
+    L = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
+    done = 0
+    pass_idx = 0
+    if stats is not None:
+        stats.setdefault("passes", [])
+        stats.setdefault("boxwalk_s", 0.0)
+    while done < cfg.spp:
+        sppc = min(spp_per_pass, cfg.spp - done)
+        if stats is not None:
+            _sync(dev)
+            t0 = time.perf_counter()
+        Lb, st = boxwalk.render_boxwalk(scene, cfg, sppc, seed, pass_idx)
+        L = L + Lb
+        if stats is not None:
+            _sync(dev)
+            stats["boxwalk_s"] += time.perf_counter() - t0
+            stats["passes"].append(st.tolist())
+        done += sppc
+        pass_idx += 1
+    img = (L / float(cfg.spp)).reshape(cfg.height, cfg.width, 3)
+    if cfg.integrator.startswith("volpath") and _has_beam(scene):
+        n_splat = 4 * npix
+        n_passes = 4
+        splat = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
+                            device=dev)
+        for i in range(n_passes):
+            beam_splat_pass(scene, splat, cfg, n_splat, seed, i)
+        img = img + splat / float(n_splat * n_passes)
+    return img
+
+
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)

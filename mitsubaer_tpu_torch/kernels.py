@@ -1,0 +1,112 @@
+"""Build and load the package's CUDA kernels.
+
+The sources in csrc/*.cu are compiled by `nvcc` at first use into one shared
+library with a plain C interface, build/kernels/<hash>/libmitsubaer_kernels.so
+(keyed by a hash of the sources and flags, so an edit rebuilds), and loaded
+with ctypes. Each C function takes device pointers and the CUDA stream, and
+returns cudaGetLastError() after its launch; `check` raises on non-zero.
+
+No --use_fast_math, and --fmad=false: the kernels round as the plain PyTorch
+versions do, which the lane-by-lane comparisons rely on.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # (points, grid, aabb6, out, n, nx, ny, nz, stream)
+    "mk_trilinear_lookup": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (params, seed, table, beam_tab, out, npix, sppc, max_depth, rr_depth,
+    #  width, height, stride, nx, ny, nz, nbx, nby, nbz, max_trips, stream)
+    "mk_boxwalk": [_P, ctypes.c_uint32, _P, _P, _P] + [_I] * 14 + [_P],
+}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    return str(Path(home) / "bin" / "nvcc")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16] / "libmitsubaer_kernels.so"
+
+
+def build() -> tuple[Path, float]:
+    """Compile the library if it is missing; returns (path, seconds spent)."""
+    out = library_path()
+    if out.exists():
+        return out, 0.0
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    seconds = time.perf_counter() - t0
+    (out.parent / "build.log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out, seconds
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    path, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.mk_error_string.argtypes = [ctypes.c_int]
+    lib.mk_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(rc: int, name: str) -> None:
+    if rc != 0:
+        msg = library().mk_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous CUDA tensor."""
+    for t in tensors:
+        if t.device.type != "cuda" or not t.is_contiguous():
+            raise ValueError(f"{name}: expected contiguous CUDA tensors, got "
+                             f"{t.device} contiguous={t.is_contiguous()}")

@@ -1,0 +1,123 @@
+"""Participating media on the ported path (port of
+mitsubaer_tpu/models/medium.py): medium parameters, the heterogeneous density
+lookup (kernel A) and ratio-tracking transmittance.
+
+Kernel A, `trilinear_lookup`, replaces the JAX package's
+`DensityBricks.lookup` as a whole (the 8x4x4 apron-brick gather plus the
+Pallas `_trilinear_brick_kernel`, medium.py:118-252): it reads the dense grid
+directly. The brick repack and the bf16 weight product were TPU gather and
+VPU tricks and are not carried over; where the JAX caller stores bricks in
+bf16, `DensityGrid(dtype=torch.bfloat16)` rounds the grid to bf16 once so the
+values match.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import kernels
+from ..core import rng, spline
+from ..scene.types import Media
+
+
+def trilinear_lookup_plain(grid, aabb6, p):
+    """Plain PyTorch version of kernel A: trilinear value of the (nz, ny, nx)
+    grid at (N, 3) points, zero outside the AABB aabb6 = [min xyz, max xyz]."""
+    return spline.trilinear(grid, aabb6[:3], aabb6[3:], p)
+
+
+def trilinear_lookup(grid, aabb6, p):
+    """Kernel A (csrc/trilinear.cu) on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    if p.device.type == "cpu":
+        return trilinear_lookup_plain(grid, aabb6, p)
+    if p.device.type != "cuda":
+        raise ValueError(f"trilinear_lookup: unsupported device {p.device}")
+    grid, aabb6, p = (t.contiguous() for t in (grid, aabb6, p))
+    kernels.require_cuda("trilinear_lookup", grid, aabb6, p)
+    for t in (grid, aabb6, p):
+        if t.dtype != torch.float32:
+            raise ValueError(f"trilinear_lookup: expected float32, got {t.dtype}")
+    if p.dim() != 2 or p.shape[1] != 3 or grid.dim() != 3:
+        raise ValueError("trilinear_lookup: expected p (N, 3) and a 3-d grid")
+    n = p.shape[0]
+    out = torch.empty((n,), dtype=torch.float32, device=p.device)
+    if n == 0:
+        return out
+    nz, ny, nx = grid.shape
+    with torch.cuda.device(p.device):
+        rc = kernels.library().mk_trilinear_lookup(
+            p.data_ptr(), grid.data_ptr(), aabb6.data_ptr(), out.data_ptr(),
+            n, nx, ny, nz, kernels.stream(p))
+    kernels.check(rc, "trilinear_lookup")
+    trilinear_lookup.launches += 1
+    return out
+
+
+trilinear_lookup.launches = 0
+
+
+def params(media: Media, idx):
+    """(kind, sigma_a, sigma_s, scale) of medium idx; kind is -1 for idx < 0."""
+    i = torch.clamp(idx, 0, media.kind.shape[0] - 1).to(torch.int64)
+    kind = torch.where(idx >= 0, media.kind[i], -1)
+    return kind, media.sigma_a[i], media.sigma_s[i], media.scale[i]
+
+
+class DensityGrid:
+    """The heterogeneous density grid as kernel A reads it (replaces the
+    JAX package's DensityBricks). dtype=torch.bfloat16 rounds the stored
+    values to bf16, as the JAX callers that store bf16 bricks do."""
+
+    def __init__(self, media: Media, dtype=None):
+        grid = media.density.data
+        if dtype is not None:
+            grid = grid.to(dtype).to(torch.float32)
+        self.grid = grid.contiguous()
+        self.aabb6 = torch.cat([media.density.aabb_min,
+                                media.density.aabb_max]).to(torch.float32)
+
+    def lookup(self, p):
+        return trilinear_lookup(self.grid, self.aabb6, p)
+
+
+def density_at(media: Media, p):
+    """Heterogeneous density at (N, 3) world points, zero outside the grid."""
+    return DensityGrid(media).lookup(p)
+
+
+def eval_transmittance_homogeneous(sigma_a, sigma_s, dist):
+    return torch.exp(-(sigma_a + sigma_s) * dist.unsqueeze(-1))
+
+
+def transmittance_ratio_tracking(media: Media, sigma_a, sigma_s, scale, o, d,
+                                 t_max, smp, active, max_steps: int = 4096,
+                                 bricks=None):
+    """Unbiased ratio-tracking transmittance along shadow segments. Every
+    lane draws one number per step whether it runs or not, in steps of
+    UNROLL as in the JAX package, so the streams stay aligned with it."""
+    if bricks is None:
+        bricks = DensityGrid(media)
+    st_color = sigma_a + sigma_s
+    majorant = torch.clamp_min(media.majorant * torch.amax(st_color, dim=-1),
+                               1e-6)
+    unroll = 4
+    n = o.shape[0]
+    t = torch.zeros((n,), dtype=torch.float32, device=o.device)
+    tr = torch.ones((n, 3), dtype=torch.float32, device=o.device)
+    running = active
+    it = 0
+    while it < max_steps and bool(running.any()):
+        for _ in range(unroll):
+            u1, smp = rng.next_1d(smp)
+            t_new = t - torch.log1p(-u1) / majorant
+            escaped = t_new >= t_max
+            p = o + t_new.unsqueeze(-1) * d
+            dens = bricks.lookup(p) * scale
+            factor = 1.0 - dens.unsqueeze(-1) * st_color \
+                / majorant.unsqueeze(-1)
+            tr = torch.where((running & ~escaped).unsqueeze(-1), tr * factor,
+                             tr)
+            t = torch.where(running, t_new, t)
+            running = running & ~escaped
+        it += 1
+    return torch.clamp_min(tr, 0.0), smp

@@ -1,0 +1,166 @@
+"""Host-side scene construction (port of mitsubaer_tpu/scene/build.py).
+
+Accumulates shapes, media and emitters in numpy and freezes them into tensors
+at `build()`. The ported slice needs triangle meshes, media, emitters and a
+perspective sensor; scenes this small need no BVH.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from . import types as T
+
+
+@dataclass
+class _Emitter:
+    kind: int
+    radiance: tuple = (1.0, 1.0, 1.0)
+    position: tuple = (0.0, 0.0, 0.0)
+    direction: tuple = (0.0, 0.0, 1.0)
+
+
+@dataclass
+class _Medium:
+    kind: int = T.MED_HOMOGENEOUS
+    sigma_a: tuple = (0.0, 0.0, 0.0)
+    sigma_s: tuple = (0.0, 0.0, 0.0)
+    phase_kind: int = T.PH_ISOTROPIC
+    g: float = 0.0
+    scale: float = 1.0
+    density: Optional[np.ndarray] = None   # (nz, ny, nx)
+    density_aabb: Optional[tuple] = None
+
+
+def _t(a, dtype):
+    return torch.as_tensor(np.asarray(a, dtype))
+
+
+class SceneBuilder:
+    def __init__(self):
+        self._verts = []
+        self._faces = []
+        self._face_shape = []
+        self._shapes = []
+        self._emitters: list[_Emitter] = []
+        self._media: list[_Medium] = []
+        self._sensor = None
+        self.config = T.RenderConfig()
+        self.camera_medium = -1
+
+    def add_medium(self, **kw) -> int:
+        if kw.get("kind") == T.MED_REFRACTIVE:
+            raise NotImplementedError(
+                "refractive media are not ported yet (ROADMAP Queue 1 step 7)")
+        self._media.append(_Medium(**kw))
+        return len(self._media) - 1
+
+    def add_emitter(self, kind, **kw) -> int:
+        self._emitters.append(_Emitter(kind=kind, **kw))
+        return len(self._emitters) - 1
+
+    def add_mesh(self, verts, faces, bsdf=-1, interior=-1, exterior=-1,
+                 to_world=None) -> int:
+        verts = np.asarray(verts, np.float32)
+        if to_world is not None:
+            m = np.asarray(to_world, np.float32)
+            verts = verts @ m[:3, :3].T + m[:3, 3]
+        shape_id = len(self._shapes)
+        self._shapes.append(dict(bsdf=bsdf, interior=interior,
+                                 exterior=exterior))
+        self._verts.append(verts)
+        self._faces.append(np.asarray(faces, np.int32))
+        self._face_shape.append(shape_id)
+        return shape_id
+
+    def add_cube(self, to_world, **kw) -> int:
+        """Unit cube [-1,1]^3 (shapes/cube.cpp), outward normals."""
+        v = np.array([[-1, -1, -1], [1, -1, -1], [1, 1, -1], [-1, 1, -1],
+                      [-1, -1, 1], [1, -1, 1], [1, 1, 1], [-1, 1, 1]],
+                     np.float32)
+        f = np.array([[0, 2, 1], [0, 3, 2], [4, 5, 6], [4, 6, 7],
+                      [0, 1, 5], [0, 5, 4], [3, 6, 2], [3, 7, 6],
+                      [0, 4, 7], [0, 7, 3], [1, 2, 6], [1, 6, 5]], np.int32)
+        return self.add_mesh(v, f, to_world=to_world, **kw)
+
+    def set_perspective_sensor(self, to_world, fov_deg, fov_axis="x",
+                               near=1e-2):
+        self._sensor = dict(to_world=np.asarray(to_world, np.float32),
+                            fov_deg=float(fov_deg), fov_axis=fov_axis,
+                            near=near)
+
+    def build(self) -> T.Scene:
+        tri = np.concatenate([v[f] for v, f in zip(self._verts, self._faces)])
+        tri_shape = np.concatenate([np.full(len(f), s, np.int32) for f, s in
+                                    zip(self._faces, self._face_shape)])
+        v0 = tri[:, 0]
+        e1 = tri[:, 1] - tri[:, 0]
+        e2 = tri[:, 2] - tri[:, 0]
+        ngu = np.cross(e1, e2)
+        ng = ngu / np.maximum(np.linalg.norm(ngu, axis=-1), 1e-20)[:, None]
+        geo = T.Geometry(
+            v0=_t(v0, np.float32), e1=_t(e1, np.float32),
+            e2=_t(e2, np.float32), ng=_t(ng, np.float32),
+            shape_id=_t(tri_shape, np.int32),
+            sph_center=torch.zeros((1, 3)), sph_radius=torch.zeros((1,)),
+            sph_shape_id=torch.full((1,), -1, dtype=torch.int32))
+        shapes = T.Shapes(**{k: _t([s[k] for s in self._shapes], np.int32)
+                             for k in ("bsdf", "interior", "exterior")})
+        # no BSDFs on this path: the JAX builder's table then holds one
+        # default diffuse entry
+        bsdfs = T.BSDFs(kind=_t([T.BSDF_DIFFUSE], np.int32))
+        if not self._emitters:
+            self._emitters.append(_Emitter(kind=T.EM_POINT, radiance=(0, 0, 0)))
+        em = self._emitters
+        emitters = T.Emitters(
+            kind=_t([e.kind for e in em], np.int32),
+            radiance=_t([e.radiance for e in em], np.float32),
+            position=_t([e.position for e in em], np.float32),
+            direction=_t([np.asarray(e.direction)
+                          / max(np.linalg.norm(e.direction), 1e-20)
+                          for e in em], np.float32))
+        allp = tri.reshape(-1, 3)
+        return T.Scene(
+            geo=geo, shapes=shapes, bsdfs=bsdfs, emitters=emitters,
+            sensor=self._build_sensor(), media=self._build_media(),
+            aabb_min=_t(allp.min(axis=0), np.float32),
+            aabb_max=_t(allp.max(axis=0), np.float32),
+            camera_medium=_t(self.camera_medium, np.int32))
+
+    def _build_sensor(self) -> T.Sensor:
+        s = self._sensor
+        aspect = self.config.width / self.config.height
+        tan_half = np.tan(np.deg2rad(s["fov_deg"]) / 2)
+        if s["fov_axis"] == "y":
+            tan_x, tan_y = tan_half * aspect, tan_half
+        else:
+            tan_x, tan_y = tan_half, tan_half / aspect
+        return T.Sensor(
+            kind=_t(T.SENSOR_PERSPECTIVE, np.int32),
+            to_world=_t(s["to_world"], np.float32),
+            tan_x=_t(tan_x, np.float32), tan_y=_t(tan_y, np.float32),
+            near=_t(s["near"], np.float32))
+
+    def _build_media(self) -> T.Media:
+        media = self._media or [_Medium()]
+        density = T.GridData(torch.zeros((1, 1, 1)), torch.zeros(3),
+                             torch.ones(3))
+        majorant = 0.0
+        for m in media:
+            if m.kind == T.MED_HETEROGENEOUS and m.density is not None:
+                lo, hi = m.density_aabb
+                density = T.GridData(_t(m.density, np.float32),
+                                     _t(lo, np.float32), _t(hi, np.float32))
+                majorant = float(np.max(m.density) * m.scale)
+        return T.Media(
+            kind=_t([m.kind for m in media], np.int32),
+            sigma_a=_t([m.sigma_a for m in media], np.float32),
+            sigma_s=_t([m.sigma_s for m in media], np.float32),
+            phase=T.PhaseTable(kind=_t([m.phase_kind for m in media], np.int32),
+                               g=_t([m.g for m in media], np.float32)),
+            scale=_t([m.scale for m in media], np.float32),
+            density=density,
+            majorant=_t(majorant, np.float32))

@@ -1,0 +1,181 @@
+"""Scene description as frozen dataclasses of tensors (port of
+mitsubaer_tpu/scene/types.py).
+
+Only the fields that change the results of the ported slice are kept; the
+JAX package's TPU tuning knobs (`wf_*`, `er_*`, `brick_map`) have no
+counterpart. `scene_from_numpy` and `config_from_dict` take the JAX package's
+`Scene` / `RenderConfig` flattened to nested dicts of numpy arrays (same
+field names), so both packages can render the very same scene.
+
+No `from __future__ import annotations` here: `scene_from_numpy` reads the
+field types to find nested dataclasses.
+"""
+import dataclasses
+from dataclasses import dataclass, fields
+
+import numpy as np
+import torch
+
+# BSDF kinds (only the null test is on the ported path)
+BSDF_DIFFUSE = 0
+BSDF_NULL = 3
+
+# Emitter kinds
+EM_POINT = 1
+EM_COLLIMATED = 3
+
+# Medium kinds
+MED_HOMOGENEOUS = 0
+MED_HETEROGENEOUS = 1
+MED_REFRACTIVE = 2
+
+# Phase kinds
+PH_ISOTROPIC = 0
+PH_HG = 1
+
+# Sensor kinds
+SENSOR_PERSPECTIVE = 0
+
+
+@dataclass(frozen=True)
+class _Tensors:
+    """Frozen dataclass whose fields are tensors or nested _Tensors."""
+
+    def to(self, device):
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device) for f in fields(self)})
+
+
+@dataclass(frozen=True)
+class Geometry(_Tensors):
+    """All triangles in one buffer plus analytic spheres."""
+
+    v0: torch.Tensor            # (T, 3)
+    e1: torch.Tensor            # (T, 3) v1 - v0
+    e2: torch.Tensor            # (T, 3) v2 - v0
+    ng: torch.Tensor            # (T, 3) unit geometric normal
+    shape_id: torch.Tensor      # (T,) int32
+    sph_center: torch.Tensor    # (S, 3)
+    sph_radius: torch.Tensor    # (S,)
+    sph_shape_id: torch.Tensor  # (S,) int32
+
+
+@dataclass(frozen=True)
+class Shapes(_Tensors):
+    bsdf: torch.Tensor      # (NS,) int32, -1 = none (pure medium boundary)
+    interior: torch.Tensor  # (NS,) int32 medium id, -1 = vacuum
+    exterior: torch.Tensor  # (NS,) int32
+
+
+@dataclass(frozen=True)
+class BSDFs(_Tensors):
+    kind: torch.Tensor      # (NB,) int32
+
+
+@dataclass(frozen=True)
+class Emitters(_Tensors):
+    kind: torch.Tensor       # (NE,) int32
+    radiance: torch.Tensor   # (NE, 3) collimated: beam power
+    position: torch.Tensor   # (NE, 3)
+    direction: torch.Tensor  # (NE, 3) unit
+
+
+@dataclass(frozen=True)
+class Sensor(_Tensors):
+    kind: torch.Tensor       # () int32
+    to_world: torch.Tensor   # (4, 4) camera-to-world
+    tan_x: torch.Tensor      # () tan(fov_x / 2)
+    tan_y: torch.Tensor
+    near: torch.Tensor
+
+
+@dataclass(frozen=True)
+class PhaseTable(_Tensors):
+    kind: torch.Tensor  # (NM,) int32
+    g: torch.Tensor     # (NM,) HG asymmetry
+
+
+@dataclass(frozen=True)
+class GridData(_Tensors):
+    data: torch.Tensor      # (nz, ny, nx)
+    aabb_min: torch.Tensor  # (3,)
+    aabb_max: torch.Tensor  # (3,)
+
+
+@dataclass(frozen=True)
+class Media(_Tensors):
+    """Medium table: at most one heterogeneous density grid per scene;
+    heterogeneous sigma_t = scale * density(p) * (sigma_a + sigma_s)."""
+
+    kind: torch.Tensor      # (NM,) int32
+    sigma_a: torch.Tensor   # (NM, 3)
+    sigma_s: torch.Tensor   # (NM, 3)
+    phase: PhaseTable
+    scale: torch.Tensor     # (NM,)
+    density: GridData
+    majorant: torch.Tensor  # () max density * scale
+
+
+@dataclass(frozen=True)
+class Scene(_Tensors):
+    geo: Geometry
+    shapes: Shapes
+    bsdfs: BSDFs
+    emitters: Emitters
+    sensor: Sensor
+    media: Media
+    aabb_min: torch.Tensor
+    aabb_max: torch.Tensor
+    camera_medium: torch.Tensor  # () int32, -1 = vacuum
+
+
+@dataclass(frozen=True)
+class RenderConfig:
+    """Static render settings (the fields of the JAX RenderConfig that the
+    ported slice reads)."""
+
+    width: int = 256
+    height: int = 256
+    max_depth: int = 12
+    rr_depth: int = 5
+    integrator: str = "path"
+    filter: str = "gaussian"
+    spp: int = 16
+    decomposition: str = "steadystate"
+    min_bound: float = 0.0
+    max_bound: float = 0.0
+    bin_width: float = 1.0
+    modulation: str = "none"
+    engine: str = "auto"
+
+    @property
+    def n_frames(self) -> int:
+        if (self.decomposition in ("transient", "bounce")
+                and self.modulation == "none"):
+            return max(int(np.ceil((self.max_bound - self.min_bound)
+                                   / self.bin_width)), 1)
+        return 1
+
+
+def _from_numpy(cls, tree, device):
+    kw = {}
+    for f in fields(cls):
+        v = tree[f.name]
+        if isinstance(f.type, type) and issubclass(f.type, _Tensors):
+            kw[f.name] = _from_numpy(f.type, v, device)
+        else:
+            kw[f.name] = torch.as_tensor(np.array(v), device=device)
+    return cls(**kw)
+
+
+def scene_from_numpy(tree: dict, device="cpu") -> Scene:
+    """A Scene from nested dicts of numpy arrays named as the JAX Scene's
+    fields; fields the port does not keep are ignored."""
+    return _from_numpy(Scene, tree, device)
+
+
+def config_from_dict(d: dict) -> RenderConfig:
+    """A RenderConfig from a dict of the JAX RenderConfig's fields; fields
+    the port does not keep (TPU tuning knobs) are ignored."""
+    return RenderConfig(**{f.name: d[f.name] for f in fields(RenderConfig)
+                           if f.name in d})

@@ -1,0 +1,135 @@
+"""The whole slice: the port's render() on the CPU against the JAX package's
+render() composite on the boxwalk road (render.py:346-389 with use_bw taken:
+the render_boxwalk passes in interpret mode plus four beam_splat_passes at
+the same seeds), and the port's import hygiene."""
+import dataclasses
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mitsubaer_tpu.integrators import boxwalk as jbw
+from mitsubaer_tpu.integrators import render as jrender
+from mitsubaer_tpu.scene import presets as jpresets
+from mitsubaer_tpu_torch.integrators import render as trender
+from mitsubaer_tpu_torch.scene import presets as tpresets
+from mitsubaer_tpu_torch.scene import types as T
+
+torch.set_num_threads(1)
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _tree(x):
+    if hasattr(x, "_asdict"):
+        return {k: _tree(v) for k, v in x._asdict().items() if v is not None}
+    return np.asarray(x)
+
+
+def _jax_composite(scene, cfg, seed):
+    """The JAX render() body for the boxwalk road, with use_bw forced."""
+    npix = cfg.width * cfg.height
+    spp_per_pass = max(1, min(cfg.spp, (1 << 21) // npix))
+    L = np.zeros((npix, 3), np.float32)
+    done = pass_idx = 0
+    while done < cfg.spp:
+        sppc = min(spp_per_pass, cfg.spp - done)
+        Lb, _ = jbw.render_boxwalk(scene, cfg, sppc, jnp.uint32(seed),
+                                   jnp.uint32(pass_idx), interpret=True)
+        L = L + np.asarray(Lb)
+        done += sppc
+        pass_idx += 1
+    img = (L / np.float32(cfg.spp)).reshape(cfg.height, cfg.width, 3)
+    n_splat = 4 * npix
+    splat = jnp.zeros((cfg.height, cfg.width, 3), jnp.float32)
+    for i in range(4):
+        splat = jrender.beam_splat_pass(scene, splat, cfg, n_splat,
+                                        jnp.uint32(seed), jnp.uint32(i))
+    return img + np.asarray(splat) / (n_splat * 4)
+
+
+@pytest.mark.parametrize("seed", [0, 3])
+def test_render_matches_jax_composite(seed):
+    res, spp = 12, 4
+    js, jc = jpresets.volumetric_box(res=res, spp=spp, heterogeneous=True,
+                                     density_res=16, max_depth=3)
+    jc = jc._replace(filter="box")
+    want = _jax_composite(js, jc, seed)
+    ts, tc = tpresets.volumetric_box(res=res, spp=spp, heterogeneous=True,
+                                     density_res=16, max_depth=3,
+                                     filter="box")
+    stats = {}
+    got = trender.render(ts, tc, seed=seed, device="cpu", stats=stats).numpy()
+    assert got.shape == (res, res, 3) and np.isfinite(got).all()
+    assert len(stats["passes"]) == 1 and stats["passes"][0][3] == 0
+    assert abs(got.mean() / want.mean() - 1) <= 0.01
+    lum_t, lum_j = got.mean(-1), want.mean(-1)
+    sel = lum_j > 0
+    assert sel.mean() > 0.1             # the box covers ~20% of the film
+    assert 0.99 <= np.median(lum_t[sel] / lum_j[sel]) <= 1.01
+
+
+def test_render_of_carried_jax_scene_matches_preset():
+    """scene_from_numpy(JAX scene) renders the same image as the preset."""
+    kw = dict(res=8, spp=2, heterogeneous=True, density_res=8, max_depth=2)
+    js, jc = jpresets.volumetric_box(**kw)
+    carried = T.scene_from_numpy(_tree(js))
+    cfg = T.config_from_dict(jc._asdict())
+    ts, tc = tpresets.volumetric_box(filter="box", **kw)
+    a = trender.render(carried, dataclasses.replace(cfg, filter="box"), seed=1)
+    b = trender.render(ts, tc, seed=1)
+    np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-9)
+
+
+def test_spp_per_pass_follows_render_budget():
+    """min(spp, 2^21 // npix) samples a pass, as the JAX render() sets it."""
+    scene, cfg = tpresets.volumetric_box(res=8, spp=3, heterogeneous=True,
+                                         density_res=8, max_depth=2,
+                                         filter="box")
+    stats = {}
+    trender.render(scene, cfg, seed=0, stats=stats)
+    assert len(stats["passes"]) == 1
+    assert all(p[3] == 0 for p in stats["passes"])
+
+
+@pytest.mark.parametrize("kw,step", [
+    (dict(filter="gaussian"), "step 4"),
+    (dict(filter="box", engine="loop"), "step 4"),
+    (dict(filter="box", integrator="path"), "step 9"),
+    (dict(filter="box", integrator="bdpt"), "step 12"),
+    (dict(filter="box", emitter_kind="point"), "step 5"),
+])
+def test_other_roads_raise(kw, step):
+    scene, cfg = tpresets.volumetric_box(res=8, spp=1, heterogeneous=True,
+                                         density_res=8, **kw)
+    with pytest.raises(NotImplementedError, match=step):
+        trender.render(scene, cfg)
+
+
+def test_port_imports_and_renders_without_jax():
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        import mitsubaer_tpu_torch
+        from mitsubaer_tpu_torch.integrators import render
+        from mitsubaer_tpu_torch.scene import presets
+        scene, cfg = presets.volumetric_box(res=8, spp=2, heterogeneous=True,
+                                            density_res=8, max_depth=2,
+                                            filter="box")
+        img = render.render(scene, cfg, seed=0, device="cpu")
+        assert img.shape == (8, 8, 3) and float(img.mean()) > 0
+        assert not any(m == "mitsubaer_tpu" or m.startswith("mitsubaer_tpu.")
+                       for m in sys.modules)
+        print("ok")
+    """)
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120,
+                          env={"PATH": "/usr/bin:/bin", "OMP_NUM_THREADS": "1",
+                               "PYTHONPATH": str(REPO)})
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
