@@ -6,14 +6,23 @@ Phases (any failure raises and the script exits non-zero):
   1. device: require CUDA; print the card's name and power limit;
   2. build: compile csrc/*.cu with nvcc (or load the cached library);
   3. kernel A (trilinear density lookup) against its plain version on 10^6
-     points in and around the 64^3 grid, f32 and bf16-rounded grids;
+     points in and around the 64^3 grid, f32 and bf16-rounded grids, and
+     torch's grid_sample on the same points as the yardstick;
   4. kernel B (boxwalk) against its plain version at sppc 8, depth 12,
      density 64^3, at res 64 and at the main path's 512^2;
-  5. the main path: render() of the bounded-volume scene at 512^2, spp 32,
-     depth 12, density 64^3, box filter, on the card; every kernel's launch
-     counter must be non-zero. Then the same render at a small size on the
-     card and on the CPU (plain versions), which must agree.
-Prints one JSON line of per-kernel results, then the contract line
+  5. the bounded-volume path: render() at 512^2, spp 32, depth 12, density
+     64^3, box filter, on the card; every kernel's launch counter must be
+     non-zero. Then the same render at a small size on the card and on the
+     CPU (plain versions), which must agree;
+  6. kernels D and E (the eikonal marches) against their plain versions on
+     the card at the eikonal bench's shapes (18,432 and 36,864 lanes);
+  7. the eikonal path: render() of refractive_sphere at the eikonal bench's
+     full width (96^2, spp 2, depth 6, linear RIF, h 1e-2, 8 BVP restarts
+     at 4x h) on the card; both march kernels must have launched;
+  8. the same eikonal render at 24^2 on the card and on the CPU (plain
+     versions), which must agree.
+Prints one JSON line of per-kernel results (time, bound, plain version,
+library yardstick, launches on the main paths), then the contract line
 {"ok": true, "device": {...}} last.
 """
 from __future__ import annotations
@@ -22,6 +31,23 @@ import json
 import subprocess
 import sys
 import time
+
+# Published peaks of one H100 SXM (NVIDIA data sheet): fp32 outside the
+# tensor cores and HBM3 bandwidth. A kernel's bound is the larger of its
+# operations over the first and its bytes (each input read once, each output
+# written once) over the second.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# Operations per unit of work, counted from the CUDA sources (adds,
+# multiplies, compares, selects, divisions and transcendentals one each):
+# kernel A per point; kernel B per density tap and per path segment (the
+# tap's nine hashed uniforms, lookup and tracking step, and the collision's
+# beam NEE, phase sample and roulette spread over the segments it opens);
+# kernels D and E per march step by RIF kind (linear, radial).
+OPS_A_POINT = 45
+OPS_B_TAP, OPS_B_SEGMENT = 190, 100
+OPS_D_STEP = {1: 54, 2: 92}
+OPS_E_STEP = {1: 267, 2: 347}
 
 
 def _cuda_ms(fn, reps):
@@ -39,6 +65,78 @@ def _cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _bound(nbytes, ops):
+    """(bound in ms, what bounds it) for the given bytes and operations."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _kernel_row(name, source, replaces, err, ms, plain_ms, bound, library_ms):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms)
+
+
+def _er_inputs(rif, n_d, n_e, seed, dev):
+    """Seeded lanes for kernels D and E in the unit-sphere medium: D marches
+    from inside points along random directions for a sampled arc length (a
+    tenth march to the boundary); E starts as integrate_with_sensitivities
+    starts it, half the targets at the bench scene's point light."""
+    import numpy as np
+    import torch
+
+    from mitsubaer_tpu_torch.models import eikonal as ek
+
+    r = np.random.default_rng(seed)
+
+    def unit(k):
+        d = r.normal(size=(k, 3))
+        return torch.from_numpy(
+            (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32))
+
+    p = torch.from_numpy(r.uniform(-0.55, 0.55, (n_d, 3)).astype(np.float32))
+    v = unit(n_d) * ek.rif_value(rif, p)[:, None]
+    dist = torch.from_numpy(np.where(r.uniform(size=n_d) < 0.1, 1e6,
+                                     r.exponential(2.4, n_d)).astype(np.float32))
+    act = torch.from_numpy(r.uniform(size=n_d) < 0.9)
+    d_in = [t.to(dev) for t in (p, v, dist, act)]
+
+    p1 = torch.from_numpy(r.uniform(-0.55, 0.55, (n_e, 3)).astype(np.float32))
+    p2 = torch.from_numpy(r.uniform(-0.9, 0.9, (n_e, 3)).astype(np.float32))
+    p2[: n_e // 2] = torch.tensor([2.0, 2.0, -2.0])
+    v0 = p2 - p1
+    r0 = ek.rif_value(rif, p1)
+    nv = v0.norm(dim=-1)
+    dvdv0 = (r0 / nv ** 3)[:, None, None] * (
+        (nv ** 2)[:, None, None] * torch.eye(3) - v0[:, :, None] * v0[:, None])
+    v = v0 / nv[:, None] * r0[:, None]
+    act = torch.from_numpy(r.uniform(size=n_e) < 0.9)
+    e_in = [t.to(dev) for t in (p1, v, torch.zeros((n_e, 3, 3)), dvdv0, p2,
+                                act)]
+    return d_in, e_in
+
+
+def _compare_march(name, got, want, flags, rtol):
+    """Floats within atol 3e-6 / rtol on the lanes whose flags agree, the
+    flags on >= 99.9% of lanes, the step counts equal. Returns the largest
+    absolute difference."""
+    import torch
+
+    same = got[flags] == want[flags]
+    share = same.float().mean().item()
+    if share < 0.999:
+        raise AssertionError(f"{name}: flags agree on {share:.5f} < 0.999")
+    if int(got[-1]) != int(want[-1]):
+        raise AssertionError(f"{name}: steps {int(got[-1])} != "
+                             f"{int(want[-1])}")
+    err = 0.0
+    for i, (a, b) in enumerate(zip(got[:-1], want[:-1])):
+        if i != flags:
+            torch.testing.assert_close(a[same], b[same], atol=3e-6, rtol=rtol)
+            err = max(err, (a[same] - b[same]).abs().max().item())
+    return err, share
+
+
 def main() -> int:
     import torch
 
@@ -49,6 +147,8 @@ def main() -> int:
     from mitsubaer_tpu_torch import kernels
     from mitsubaer_tpu_torch.integrators import boxwalk
     from mitsubaer_tpu_torch.integrators import render as render_m
+    from mitsubaer_tpu_torch.models import eikonal as ek
+    from mitsubaer_tpu_torch.models import ermarch
     from mitsubaer_tpu_torch.models import medium
     from mitsubaer_tpu_torch.scene import presets
 
@@ -72,7 +172,7 @@ def main() -> int:
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print("  ptxas:", line.strip())
-    results = []
+    results = {}
 
     # ---- phase 3: kernel A against its plain version ----
     scene, cfg = presets.volumetric_box(res=512, spp=32, heterogeneous=True,
@@ -103,13 +203,25 @@ def main() -> int:
         plain_ms.append(_cuda_ms(
             lambda: medium.trilinear_lookup_plain(grid.grid, grid.aabb6, pts),
             20))
-    print(f"kernel A at N=1e6: {ms[0]:.4f} ms, plain {plain_ms[0]:.4f} ms "
-          f"[{card}]", flush=True)
-    results.append(dict(
-        name="trilinear_lookup", route="cuda",
-        source="mitsubaer_tpu_torch/csrc/trilinear.cu",
-        replaces="mitsubaer_tpu/models/medium.py:118",
-        max_abs_err=max(errs), ms=ms[0], plain_ms=plain_ms[0]))
+    # yardstick: one grid_sample call on the same points (trilinear,
+    # align_corners=True puts the voxel centres on the AABB as kernel A
+    # does; zeros padding fades to 0 over the voxel outside the AABB, where
+    # kernel A returns 0)
+    grid = medium.DensityGrid(scene.media)
+    lo, hi = grid.aabb6[:3], grid.aabb6[3:]
+    vol = grid.grid[None, None]
+    coords = ((pts - lo) / (hi - lo) * 2.0 - 1.0).reshape(1, 1, 1, n, 3)
+    lib_a_ms = _cuda_ms(lambda: torch.nn.functional.grid_sample(
+        vol, coords, mode="bilinear", padding_mode="zeros",
+        align_corners=True), 50)
+    bound_a = _bound(n * 16 + grid.grid.numel() * 4, n * OPS_A_POINT)
+    print(f"kernel A at N=1e6: {ms[0]:.4f} ms, plain {plain_ms[0]:.4f} ms, "
+          f"grid_sample {lib_a_ms:.4f} ms, bound {bound_a[0]:.4f} ms "
+          f"({bound_a[1]}) [{card}]", flush=True)
+    results["trilinear_lookup"] = _kernel_row(
+        "trilinear_lookup", "mitsubaer_tpu_torch/csrc/trilinear.cu",
+        "mitsubaer_tpu/models/medium.py:118", max(errs), ms[0], plain_ms[0],
+        bound_a, lib_a_ms)
 
     # ---- phase 4: kernel B against its plain version, at res 64 and at
     # the main path's pass shape (512^2, sppc 8) ----
@@ -145,15 +257,18 @@ def main() -> int:
         b_ms = _cuda_ms(lambda: boxwalk.walk(params, seed, table, beam_tab,
                                              shape), 5)
         b_err = (film_k - film_p).abs().max().item()
+        bytes_b = (out_k.numel() * 4 + table.numel() * 2 + beam_tab.numel() * 4
+                   + params.numel() * 4)
+        bound_b = _bound(bytes_b, st_k[1] * OPS_B_TAP + st_k[0] * OPS_B_SEGMENT)
         print(f"kernel B at res {res} sppc 8: {b_ms:.4f} ms, plain "
-              f"{plain_b_ms:.1f} ms [{card}]", flush=True)
-    results.append(dict(
-        name="boxwalk", route="cuda",
-        source="mitsubaer_tpu_torch/csrc/boxwalk.cu",
-        replaces="mitsubaer_tpu/integrators/boxwalk.py:153",
-        max_abs_err=b_err, ms=b_ms, plain_ms=plain_b_ms))
+              f"{plain_b_ms:.1f} ms, bound {bound_b[0]:.4f} ms "
+              f"({bound_b[1]}) [{card}]", flush=True)
+    results["boxwalk"] = _kernel_row(
+        "boxwalk", "mitsubaer_tpu_torch/csrc/boxwalk.cu",
+        "mitsubaer_tpu/integrators/boxwalk.py:153", b_err, b_ms, plain_b_ms,
+        bound_b, None)
 
-    # ---- phase 5: the main path ----
+    # ---- phase 5: the bounded-volume path ----
     medium.trilinear_lookup.launches = 0
     boxwalk.walk.launches = 0
     stats = {}
@@ -180,8 +295,8 @@ def main() -> int:
         raise AssertionError("render left samples unfinished")
     if launches["boxwalk"] < n_pass or launches["trilinear_lookup"] < n_pass + 4:
         raise AssertionError(f"main path skipped a kernel: {launches}")
-    for r in results:
-        r["launches"] = launches[r["name"]]
+    for name, count in launches.items():
+        results[name]["launches"] = count
 
     # the same render small, on the card and on the CPU (plain versions)
     c_scene, c_cfg = presets.volumetric_box(res=32, spp=8, heterogeneous=True,
@@ -198,11 +313,117 @@ def main() -> int:
     if not (0.99 <= ratio <= 1.01 and mean_rel <= 0.01):
         raise AssertionError("card and CPU renders disagree")
 
-    print(json.dumps({"kernels": results}))
+    # ---- phase 6: kernels D and E against their plain versions, at the
+    # eikonal bench's shapes ----
+    rif = ek.RifField(ek.RIF_LINEAR, (1.3, 0.15, 0.0, 0.0))
+    sdf = ek.SdfField(ek.SDF_SPHERE, (0.0, 0.0, 0.0, 1.0))
+    (p, v, dist, act), e_in = _er_inputs(rif, 18_432, 36_864, 11, dev)
+    h_d, steps_d, h_e, steps_e = 1e-2, 256, 4e-2, 64
+    got = ermarch.trace(rif, sdf, p, v, dist, h_d, steps_d, act)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ermarch.trace_plain(rif, sdf, p, v, dist, h_d, steps_d, act)
+    torch.cuda.synchronize()
+    plain_d_ms = (time.perf_counter() - t0) * 1e3
+    err_d, share_d = _compare_march("kernel D", got, want, 4, 1e-5)
+    rows_d = ermarch.trace_rows(p, v, dist, h_d, act)
+    _, trips = ermarch.run_kernel("mk_er_trace", rif, sdf, rows_d, steps_d)
+    d_ms = _cuda_ms(lambda: ermarch.run_kernel("mk_er_trace", rif, sdf,
+                                               rows_d, steps_d), 20)
+    n_d = p.shape[0]
+    bound_d = _bound(n_d * (2 * 12 * 4 + 4),
+                     int(trips.sum()) * OPS_D_STEP[rif.kind])
+    print(f"kernel D at {n_d} lanes, h {h_d}, max_steps {steps_d}: "
+          f"{d_ms:.4f} ms, plain {plain_d_ms:.1f} ms, bound "
+          f"{bound_d[0]:.5f} ms ({bound_d[1]}), steps {int(got[-1])}, lane "
+          f"steps {int(trips.sum())}, exited flags equal on {share_d:.6f}, "
+          f"max abs err {err_d:.3e} [{card}]", flush=True)
+    results["er_trace"] = _kernel_row(
+        "er_trace", "mitsubaer_tpu_torch/csrc/ermarch.cu",
+        "mitsubaer_tpu/models/ermarch.py:122", err_d, d_ms, plain_d_ms,
+        bound_d, None)
+
+    got = ermarch.sens_march(rif, sdf, *e_in[:5], h_e, steps_e, e_in[5])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = ermarch.sens_march_plain(rif, sdf, *e_in[:5], h_e, steps_e,
+                                    e_in[5])
+    torch.cuda.synchronize()
+    plain_e_ms = (time.perf_counter() - t0) * 1e3
+    err_e, share_e = _compare_march("kernel E", got, want, 6, 1e-4)
+    rows_e = ermarch.sens_rows(*e_in[:5], h_e, e_in[5])
+    _, trips = ermarch.run_kernel("mk_er_sens", rif, sdf, rows_e, steps_e)
+    e_ms = _cuda_ms(lambda: ermarch.run_kernel("mk_er_sens", rif, sdf,
+                                               rows_e, steps_e), 20)
+    n_e = e_in[0].shape[0]
+    bound_e = _bound(n_e * (2 * 32 * 4 + 4),
+                     int(trips.sum()) * OPS_E_STEP[rif.kind])
+    print(f"kernel E at {n_e} lanes, h {h_e}, max_steps {steps_e}: "
+          f"{e_ms:.4f} ms, plain {plain_e_ms:.1f} ms, bound "
+          f"{bound_e[0]:.5f} ms ({bound_e[1]}), steps {int(got[-1])}, lane "
+          f"steps {int(trips.sum())}, crossed flags equal on {share_e:.6f}, "
+          f"max abs err {err_e:.3e} [{card}]", flush=True)
+    results["er_sens"] = _kernel_row(
+        "er_sens", "mitsubaer_tpu_torch/csrc/ermarch.cu",
+        "mitsubaer_tpu/models/ermarch.py:194", err_e, e_ms, plain_e_ms,
+        bound_e, None)
+
+    # ---- phase 7: the eikonal path at full width ----
+    er_scene, er_cfg = _er_bench_scene(presets, 96, 2, 256)
+    ermarch.trace.launches = 0
+    ermarch.sens_march.launches = 0
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = render_m.render(er_scene, er_cfg, seed=1, device=dev, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"er_trace": ermarch.trace.launches,
+                "er_sens": ermarch.sens_march.launches}
+    mean = img.mean().item()
+    print(f"eikonal path: 96x96 spp 2 depth 6, bounces "
+          f"{[p_[0] for p_ in stats['passes']]}, wall {wall:.3f} s, "
+          f"{96 * 96 * 2 / wall / 1e6:.6f} Msamples/s, mean {mean:.6f}, "
+          f"launches {launches} [{card}]", flush=True)
+    if tuple(img.shape) != (96, 96, 3) or not bool(torch.isfinite(img).all()):
+        raise AssertionError("ER render produced a non-finite or misshapen "
+                             "image")
+    if not mean > 0:
+        raise AssertionError("ER render produced a black image")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"eikonal path skipped a kernel: {launches}")
+    for name, count in launches.items():
+        results[name]["launches"] = count
+
+    # ---- phase 8: the eikonal render small, card against CPU ----
+    s_scene, s_cfg = _er_bench_scene(presets, 24, 4, 128)
+    img_g = render_m.render(s_scene, s_cfg, seed=3, device=dev).cpu()
+    img_c = render_m.render(s_scene, s_cfg, seed=3, device="cpu")
+    lum_g, lum_c = img_g.mean(-1), img_c.mean(-1)
+    sel = lum_c > 0
+    ratio = (lum_g[sel] / lum_c[sel]).median().item()
+    mean_rel = abs(img_g.mean().item() / img_c.mean().item() - 1)
+    print(f"card vs CPU eikonal render at 24x24 spp 4: median pixel ratio "
+          f"{ratio:.6f}, mean rel diff {mean_rel:.2e}", flush=True)
+    if not (0.98 <= ratio <= 1.02 and mean_rel <= 0.02):
+        raise AssertionError("card and CPU eikonal renders disagree")
+
+    print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _er_bench_scene(presets, res, spp, max_steps):
+    """bench.py::bench_er_forward's configuration at res^2 and spp."""
+    from dataclasses import replace
+
+    scene, cfg = presets.refractive_sphere(
+        res=res, spp=spp, max_depth=6, rif_kind=1, rif_params=(1.3, 0.15),
+        er_stepsize=1e-2, filter="box")
+    return scene, replace(cfg, er_maxsteps=max_steps, bvp_restarts=8,
+                          er_bvp_hscale=4.0)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,19 @@
 """mitsubaer_tpu_torch: the PyTorch/CUDA port of mitsubaer_tpu.
 
-The first slice is the forward render of the bounded scattering volume on the
-boxwalk road: `integrators.render.render(scene, cfg, seed=..., device=...)`
-with a scene from `scene.presets.volumetric_box(..., filter="box")`. Its two
-hand-written CUDA kernels live in csrc/ and are built by kernels.py at first
-use; on CPU tensors each kernel's plain PyTorch version runs instead.
+Two forward-render roads are ported: the bounded scattering volume on the
+boxwalk road (`scene.presets.volumetric_box(..., filter="box")`) and the
+eikonal (refractive) road, `integrator="volpath_er"`
+(`scene.presets.refractive_sphere(..., filter="box")`), both through
+`integrators.render.render(scene, cfg, seed=..., device=...)`, which runs
+on the CUDA card unless device="cpu" is passed. Their hand-written CUDA
+kernels live in csrc/ and are built by kernels.py at first use; on CPU
+tensors each kernel's plain PyTorch version runs instead.
 """
+
+
+def not_ported(what: str, step: int) -> NotImplementedError:
+    """The error for a part of the JAX package the port does not have yet,
+    naming the ROADMAP Queue 1 step that will port it."""
+    return NotImplementedError(
+        f"{what} is not ported to mitsubaer_tpu_torch yet (ROADMAP Queue 1 "
+        f"step {step})")

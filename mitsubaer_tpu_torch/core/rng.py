@@ -65,7 +65,10 @@ class Sampler:
     seed: torch.Tensor
 
 
-def make_sampler(seed, lane, sample_index, mode: int = INDEPENDENT) -> Sampler:
+def make_sampler(seed, lane, sample_index, mode: int = INDEPENDENT,
+                 n_samples: int = 16) -> Sampler:
+    """`n_samples` (the spp) only shapes the stratified samplers, which are
+    not ported; it is accepted so callers read as the JAX package's."""
     if mode != INDEPENDENT:
         raise NotImplementedError(
             "only the independent sampler is ported (ROADMAP Queue 1 step 1)")

@@ -1,10 +1,16 @@
-"""Render entry point (port of mitsubaer_tpu/integrators/render.py::render
-on the boxwalk road, plus the collimated-beam splat).
+"""Render entry point (port of mitsubaer_tpu/integrators/render.py::render).
 
-The JAX package takes boxwalk only on a TPU backend; here a CUDA device is
-its counterpart and the CPU runs the same road through the plain versions
-of the kernels. Every other road raises NotImplementedError with the ROADMAP
-Queue 1 step that will port it.
+Two roads are ported:
+- boxwalk: the bounded-volume scene class with a box filter
+  (`boxwalk.supported`), plus the collimated-beam splat. The JAX package
+  takes it only on a TPU backend; here on every device.
+- volpath_er: the eikonal (refractive) integrator, forward and steady-state,
+  with a box filter; each spp chunk runs camera rays, the host-driven bounce
+  loop and the film splat, as the JAX render's host-stepped ER branch.
+
+Renders run on the CUDA card unless the caller passes device="cpu", where
+the plain PyTorch versions of the kernels run instead. Every other road
+raises NotImplementedError with the ROADMAP Queue 1 step that will port it.
 """
 from __future__ import annotations
 
@@ -13,27 +19,24 @@ from dataclasses import replace
 
 import torch
 
+from .. import not_ported
 from ..core import rng
+from ..models import film as film_m
 from ..models import medium as medium_m
 from ..models import phase as phase_m
 from ..models import sensor as sensor_m
 from ..scene.types import EM_COLLIMATED, MED_HETEROGENEOUS, RenderConfig, Scene
 from . import boxwalk, common
 from . import volpath as volpath_m
+from . import volpath_er as er_m
 
 _NOT_PORTED = {
-    "path": 9, "direct": 9, "ao": 9, "field": 9, "volpath_er": 7,
+    "path": 9, "direct": 9, "ao": 9, "field": 9,
     "ptracer": 12, "vpl": 12, "bdpt": 12, "pssmlt": 12, "pssmlt_volpath": 12,
     "mlt": 12, "erpt": 12, "singlescatter": 12, "singlescatter_mesh": 12,
     "dipole": 12, "photonmapper": 12, "ppm": 12, "sppm": 12, "bre": 12,
     "irrcache": 12,
 }
-
-
-def _not_ported(what: str, step: int):
-    return NotImplementedError(
-        f"{what} is not ported to mitsubaer_tpu_torch yet (ROADMAP Queue 1 "
-        f"step {step})")
 
 
 def _use_wavefront(cfg: RenderConfig) -> bool:
@@ -59,7 +62,7 @@ def beam_splat_pass(scene: Scene, splat, cfg: RenderConfig, n_samples: int,
     add power * Tr(o_b, y) * sigma_s(y) * rho * Tr(y, cam) / (d^2 pdf(s)).
     Accumulates into `splat` (H, W, 3) in place and returns it."""
     if cfg.n_frames != 1:
-        raise _not_ported("the transient beam splat", 10)
+        raise not_ported("the transient beam splat", 10)
     H, W = cfg.height, cfg.width
     dev = splat.device
     beam = volpath_m.get_beam(scene)
@@ -100,31 +103,53 @@ def beam_splat_pass(scene: Scene, splat, cfg: RenderConfig, n_samples: int,
     return splat
 
 
+def _device(device) -> torch.device:
+    """The device to render on: the CUDA card unless `device` names
+    another. Never falls back to the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("render(): no CUDA device; pass device='cpu' to "
+                           "run the plain PyTorch versions on the CPU")
+    return device
+
+
 def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
            seed: int = 0, device=None, stats: dict | None = None):
-    """Render to a developed (H, W, 3) image on `device` (default: the
-    scene's). If `stats` is a dict, it receives per-pass boxwalk stats
-    ("passes": list of [segments, taps, iters, unfinished]) and the seconds
-    the boxwalk passes took ("boxwalk_s", timed with a device synchronize
-    around each pass)."""
+    """Render to a developed (H, W, 3) image on `device`: the CUDA card by
+    default (it raises where there is none), the CPU only when
+    device="cpu" is passed.
+
+    Roads: integrator "volpath_er" takes the eikonal road (box filter,
+    steady state); "volpath" with a box filter on a scene of the boxwalk
+    class takes boxwalk. The others raise NotImplementedError naming their
+    ROADMAP Queue 1 step: the loop engine (gaussian/tent filters, step 4),
+    the wavefront engine (step 5), the surface integrators (step 9), the
+    transient sinks (step 10) and the other integrators (step 12).
+
+    If `stats` is a dict it receives, per pass, on the boxwalk road
+    "passes" ([segments, taps, iters, unfinished]) and "boxwalk_s", on the
+    eikonal road "passes" ([bounces]) and "er_s": seconds, timed with a
+    device synchronize around each pass."""
     if spp is not None:
         cfg = replace(cfg, spp=spp)
-    if device is not None:
-        scene = scene.to(device)
     if cfg.integrator in _NOT_PORTED:
-        raise _not_ported(f"integrator {cfg.integrator!r}",
+        raise not_ported(f"integrator {cfg.integrator!r}",
                           _NOT_PORTED[cfg.integrator])
+    if cfg.integrator == "volpath_er":
+        er_m.check_supported(cfg)
+        if cfg.filter != "box":
+            raise not_ported(f"the {cfg.filter!r} film filter", 4)
+        return _render_er(scene.to(_device(device)), cfg, seed, stats)
     if not _use_wavefront(cfg):
-        raise _not_ported("the loop engine (gaussian/tent filters, "
+        raise not_ported("the loop engine (gaussian/tent filters, "
                           "engine='loop')", 4)
     if not boxwalk.supported(scene, cfg):
-        raise _not_ported("the wavefront engine (scenes outside the boxwalk "
+        raise not_ported("the wavefront engine (scenes outside the boxwalk "
                           "class)", 5)
+    scene = scene.to(_device(device))
     dev = scene.aabb_min.device
     npix = cfg.width * cfg.height
-    # as in the JAX render(): the per-pass budget is fixed before the
-    # engine is chosen, so boxwalk runs min(spp, 2^21 // npix) per pass
-    spp_per_pass = max(1, min(cfg.spp, (1 << 21) // max(npix, 1)))
+    spp_per_pass = _spp_per_pass(cfg)
     L = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
     done = 0
     pass_idx = 0
@@ -154,6 +179,41 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
             beam_splat_pass(scene, splat, cfg, n_splat, seed, i)
         img = img + splat / float(n_splat * n_passes)
     return img
+
+
+def _spp_per_pass(cfg: RenderConfig) -> int:
+    """min(spp, 2^21 // npix), as the JAX render() fixes the per-pass
+    budget before it picks the engine (so boxwalk does not get its own)."""
+    return max(1, min(cfg.spp, (1 << 21) // max(cfg.width * cfg.height, 1)))
+
+
+def _render_er(scene: Scene, cfg: RenderConfig, seed: int, stats):
+    """The eikonal road: spp chunks of volpath_er.render_er_pass into a
+    box-filtered film (render.py:323-345)."""
+    dev = scene.aabb_min.device
+    H, W = cfg.height, cfg.width
+    accum = film_m.new_accumulator(cfg, dev)
+    spp_per_pass = _spp_per_pass(cfg)
+    if stats is not None:
+        stats.setdefault("passes", [])
+        stats.setdefault("er_s", 0.0)
+    done = pass_idx = 0
+    while done < cfg.spp:
+        sppc = min(spp_per_pass, cfg.spp - done)
+        if stats is not None:
+            _sync(dev)
+            t0 = time.perf_counter()
+        sink, jitter, bounces = er_m.render_er_pass(scene, cfg, sppc, seed,
+                                                    pass_idx)
+        accum = film_m.splat(accum, sink.reshape(sppc, H, W, 3),
+                             jitter.reshape(sppc, H, W, 2), cfg.filter)
+        if stats is not None:
+            _sync(dev)
+            stats["er_s"] += time.perf_counter() - t0
+            stats["passes"].append([bounces])
+        done += sppc
+        pass_idx += 1
+    return film_m.develop(accum)
 
 
 def _sync(device):

@@ -1,0 +1,363 @@
+"""Refractive radiative transfer: volumetric path tracing with curved rays
+through a refractive-index field (port of
+mitsubaer_tpu/integrators/volpath_er.py, forward and steady-state).
+
+Camera paths travel straight outside the refractive body, refract into it
+through an h-dielectric boundary (Fresnel by the RIF at the hit point),
+march curved rays inside (kernel D) with the medium's homogeneous
+coefficients, connect scatter vertices to the emitters by solving the
+curved boundary value problem (kernel E inside the Levenberg solve), and
+refract or reflect out. Radiance is compressed by (n_end / n_start)^2 along
+each curved segment, and failed connections are russian-rouletted, as in
+the reference (edge.cpp:91-92, heterogeneousrefractive.cpp:1146-1155).
+
+The bounce loop runs on the host, one `body` a bounce, until no lane is
+active: the JAX `li`'s while loop, with `iters` counted as it counts them
+(the BVP restart seed hashes it). The light image (`trace_er_particles`),
+transient sinks, `differentiable=True`, `er_f64` and `medium_strategies`
+are not ported (ROADMAP Queue 1 steps 7, 8 and 10).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from .. import not_ported
+from ..core import rng
+from ..core.math import (Frame, dot, fresnel_dielectric, mis_weight_power,
+                         normalize)
+from ..core.rng import M32, mul32
+from ..models import bsdf as bsdf_m
+from ..models import eikonal as ek
+from ..models import emitter as emitter_m
+from ..models import medium as medium_m
+from ..models import phase as phase_m
+from ..models import sensor as sensor_m
+from ..scene import intersect as isect
+from ..scene.types import EM_CONSTANT, MED_REFRACTIVE, RenderConfig, Scene
+from . import common
+
+
+@dataclass(frozen=True)
+class State:
+    o: torch.Tensor
+    v: torch.Tensor            # scaled velocity: |v| = n(p) inside, 1 outside
+    inside: torch.Tensor       # (N,) bool: inside the refractive medium
+    throughput: torch.Tensor
+    sink: torch.Tensor         # (N, 3) steady-state radiance
+    active: torch.Tensor
+    depth: torch.Tensor
+    plen: torch.Tensor         # optical path length
+    last_pdf: torch.Tensor
+    last_delta: torch.Tensor
+    from_medium: torch.Tensor  # (N,) bool: the last non-delta event was a
+    #   medium scatter; its transport to area emitters belongs to curved NEE
+    iters: int
+    sampler: rng.Sampler
+
+
+def check_supported(cfg: RenderConfig) -> None:
+    if cfg.er_f64:
+        raise not_ported("er_f64 (the float64 eikonal core)", 7)
+    if cfg.medium_strategies:
+        raise not_ported("cfg.medium_strategies", 7)
+    if cfg.n_frames != 1 or cfg.modulation != "none":
+        raise not_ported("transient and CW-ToF sinks", 10)
+
+
+def _refractive_params(scene: Scene):
+    """(any, sigma_a, sigma_s, sampling_weight, index) of the (single)
+    refractive medium."""
+    media = scene.media
+    is_ref = media.kind == MED_REFRACTIVE
+    idx = torch.argmax(is_ref.to(torch.int32))
+    return (is_ref.any(), media.sigma_a[idx], media.sigma_s[idx],
+            media.sampling_weight[idx], idx)
+
+
+def new_state(o, d, sampler) -> State:
+    n = o.shape[0]
+    dev = o.device
+    falses = torch.zeros((n,), dtype=torch.bool, device=dev)
+    return State(
+        o=o, v=d, inside=falses, throughput=torch.ones_like(o),
+        sink=common.new_sink(n, dev), active=~falses,
+        depth=torch.ones((n,), dtype=torch.int32, device=dev),
+        plen=torch.zeros((n,), device=dev), last_pdf=torch.zeros((n,),
+                                                                 device=dev),
+        last_delta=~falses, from_medium=falses, iters=0, sampler=sampler)
+
+
+def max_iters(cfg: RenderConfig) -> int:
+    return 2 * cfg.max_depth + 8
+
+
+def body(scene: Scene, cfg: RenderConfig, s: State, rif: ek.RifField,
+         sdf: ek.SdfField) -> State:
+    """One bounce of every lane (volpath_er.py:131-452)."""
+    n = s.o.shape[0]
+    dev = s.o.device
+    eps = common.scene_epsilon(scene)
+    media = scene.media
+    has_ref, sigma_a, sigma_s, samp_w, med_idx = _refractive_params(scene)
+    sigma_t = sigma_a + sigma_s
+    h = cfg.er_stepsize
+    smp = s.sampler
+    ones = torch.ones((n,), device=dev)
+    med_lanes = med_idx.expand(n)
+
+    # ================= outside lanes: straight transport =================
+    d_out = normalize(s.v)
+    out_act = s.active & ~s.inside
+    hit = isect.intersect(scene.geo, s.o, d_out, eps.expand(n),
+                          torch.full((n,), isect.INF, device=dev))
+    escaped = out_act & ~hit.valid
+    env = emitter_m.env_radiance(scene, d_out)
+    env_pdf = emitter_m.pdf_direct_env(scene, d_out)
+    w_env = torch.where(s.last_delta, 1.0, mis_weight_power(s.last_pdf,
+                                                            env_pdf))
+    sink = common.add_contribution(
+        s.sink, s.throughput * env * w_env.unsqueeze(-1), escaped)
+
+    sh = scene.shapes
+    sid = torch.clamp(hit.shape_id, 0, sh.bsdf.shape[0] - 1)
+    ok_s = hit.shape_id >= 0
+    b_idx = torch.where(ok_s, sh.bsdf[sid], -1)
+    e_idx = torch.where(ok_s, sh.emitter[sid], -1)
+    m_in = torch.where(ok_s, sh.interior[sid], -1)
+    is_ref_boundary = ok_s & (m_in == med_idx) & has_ref
+
+    hide = cfg.hide_emitters & (s.depth == 1)
+    # medium-scatter -> area-emitter transport is owned by curved NEE
+    hit_emitter = out_act & hit.valid & (e_idx >= 0) & ~s.from_medium
+    le = emitter_m.eval_hit(scene, e_idx, hit.ng, -d_out)
+    lum_pdf = emitter_m.pdf_direct_hit(scene, e_idx, s.o, hit.p, hit.ng)
+    w_hit = torch.where(s.last_delta, 1.0, mis_weight_power(s.last_pdf,
+                                                            lum_pdf))
+    plen_srf = s.plen + torch.where(hit.valid, hit.t, 0.0)
+    sink = common.add_contribution(
+        sink, s.throughput * le * w_hit.unsqueeze(-1), hit_emitter & ~hide)
+
+    depth_ok = s.depth < cfg.max_depth
+
+    # --- ordinary surfaces: NEE and BSDF sampling ---
+    srf = out_act & hit.valid & ~is_ref_boundary & depth_ok & (b_idx >= 0)
+    frame = Frame.from_normal(hit.ng)
+    wi_l = frame.to_local(-d_out)
+    u2e, smp = rng.next_2d(smp)
+    u1e, smp = rng.next_1d(smp)
+    ds = emitter_m.sample_direct(scene, hit.p, u2e, u1e)
+    wo_nee = frame.to_local(ds.d)
+    f_nee = bsdf_m.eval(scene.bsdfs, b_idx, wi_l, wo_nee)
+    pdf_dir = bsdf_m.pdf(scene.bsdfs, b_idx, wi_l, wo_nee)
+    vis = (srf & (ds.pdf > 0) & torch.any(f_nee > 0, dim=-1)
+           & torch.any(ds.value > 0, dim=-1))
+    blocked = isect.occluded(scene.geo, hit.p + ds.d * eps, ds.d,
+                             (eps * 0.1).expand(n), ds.dist - 2 * eps)
+    w_nee = torch.where(ds.delta, 1.0, mis_weight_power(ds.pdf, pdf_dir))
+    sink = common.add_contribution(
+        sink, s.throughput * f_nee * ds.value
+        * (w_nee / torch.clamp_min(ds.pdf, 1e-12)).unsqueeze(-1),
+        vis & ~blocked)
+    u2b, smp = rng.next_2d(smp)
+    u1b, smp = rng.next_1d(smp)
+    bs = bsdf_m.sample(scene.bsdfs, b_idx, wi_l, u2b, u1b)
+    wo_srf = frame.to_world(bs.wo)
+
+    # --- refractive boundary crossing (h-dielectric entry) ---
+    entering = out_act & hit.valid & is_ref_boundary & depth_ok
+    n_at = ek.rif_value(rif, hit.p)
+    cos_i = dot(-d_out, hit.ng)  # > 0 when hitting the outside face
+    F, _ = fresnel_dielectric(cos_i, n_at)
+    u_f, smp = rng.next_1d(smp)
+    do_reflect = u_f < F
+    v_refl = d_out - 2.0 * dot(d_out, hit.ng, True) * hit.ng
+    N_in = torch.where((cos_i > 0).unsqueeze(-1), hit.ng, -hit.ng)
+    v_refr, _ = ek.boundary_velocity(d_out, N_in, ones, n_at)
+
+    # ================= inside lanes: curved transport =================
+    in_act = s.active & s.inside
+    u_d, smp = rng.next_1d(smp)
+    uc_d, smp = rng.next_1d(smp)
+    want_scatter, t_samp, _, _ = medium_m.sample_distance_homogeneous(
+        sigma_a.expand(n, 3), sigma_s.expand(n, 3), samp_w.expand(n),
+        torch.full((n,), 1e7, device=dev), u_d, uc_d)
+    march_dist = torch.where(want_scatter, t_samp, 1e6)
+    n_start = ek.rif_value(rif, s.o)
+    p_m, v_m, opt_m, geo_m, exited_m, _ = ek.trace_curved(
+        rif, sdf, s.o, s.v, march_dist, h, cfg.er_maxsteps, in_act)
+    scattered = in_act & want_scatter & ~exited_m
+    exited = in_act & (exited_m | ~want_scatter)
+    # boundary refinement for exiting lanes
+    p_b, v_b, opt_b, adv_b = ek.refine_boundary(rif, sdf, p_m, v_m, h)
+    ex = exited.unsqueeze(-1)
+    p_m = torch.where(ex, p_b, p_m)
+    v_m = torch.where(ex, v_b, v_m)
+    opt_m = torch.where(exited, opt_m + opt_b, opt_m)
+    geo_m = torch.where(exited, geo_m + adv_b, geo_m)
+
+    n_end = ek.rif_value(rif, p_m)
+    ref_ratio_sq = (n_end / torch.clamp_min(n_start, 1e-6)) ** 2
+    tr_seg = torch.exp(-sigma_t * geo_m.unsqueeze(-1))
+    # the strategy pdfs re-evaluated at the CURVED arc length
+    pdf_succ, pdf_fail = medium_m.homog_strategy_pdfs(sigma_t.expand(n, 3),
+                                                      geo_m)
+    w_sc = sigma_s * tr_seg / torch.clamp_min(pdf_succ * samp_w,
+                                              1e-12).unsqueeze(-1)
+    w_ex = tr_seg / torch.clamp_min(samp_w * pdf_fail + (1.0 - samp_w),
+                                    1e-12).unsqueeze(-1)
+    seg_w = torch.where(scattered.unsqueeze(-1), w_sc,
+                        torch.where(ex, w_ex, 1.0)) * torch.where(
+        in_act.unsqueeze(-1), ref_ratio_sq.unsqueeze(-1), 1.0)
+    throughput = s.throughput * seg_w
+    plen_med = s.plen + torch.where(in_act, opt_m, 0.0)
+
+    # --- curved NEE from scatter vertices (BVP) ---
+    u2n, smp = rng.next_2d(smp)
+    u1n, smp = rng.next_1d(smp)
+    dsm = emitter_m.sample_direct(scene, p_m, u2n, u1n)
+    nee_in = (scattered & depth_ok & (dsm.pdf > 0)
+              & torch.any(dsm.value > 0, dim=-1)
+              & (scene.emitters.kind[dsm.emitter] != EM_CONSTANT))
+    chord = normalize(dsm.p - p_m)
+    # the restart stream is decorrelated from the path sampler by hashing
+    # (lane, sample index, seed, bounce)
+    seed_bits = rng._hash_u32(
+        (smp.lane + mul32(smp.index, 0x9E3779B9) + mul32(smp.seed, 0xC2B2AE35)
+         + ((s.iters * 0x85EBCA6B) & M32)) & M32)
+    bvp = ek.solve_bvp(
+        rif, sdf, p_m, dsm.p, chord, h * cfg.er_bvp_hscale,
+        max(int(cfg.er_maxsteps / cfg.er_bvp_hscale), 16), nee_in,
+        tol2=cfg.bvp_tol2, rr_weight=cfg.rr_weight, seed_bits=seed_bits,
+        max_restarts=cfg.bvp_restarts)
+    conn_w = torch.where(bvp.converged, bvp.weight, 0.0)
+    d_in_m = normalize(v_m)
+    ph_val = phase_m.eval(media.phase, med_lanes, d_in_m, bvp.dir_to_target)
+    tr_conn = torch.exp(-sigma_t * bvp.geo_inside.unsqueeze(-1))
+    # radiance compression along the connection: the light is outside (n=1)
+    nee_ratio = (ek.rif_value(rif, p_m) / 1.0) ** 2
+    # the emitter's straight 1/d^2 falloff becomes 1/geo_len^2
+    d_straight = torch.clamp_min(dsm.dist, 1e-6)
+    falloff_fix = (d_straight * d_straight) / torch.clamp_min(
+        bvp.geo_total * bvp.geo_total, 1e-9)
+    contrib = (throughput * ph_val.unsqueeze(-1) * dsm.value * tr_conn
+               * (nee_ratio * falloff_fix * conn_w
+                  / torch.clamp_min(dsm.pdf, 1e-12)).unsqueeze(-1))
+    sink = common.add_contribution(sink, contrib, nee_in & bvp.converged)
+
+    # --- phase sampling at scatter vertices ---
+    u2p, smp = rng.next_2d(smp)
+    ps = phase_m.sample(media.phase, med_lanes, d_in_m, u2p)
+    v_scatter = ps.wo * n_end.unsqueeze(-1)
+
+    # --- boundary exit: Fresnel / TIR through the h-dielectric ---
+    N_out = normalize(ek.sdf_gradient(sdf, p_m))
+    cos_exit = dot(normalize(v_m), N_out)
+    F_exit, _ = fresnel_dielectric(-cos_exit, n_end)
+    u_fx, smp = rng.next_1d(smp)
+    v_exit_refr, tir_x = ek.boundary_velocity(v_m, N_out, n_end, ones)
+    exit_reflect = (u_fx < F_exit) | tir_x
+    v_exit_refl = v_m - 2.0 * dot(v_m, N_out, True) * N_out
+
+    # ================= merge state =================
+    def sel(c, a, b):
+        return torch.where(c.unsqueeze(-1) if a.dim() > c.dim() else c, a, b)
+
+    # outside, ordinary surface bounce
+    cont_srf = srf & torch.any(bs.weight > 0, dim=-1)
+    new_o = sel(cont_srf, hit.p + wo_srf * eps, s.o)
+    new_v = sel(cont_srf, wo_srf, s.v)
+    new_delta = sel(cont_srf, bs.delta, s.last_delta)
+    new_pdf = sel(cont_srf, bs.pdf, s.last_pdf)
+    throughput = sel(cont_srf, throughput * bs.weight, throughput)
+    # outside, boundary: reflect off it
+    refl_b = entering & do_reflect
+    new_o = sel(refl_b, hit.p + v_refl * eps, new_o)
+    new_v = sel(refl_b, v_refl, new_v)
+    new_delta = new_delta | refl_b
+    # outside, boundary: enter the medium (scaled velocity, marches next)
+    enter_b = entering & ~do_reflect
+    new_o = sel(enter_b, hit.p - hit.ng * (eps * 0.5)
+                + normalize(v_refr) * eps, new_o)
+    new_v = sel(enter_b, v_refr, new_v)
+    new_inside = s.inside | enter_b
+    new_delta = new_delta | enter_b
+    # inside: scattered, continue curved
+    new_o = sel(scattered, p_m, new_o)
+    new_v = sel(scattered, v_scatter, new_v)
+    new_delta = new_delta & ~scattered
+    new_pdf = sel(scattered, ps.pdf, new_pdf)
+    # inside: reflect at or leave through the boundary
+    stay = exited & exit_reflect
+    leave = exited & ~exit_reflect
+    new_o = sel(stay, p_m - N_out * (2.0 * eps), new_o)
+    new_v = sel(stay, v_exit_refl, new_v)
+    new_delta = new_delta | stay
+    d_leave = normalize(v_exit_refr)
+    new_o = sel(leave, p_m + N_out * eps + d_leave * eps, new_o)
+    new_v = sel(leave, d_leave, new_v)
+    new_inside = new_inside & ~leave
+    new_delta = new_delta | leave
+
+    plen_new = torch.where(in_act, plen_med,
+                           torch.where(out_act, plen_srf, s.plen))
+    moved = cont_srf | refl_b | enter_b | scattered | stay | leave
+    active = s.active & moved & depth_ok
+    active = active & ~torch.all(throughput <= 0, dim=-1)
+    u_rr, smp = rng.next_1d(smp)
+    throughput, survive = common.russian_roulette(throughput, ones, u_rr,
+                                                  s.depth, cfg)
+    active = active & survive
+    inc = (cont_srf | scattered | enter_b | leave) & active
+    # NaN firewall: retire lanes whose state went non-finite and scrub the
+    # stored values
+    finite = (torch.all(torch.isfinite(new_o), dim=-1)
+              & torch.all(torch.isfinite(new_v), dim=-1)
+              & torch.all(torch.isfinite(throughput), dim=-1))
+    active = active & finite
+    new_o = torch.nan_to_num(new_o, nan=0.0, posinf=0.0, neginf=0.0)
+    new_v = torch.nan_to_num(new_v, nan=1.0, posinf=1.0, neginf=-1.0)
+    throughput = torch.nan_to_num(throughput, nan=0.0, posinf=0.0, neginf=0.0)
+    new_from_medium = torch.where(scattered, True,
+                                  torch.where(cont_srf, False, s.from_medium))
+    return State(
+        o=sel(active, new_o, s.o), v=sel(active, new_v, s.v),
+        inside=sel(active, new_inside, s.inside),
+        throughput=sel(active, throughput, s.throughput),
+        sink=sink, active=active,
+        depth=torch.where(inc, s.depth + 1, s.depth),
+        plen=sel(active, plen_new, s.plen),
+        last_pdf=sel(active, new_pdf, s.last_pdf),
+        last_delta=sel(active, new_delta, s.last_delta),
+        from_medium=sel(active, new_from_medium, s.from_medium),
+        iters=s.iters + 1, sampler=smp)
+
+
+def render_er_pass(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
+                   pass_idx: int):
+    """One spp chunk with the bounce loop driven from the host; returns
+    ((sppc * npix, 3) radiance, (sppc * npix, 2) jitter, bounces run)."""
+    check_supported(cfg)
+    emitter_m.check_supported(scene)
+    H, W = cfg.height, cfg.width
+    npix = H * W
+    dev = scene.aabb_min.device
+    pixel = torch.arange(npix, dtype=torch.int64, device=dev).repeat(sppc)
+    sample_index = torch.repeat_interleave(
+        pass_idx * sppc + torch.arange(sppc, dtype=torch.int64, device=dev),
+        npix)
+    smp = rng.make_sampler(seed, pixel, sample_index, n_samples=cfg.spp)
+    jitter, smp = rng.next_2d(smp)
+    _, smp = rng.next_2d(smp)           # the thin-lens aperture sample
+    px = (pixel % W).to(torch.float32) + jitter[:, 0]
+    py = (pixel // W).to(torch.float32) + jitter[:, 1]
+    rays = sensor_m.sample_rays(scene.sensor, px, py, W, H)
+    rif = ek.rif_from_media(scene.media)
+    sdf = ek.sdf_from_media(scene.media)
+    state = new_state(rays.o, rays.d, smp)
+    for _ in range(max_iters(cfg)):
+        state = body(scene, cfg, state, rif, sdf)
+        if not bool(state.active.any()):
+            break
+    return state.sink, jitter, state.iters

@@ -30,12 +30,23 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+class ErParams(ctypes.Structure):
+    """The RIF/SDF parameters kernels D and E take by value (16 floats)."""
+
+    _fields_ = [("q", ctypes.c_float * 16)]
+
+
 _SIGNATURES = {
     # (points, grid, aabb6, out, n, nx, ny, nz, stream)
     "mk_trilinear_lookup": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # (params, seed, table, beam_tab, out, npix, sppc, max_depth, rr_depth,
     #  width, height, stride, nx, ny, nz, nbx, nby, nbz, max_trips, stream)
     "mk_boxwalk": [_P, ctypes.c_uint32, _P, _P, _P] + [_I] * 14 + [_P],
+    # (params, rows in, rows out, trips, n, max_steps, stream)
+    "mk_er_trace": [ErParams, _P, _P, _P, _I, _I, _P],
+    "mk_er_sens": [ErParams, _P, _P, _P, _I, _I, _P],
 }
 
 

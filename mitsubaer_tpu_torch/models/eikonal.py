@@ -1,0 +1,548 @@
+"""Eikonal core (port of mitsubaer_tpu/models/eikonal.py): curved rays
+through a refractive-index field (RIF) and the boundary value problem of
+curved next-event estimation.
+
+Rays obey d/ds(n dx/ds) = grad n; with the scaled velocity v (|v| = n) one
+velocity-Verlet step of size h is (er_step, heterogeneousrefractive.cpp:653)
+
+    v += h/2 grad n(p);  p += h v / n(p);  v += h/2 grad n(p);  opt += h n.
+
+Curved NEE solves for the initial velocity that joins a medium vertex to a
+target point with a batched Levenberg-Marquardt iteration over the endpoint
+error, whose Jacobian comes from dp/dv0 and dv/dv0 carried along the ray
+(er_derivativestep, :798-814). The two march loops run in kernels D and E
+(models/ermarch.py); everything around them is plain PyTorch.
+
+Fields: the analytic RIFs constant / linear / radial-Gaussian and the
+analytic sphere / box SDFs. Their parameters live on the host as float32
+values, so the kernels take them by value. The acoustic RIF, the spline RIF
+and SDF, `differentiable=True` and float64 are not ported (ROADMAP Queue 1
+steps 7 and 8).
+
+Every sum is written out in the order of the kernels' CUDA source, so that
+kernel and plain version round alike.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .. import not_ported
+from ..core import warp
+from ..core.math import Frame, dot, length, normalize, safe_sqrt, sgn
+from ..core.rng import M32, _hash_u32, _u32_to_float
+from ..scene.types import Media
+
+RIF_CONST = 0
+RIF_LINEAR = 1    # n = p0 + g . p                   params [p0, gx, gy, gz]
+RIF_RADIAL = 2    # n = p0 + a exp(-|p-c|^2 / w^2)   params [p0, a, w, cx, cy, cz]
+RIF_ACOUSTIC = 3
+RIF_SPLINE = 4
+
+SDF_NONE = 0      # always outside
+SDF_SPHERE = 1    # params [cx, cy, cz, radius]
+SDF_BOX = 2       # params [cx, cy, cz, hx, hy, hz]
+SDF_SPLINE = 3
+
+
+def _f32(x) -> float:
+    return float(np.float32(x))
+
+
+@dataclass(frozen=True)
+class RifField:
+    """An analytic RIF: kind and 8 float32 parameters, on the host."""
+
+    kind: int
+    params: tuple
+
+    def __post_init__(self):
+        if self.kind in (RIF_ACOUSTIC, RIF_SPLINE):
+            name = "acoustic" if self.kind == RIF_ACOUSTIC else "spline"
+            raise not_ported(f"the {name} RIF", 7)
+        if self.kind not in (RIF_CONST, RIF_LINEAR, RIF_RADIAL):
+            raise ValueError(f"unknown RIF kind {self.kind}")
+        object.__setattr__(self, "params", tuple(
+            _f32(x) for x in (tuple(self.params) + (0.0,) * 8)[:8]))
+
+    def radial_constants(self):
+        """(1/w^2, -2/w^2) with w^2 floored at 1e-12, in float32 as the
+        kernels form them."""
+        w = np.float32(self.params[2])
+        w2 = np.maximum(w * w, np.float32(1e-12))
+        return float(np.float32(1.0) / w2), float(np.float32(-2.0) / w2)
+
+
+@dataclass(frozen=True)
+class SdfField:
+    """An analytic SDF (negative inside): kind and 8 float32 parameters."""
+
+    kind: int
+    params: tuple
+
+    def __post_init__(self):
+        if self.kind == SDF_SPLINE:
+            raise not_ported("the spline SDF", 7)
+        if self.kind not in (SDF_NONE, SDF_SPHERE, SDF_BOX):
+            raise ValueError(f"unknown SDF kind {self.kind}")
+        object.__setattr__(self, "params", tuple(
+            _f32(x) for x in (tuple(self.params) + (0.0,) * 8)[:8]))
+
+
+def rif_from_media(media: Media) -> RifField:
+    return RifField(int(media.rif_kind), tuple(media.rif_params.tolist()))
+
+
+def sdf_from_media(media: Media) -> SdfField:
+    return SdfField(int(media.sdf_kind), tuple(media.sdf_params.tolist()))
+
+
+# ---------------------------------------------------------------------------
+# fields
+# ---------------------------------------------------------------------------
+def _rif(f: RifField, p, need_hess: bool):
+    """(value (N,), gradient (N, 3), Hessian (N, 3, 3) or None)."""
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    q = f.params
+    zeros = torch.zeros_like(x)
+    if f.kind == RIF_RADIAL:
+        inv_w2, k_r = f.radial_constants()
+        d = (x - q[3], y - q[4], z - q[5])
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        e = q[1] * torch.exp(-(r2 * inv_w2))
+        val = q[0] + e
+        ke = k_r * e
+        g = [ke * d[i] for i in range(3)]
+        hess = None
+        if need_hess:
+            hess = torch.stack([
+                torch.stack([d[i] * g[j] * k_r + ke if i == j
+                             else d[i] * g[j] * k_r for j in range(3)], -1)
+                for i in range(3)], -2)
+        return val, torch.stack(g, -1), hess
+    if f.kind == RIF_LINEAR:
+        val = q[0] + x * q[1] + y * q[2] + z * q[3]
+        g = torch.stack([zeros + q[1], zeros + q[2], zeros + q[3]], -1)
+    else:
+        val = zeros + q[0]
+        g = torch.zeros_like(p)
+    hess = torch.zeros(p.shape + (3,), dtype=p.dtype,
+                       device=p.device) if need_hess else None
+    return val, g, hess
+
+
+def rif_value(f: RifField, p):
+    return _rif(f, p, False)[0]
+
+
+def rif_value_grad(f: RifField, p):
+    v, g, _ = _rif(f, p, False)
+    return v, g
+
+
+def rif_value_grad_hess(f: RifField, p):
+    return _rif(f, p, True)
+
+
+def sdf_value(f: SdfField, p):
+    """Signed distance, negative inside; SDF_NONE is 1 (outside)."""
+    q = f.params
+    if f.kind == SDF_NONE:
+        return torch.ones_like(p[..., 0])
+    d = (p[..., 0] - q[0], p[..., 1] - q[1], p[..., 2] - q[2])
+    if f.kind == SDF_SPHERE:
+        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
+        return torch.sqrt(torch.clamp_min(r2, 1e-30)) - q[3]
+    b = [torch.abs(d[i]) - q[3 + i] for i in range(3)]
+    m = [torch.clamp_min(b[i], 0.0) for i in range(3)]
+    outside = torch.sqrt(torch.clamp_min(
+        m[0] * m[0] + m[1] * m[1] + m[2] * m[2], 1e-30))
+    inside = torch.clamp_max(
+        torch.maximum(b[0], torch.maximum(b[1], b[2])), 0.0)
+    return outside + inside
+
+
+def sdf_gradient(f: SdfField, p):
+    q = f.params
+    dp = p - torch.tensor(q[:3], dtype=p.dtype, device=p.device)
+    if f.kind == SDF_SPHERE:
+        return normalize(dp)
+    b = torch.abs(dp) - torch.tensor(q[3:6], dtype=p.dtype, device=p.device)
+    g_out = normalize(torch.clamp_min(b, 0.0) * sgn(dp))
+    axis = torch.argmax(b, dim=-1, keepdim=True)
+    g_in = torch.zeros_like(dp).scatter_(-1, axis, 1.0) * sgn(dp)
+    return torch.where(torch.any(b > 0, dim=-1, keepdim=True), g_out, g_in)
+
+
+def inside_shape(f: SdfField, p):
+    return sdf_value(f, p) < 0.0
+
+
+# ---------------------------------------------------------------------------
+# 3x3 helpers, sums written out
+# ---------------------------------------------------------------------------
+def _outer(a, b):
+    return a.unsqueeze(-1) * b.unsqueeze(-2)
+
+
+def _mm(a, b):
+    """Batched 3x3 product, C_ij = (a_i0 b_0j + a_i1 b_1j) + a_i2 b_2j."""
+    return (a[..., :, 0:1] * b[..., 0:1, :] + a[..., :, 1:2] * b[..., 1:2, :]
+            + a[..., :, 2:3] * b[..., 2:3, :])
+
+
+def _vm(x, m):
+    """Row vector times matrix, y_j = (x_0 m_0j + x_1 m_1j) + x_2 m_2j."""
+    return (x[..., 0:1] * m[..., 0, :] + x[..., 1:2] * m[..., 1, :]
+            + x[..., 2:3] * m[..., 2, :])
+
+
+def _mv(m, x):
+    """Matrix times column vector, y_i = (m_i0 x_0 + m_i1 x_1) + m_i2 x_2."""
+    return (m[..., :, 0] * x[..., 0:1] + m[..., :, 1] * x[..., 1:2]
+            + m[..., :, 2] * x[..., 2:3])
+
+
+def _lanes(x, n, like):
+    """A scalar or (N,) value as an (N,) float32 tensor."""
+    return torch.as_tensor(x, dtype=torch.float32, device=like.device).expand(n)
+
+
+# ---------------------------------------------------------------------------
+# curved-ray marching
+# ---------------------------------------------------------------------------
+def er_step(f: RifField, p, v, h):
+    """One velocity-Verlet step; h is (N,). Returns (p, v, d_optical)."""
+    hh = h.unsqueeze(-1)
+    n0, g0 = rif_value_grad(f, p)
+    v = v + 0.5 * hh * g0
+    p = p + hh * v / n0.unsqueeze(-1)
+    _, g1 = rif_value_grad(f, p)
+    v = v + 0.5 * hh * g1
+    return p, v, h * n0
+
+
+def er_derivative_step(f: RifField, p, v, dpdv0, dvdv0, h):
+    """er_derivativestep (:798-814): a step that also carries the 3x3
+    sensitivities of (p, v) to the initial velocity; h is (N,)."""
+    hh = h.unsqueeze(-1)
+    hhm = hh.unsqueeze(-1)
+    n0, g0, H0 = rif_value_grad_hess(f, p)
+    v = v + 0.5 * hh * g0
+    dvdv0 = dvdv0 + 0.5 * hhm * _mm(H0, dpdv0)
+    p = p + hh * v / n0.unsqueeze(-1)
+    n1, g1, H1 = rif_value_grad_hess(f, p)
+    invn = 1.0 / n1
+    # d(p step) = h [ -1/n^2 v (g . dpdv0) + 1/n dvdv0 ]
+    gdp = _vm(g1, dpdv0)
+    c = (-invn * invn).unsqueeze(-1) * v
+    dpdv0 = dpdv0 + hhm * (_outer(c, gdp) + invn[..., None, None] * dvdv0)
+    v = v + 0.5 * hh * g1
+    dvdv0 = dvdv0 + 0.5 * hhm * _mm(H1, dpdv0)
+    return p, v, dpdv0, dvdv0
+
+
+def trace_curved(rif: RifField, sdf: SdfField, p, v, distance, h,
+                 max_steps: int, active, differentiable: bool = False):
+    """March curved rays `distance` of arc length, stopping at the medium
+    boundary (trace(), :671-691); kernel D on the card. Returns
+    (p, v, optical_len, dist_marched, exited, steps)."""
+    if differentiable:
+        raise not_ported("differentiable=True", 8)
+    from . import ermarch
+    return ermarch.trace(rif, sdf, p, v, distance, h, max_steps, active)
+
+
+def refine_boundary(rif: RifField, sdf: SdfField, p, v, h, n_bisect: int = 10):
+    """Bisection to the boundary from the last inside point. Returns
+    (p_boundary, v_boundary, extra_opt, extra_dist)."""
+    n = p.shape[0]
+    opt = torch.zeros((n,), dtype=p.dtype, device=p.device)
+    adv = torch.zeros_like(opt)
+    step = _lanes(h, n, p)
+    for _ in range(n_bisect):
+        step = step * 0.5
+        p2, v2, dopt = er_step(rif, p, v, step)
+        ok = inside_shape(sdf, p2)
+        p = torch.where(ok.unsqueeze(-1), p2, p)
+        v = torch.where(ok.unsqueeze(-1), v2, v)
+        opt = torch.where(ok, opt + dopt, opt)
+        adv = torch.where(ok, adv + step, adv)
+    return p, v, opt, adv
+
+
+def boundary_velocity(v, N, n_in, n_out):
+    """Snell refraction of the scaled velocity (boundaryVelocity,
+    :1036-1051); mirror reflection on total internal reflection. Returns
+    (v', tir)."""
+    dotp = dot(v, N)
+    r = (n_out / n_in) ** 2 - 1.0
+    sq = r * dot(v, v) + dotp * dotp
+    tir = sq < 1e-9
+    v_refr = v - dotp.unsqueeze(-1) * N + (sgn(dotp) * safe_sqrt(sq)
+                                           ).unsqueeze(-1) * N
+    v_refl = v - 2.0 * dotp.unsqueeze(-1) * N
+    return torch.where(tir.unsqueeze(-1), v_refl, v_refr), tir
+
+
+def integrate_with_sensitivities(rif: RifField, sdf: SdfField, p1, v0, p2,
+                                 h, max_steps: int, active,
+                                 differentiable: bool = False):
+    """computefdfBDPT (:816-939): march from p1 with initial velocity v0
+    until the ray passes the plane through p2 or leaves the shape (kernel E
+    on the card), then the endpoint error and its Jacobian w.r.t. v0.
+    Lanes that leave refract and run on straight to the point closest to p2.
+    Returns (err, J, exited, opt, geo_inside, geo_total, v_end)."""
+    if differentiable:
+        raise not_ported("differentiable=True", 8)
+    from . import ermarch
+
+    n = p1.shape[0]
+    eye = torch.eye(3, dtype=p1.dtype, device=p1.device).expand(n, 3, 3)
+    # scale v0 to |v| = n(p1), carrying the projection's Jacobian (:846-851)
+    r0 = rif_value(rif, p1)
+    nv = length(v0)
+    nvc = torch.clamp_min(nv, 1e-12)
+    dvdv0 = (r0 / nvc ** 3)[..., None, None] * (
+        (nv ** 2)[..., None, None] * eye - _outer(v0, v0))
+    v = v0 / nvc.unsqueeze(-1) * r0.unsqueeze(-1)
+    dpdv0 = torch.zeros((n, 3, 3), dtype=p1.dtype, device=p1.device)
+    p, v, dpdv0, dvdv0, opt, marched, exited, _ = ermarch.sens_march(
+        rif, sdf, p1, v, dpdv0, dvdv0, p2, h, max_steps, active)
+
+    # exited lanes: dt_b/dv0 from the implicit boundary condition (:920-927)
+    N_b = normalize(sdf_gradient(sdf, p))
+    nb = rif_value(rif, p)
+    dpdt_b = v / nb.unsqueeze(-1)
+    nd = dot(N_b, dpdt_b)
+    denom = torch.where(torch.abs(nd) > 1e-9, nd, 1e9)
+    dtbdv0 = -_vm(N_b, dpdv0) / denom.unsqueeze(-1)
+    _, g_b = rif_value_grad(rif, p)
+    v_refr, tir = boundary_velocity(v, N_b, nb, torch.ones_like(nb))
+    # refraction Jacobian (boundaryVelocityDerivative, :1057-1074)
+    dotp = dot(v, N_b)
+    r = 1.0 / torch.clamp_min(nb, 1e-9) ** 2 - 1.0
+    sq = safe_sqrt(torch.clamp_min(r * dot(v, v) + dotp * dotp, 1e-12))
+    NN = _outer(N_b, N_b)
+    inner = dvdv0 + _outer(g_b, dtbdv0)
+    refr_J = _mm(eye - NN + sgn(dotp)[..., None, None] * _outer(
+        N_b, (r.unsqueeze(-1) * v + dotp.unsqueeze(-1) * N_b)
+        / sq.unsqueeze(-1)), inner)
+    refl_J = _mm(eye - 2.0 * NN, inner)
+    dvdv0_b = torch.where(tir[..., None, None], refl_J, refr_J)
+    extra_t = -dot(v_refr, p - p2) / torch.clamp_min(dot(v_refr, v_refr),
+                                                    1e-12)
+    p_ext = p + extra_t.unsqueeze(-1) * v_refr
+    dpdv0_b = (dpdv0 + _outer(dpdt_b - v_refr, dtbdv0)
+               + extra_t[..., None, None] * dvdv0_b)
+
+    # interior lanes: change of variables to the closest point of approach
+    # to p2 along the ray (:924-938)
+    n_end, dvdt_in = rif_value_grad(rif, p)
+    dpdt_in = v / n_end.unsqueeze(-1)
+    ex, exm = exited.unsqueeze(-1), exited[..., None, None]
+    dpdt = torch.where(ex, v_refr, dpdt_in)
+    dvdt = torch.where(ex, 0.0, dvdt_in)
+    v_eff = torch.where(ex, v_refr, v)
+    dpdv0_eff = torch.where(exm, dpdv0_b, dpdv0)
+    dvdv0_eff = torch.where(exm, dvdv0_b, dvdv0)
+    num = _vm(v_eff, dpdv0_eff) + _vm(p - p2, dvdv0_eff)
+    den = dot(v_eff, dpdt) + dot(p - p2, dvdt)
+    dtstar = -num / torch.where(torch.abs(den) > 1e-9, den, 1e9).unsqueeze(-1)
+    tstar_in = -dot(p - p2, dpdt_in) / torch.clamp_min(
+        dot(dpdt_in, dpdt_in), 1e-12)
+    p_in = p + tstar_in.unsqueeze(-1) * dpdt_in
+    opt = torch.where(exited, opt + extra_t, opt + tstar_in * n_end)
+    # the arc inside the medium (absorption) and the whole connection
+    # (inverse-square falloff) are kept apart
+    geo_inside = torch.where(exited, marched, marched + tstar_in)
+    geo_total = torch.where(exited, marched + extra_t, marched + tstar_in)
+    err = torch.where(ex, p_ext, p_in) - p2
+    J = dpdv0_eff + _outer(dpdt, dtstar)
+    return err, J, exited, opt, geo_inside, geo_total, v_eff
+
+
+# ---------------------------------------------------------------------------
+# batched BVP solve (replaces Ceres BFGS, :1087-1163)
+# ---------------------------------------------------------------------------
+@dataclass(frozen=True)
+class BVPResult:
+    dir_to_target: torch.Tensor  # (N, 3) unit initial direction
+    converged: torch.Tensor      # (N,)
+    weight: torch.Tensor         # (N,) RR / multiplicity weight
+    opt_len: torch.Tensor        # (N,) optical connection length
+    geo_inside: torch.Tensor     # (N,) curved arc length inside the medium
+    geo_total: torch.Tensor      # (N,) whole connection length (falloff)
+    rev_dir: torch.Tensor        # (N, 3) -normalize(v) at arrival
+
+
+def _solve33(A, b):
+    """Batched 3x3 solve by the adjugate (Cramer's rule)."""
+    a = [[A[..., i, j] for j in range(3)] for i in range(3)]
+    c00 = a[1][1] * a[2][2] - a[1][2] * a[2][1]
+    c01 = a[0][2] * a[2][1] - a[0][1] * a[2][2]
+    c02 = a[0][1] * a[1][2] - a[0][2] * a[1][1]
+    c10 = a[1][2] * a[2][0] - a[1][0] * a[2][2]
+    c11 = a[0][0] * a[2][2] - a[0][2] * a[2][0]
+    c12 = a[0][2] * a[1][0] - a[0][0] * a[1][2]
+    c20 = a[1][0] * a[2][1] - a[1][1] * a[2][0]
+    c21 = a[0][1] * a[2][0] - a[0][0] * a[2][1]
+    c22 = a[0][0] * a[1][1] - a[0][1] * a[1][0]
+    det = a[0][0] * c00 + a[0][1] * c01 + a[0][2] * c02
+    ok = torch.abs(det) > 1e-30
+    inv_det = torch.where(ok, 1.0 / torch.where(ok, det, 1.0), 0.0)
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    return torch.stack([(c00 * b0 + c01 * b1 + c02 * b2) * inv_det,
+                        (c10 * b0 + c11 * b1 + c12 * b2) * inv_det,
+                        (c20 * b0 + c21 * b1 + c22 * b2) * inv_det], dim=-1)
+
+
+def _levenberg_solve(rif, sdf, p1, p2, v0, h, max_steps: int, active,
+                     tol2: float, max_iters: int = 12):
+    """Convergence-masked Levenberg-Marquardt over the endpoint error with
+    accept/reject: a trial step is kept only where it lowers the cost, and
+    the loop ends once no active lane is still improving. Returns (v, cost)
+    at the best point found."""
+    n = p1.shape[0]
+    eye = torch.eye(3, dtype=p1.dtype, device=p1.device).expand(n, 3, 3)
+
+    def eval_err(v, act):
+        err, J, *_ = integrate_with_sensitivities(rif, sdf, p1, v, p2, h,
+                                                  max_steps, act)
+        return err, J
+
+    def lm_step(err, J, lam):
+        JT = J.transpose(-1, -2)
+        A = _mm(JT, J) + (lam + 1e-9)[..., None, None] * eye
+        return _solve33(A, -_mv(JT, err))
+
+    v_cur = v0
+    err_cur, J_cur = eval_err(v0, active)
+    cost_cur = dot(err_cur, err_cur)
+    lam = torch.full((n,), 1e-3, dtype=cost_cur.dtype, device=p1.device)
+    running = active & (cost_cur >= tol2)
+    v_trial = v0 + lm_step(err_cur, J_cur, lam)
+    it = 0
+    while it < max_iters and bool(running.any()):
+        err_t, J_t = eval_err(v_trial, running)
+        cost_t = dot(err_t, err_t)
+        better = cost_t < cost_cur
+        acc = running & better
+        v_cur = torch.where(acc.unsqueeze(-1), v_trial, v_cur)
+        err_cur = torch.where(acc.unsqueeze(-1), err_t, err_cur)
+        J_cur = torch.where(acc[..., None, None], J_t, J_cur)
+        cost_cur = torch.where(acc, cost_t, cost_cur)
+        lam = torch.where(running, torch.where(better, lam * 0.33, lam * 6.0),
+                          lam)
+        lam = torch.clamp(lam, 1e-8, 1e3)
+        running = running & (cost_cur >= tol2)
+        v_trial = torch.where(running.unsqueeze(-1),
+                              v_cur + lm_step(err_cur, J_cur, lam), v_trial)
+        it += 1
+    return v_cur, cost_cur
+
+
+def _restart_uniform(seed_bits, round_idx: int, dim: int):
+    """The restart loop's own uniform for (round, dimension) of each lane."""
+    c = (round_idx * 0x85EBCA6B + dim * 0xC2B2AE35) & M32
+    return _u32_to_float(_hash_u32((seed_bits + c) & M32))
+
+
+def solve_bvp(rif: RifField, sdf: SdfField, p1, p2, init_dir, h,
+              max_steps: int, active, tol2: float = 1e-6,
+              newton_iters: int = 12, differentiable: bool = False,
+              rr_weight: float = 1e-2, seed_bits=None,
+              max_restarts: int = 0, dir_match_tol2: float = 1e-4):
+    """Solve the curved-connection BVP for the initial velocity p1 -> p2.
+
+    With max_restarts == 0 (or no seed_bits): one solve from `init_dir`
+    with weight 1. Otherwise the reference's makeDirectConnections loop
+    (:1087-1163) as the JAX package runs it: every attempt restarts from a
+    uniform hemisphere direction around the chord; a failed solve goes on
+    with probability rr_weight and weight /= rr_weight; the first solution
+    counts once an independent restart re-finds it; and the weight is
+    multiplied by the Booth multiplicity estimate. Rounds 0 and 1 run as one
+    batch of 2N lanes, the rounds after that only for the lanes still
+    looping."""
+    if differentiable:
+        raise not_ported("differentiable=True", 8)
+    n = p1.shape[0]
+    r0 = rif_value(rif, p1)
+    weight = torch.ones((n,), dtype=torch.float32, device=p1.device)
+
+    if max_restarts <= 0 or seed_bits is None:
+        v_fin, cost = _levenberg_solve(
+            rif, sdf, p1, p2, init_dir * r0.unsqueeze(-1), h, max_steps,
+            active, tol2, max_iters=newton_iters)
+        conv_final = active & (cost < tol2)
+        d_final = normalize(v_fin)
+    else:
+        frame_c = Frame.from_normal(init_dir)
+        R = int(max_restarts)
+        B = min(2, R)
+
+        def round_dir(r):
+            u = torch.stack([_restart_uniform(seed_bits, r, 0),
+                             _restart_uniform(seed_bits, r, 1)], dim=-1)
+            return frame_c.to_world(warp.square_to_uniform_hemisphere(u))
+
+        def tile(a):
+            return torch.cat([a] * B, dim=0)
+
+        d0_all = torch.cat([round_dir(r) for r in range(B)], dim=0)
+        v_all, cost_all = _levenberg_solve(
+            rif, sdf, tile(p1), tile(p2), d0_all * tile(r0).unsqueeze(-1), h,
+            max_steps, tile(active), tol2, max_iters=newton_iters)
+        conv_all = (cost_all < tol2).reshape(B, n) & active.unsqueeze(0)
+        d_all = normalize(v_all).reshape(B, n, 3)
+
+        looping = active
+        iterations = torch.ones((n,), dtype=torch.int32, device=p1.device)
+        have_first = torch.zeros((n,), dtype=torch.bool, device=p1.device)
+        first_dir = final_dir = init_dir
+        conv_final = torch.zeros_like(have_first)
+
+        def bookkeep(conv_raw, d_i, r):
+            nonlocal looping, iterations, weight, have_first, first_dir
+            nonlocal final_dir, conv_final
+            conv_i = looping & conv_raw
+            new_first = conv_i & ~have_first
+            first_dir = torch.where(new_first.unsqueeze(-1), d_i, first_dir)
+            have_first = have_first | new_first
+            iterations = iterations + conv_i.to(torch.int32)
+            # accept once an independent restart re-finds the first
+            # solution; f32 solves of one solution scatter by ~1e-3 in
+            # direction, hence the looser direction-match tolerance
+            dd = first_dir - d_i
+            refind = conv_i & ~new_first & (dot(dd, dd) < dir_match_tol2)
+            final_dir = torch.where(refind.unsqueeze(-1), d_i, final_dir)
+            conv_final = conv_final | refind
+            # a failed solve: russian roulette on going on
+            fail = looping & ~conv_i
+            keep = _restart_uniform(seed_bits, r, 3) < rr_weight
+            weight = torch.where(fail & keep, weight / rr_weight, weight)
+            looping = looping & ~refind & ~(fail & ~keep)
+
+        for r in range(B):
+            bookkeep(conv_all[r], d_all[r], r)
+        r = B
+        while r < R and bool(looping.any()):
+            v_fin, cost = _levenberg_solve(
+                rif, sdf, p1, p2, round_dir(r) * r0.unsqueeze(-1), h,
+                max_steps, looping, tol2, max_iters=newton_iters)
+            bookkeep(cost < tol2, normalize(v_fin), r)
+            r += 1
+        d_final = final_dir
+        # Booth multiplicity: iterations - 2 converged re-tries before the
+        # re-find estimate 1 / P(a converged solve lands on this solution)
+        weight = weight * torch.clamp_min(iterations - 2, 1).to(torch.float32)
+
+    # the final measurement at the accepted direction (:941-1030)
+    err, _, _, opt, geo_in, geo_tot, v_end = integrate_with_sensitivities(
+        rif, sdf, p1, d_final * r0.unsqueeze(-1), p2, h, max_steps, active)
+    converged = conv_final & (dot(err, err) < tol2)
+    return BVPResult(dir_to_target=d_final, converged=converged,
+                     weight=weight, opt_len=opt, geo_inside=geo_in,
+                     geo_total=geo_tot, rev_dir=-normalize(v_end))

@@ -1,0 +1,194 @@
+"""The two curved-ray march loops of the eikonal integrator: kernels D and E
+(csrc/ermarch.cu) and their plain PyTorch versions.
+
+* D, `trace`: march a fixed arc length through the RIF, stopping where the
+  SDF reports an exit (the loop of eikonal.trace_curved). Replaces the
+  Pallas `_trace_kernel` of mitsubaer_tpu/models/ermarch.py:122.
+* E, `sens_march`: march until the ray passes the plane through its target
+  or leaves the medium, carrying dp/dv0 and dv/dv0 (the loop of
+  eikonal.integrate_with_sensitivities). Replaces the Pallas `_sens_kernel`
+  of mitsubaer_tpu/models/ermarch.py:194.
+
+Both take the JAX launchers' arguments and return what they return, plus
+`steps` at the end of `sens_march`'s tuple too: the number of steps the
+longest lane took, which is the trip count of the XLA loop. (The JAX kernel
+reports the count of its first block; see ROADMAP Queue 3.)
+
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches its kernel and counts the launch; on anything else it raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import kernels
+from ..core.math import dot
+from . import eikonal as ek
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+def _side(p, v, p2):
+    return dot(p - p2, v) < 0
+
+
+def trace_plain(rif, sdf, p, v, distance, h, max_steps: int, active):
+    """Plain PyTorch version of kernel D, step by step. Returns
+    (p, v, opt, marched, exited, steps)."""
+    n = p.shape[0]
+    dist = ek._lanes(distance, n, p)
+    hb = ek._lanes(h, n, p)
+    opt = torch.zeros((n,), dtype=torch.float32, device=p.device)
+    marched = torch.zeros_like(opt)
+    running = active.clone()
+    exited = torch.zeros_like(active)
+    it = 0
+    while it < max_steps and bool(running.any()):
+        step = torch.minimum(hb, torch.clamp_min(dist - marched, 0.0))
+        p1, v1, dopt = ek.er_step(rif, p, v, step)
+        out = ~ek.inside_shape(sdf, p1)
+        take = running & ~out
+        p = torch.where(take.unsqueeze(-1), p1, p)
+        v = torch.where(take.unsqueeze(-1), v1, v)
+        opt = torch.where(take, opt + dopt, opt)
+        marched = torch.where(take, marched + step, marched)
+        done = take & (marched >= dist - 1e-7)
+        exited = exited | (running & out)
+        running = running & ~out & ~done
+        it += 1
+    return p, v, opt, marched, exited, torch.tensor(it, device=p.device)
+
+
+def sens_march_plain(rif, sdf, p1, v, dpdv0, dvdv0, p2, h, max_steps: int,
+                     active):
+    """Plain PyTorch version of kernel E, step by step. Returns
+    (p, v, dpdv0, dvdv0, opt, marched, crossed, steps)."""
+    n = p1.shape[0]
+    hb = ek._lanes(h, n, p1)
+    p, dp, dv = p1, dpdv0, dvdv0
+    opt = torch.zeros((n,), dtype=torch.float32, device=p1.device)
+    marched = torch.zeros_like(opt)
+    running = active.clone()
+    crossed = torch.zeros_like(active)
+    it = 0
+    while it < max_steps and bool(running.any()):
+        pn, vn, dpn, dvn = ek.er_derivative_step(rif, p, v, dp, dv, hb)
+        out = ~ek.inside_shape(sdf, pn)
+        stop = out | (_side(pn, vn, p2) != _side(p, v, p2))
+        take = running & ~stop
+        n_here = ek.rif_value(rif, p)
+        p = torch.where(take.unsqueeze(-1), pn, p)
+        v = torch.where(take.unsqueeze(-1), vn, v)
+        dp = torch.where(take[..., None, None], dpn, dp)
+        dv = torch.where(take[..., None, None], dvn, dv)
+        opt = torch.where(take, opt + hb * n_here, opt)
+        marched = torch.where(take, marched + hb, marched)
+        crossed = crossed | (running & out)
+        running = running & ~stop
+        it += 1
+    return (p, v, dp, dv, opt, marched, crossed,
+            torch.tensor(it, device=p1.device))
+
+
+# ---------------------------------------------------------------------------
+# kernels
+# ---------------------------------------------------------------------------
+def _params(rif, sdf) -> kernels.ErParams:
+    """The 16 floats the kernels take by value: RIF kind, RIF params[0:8],
+    SDF kind, SDF params[0:6] (the JAX kernels' parameter layout)."""
+    q = (float(rif.kind),) + rif.params + (float(sdf.kind),) + sdf.params[:6]
+    return kernels.ErParams((ctypes.c_float * 16)(*q))
+
+
+def trace_rows(p, v, distance, h, active):
+    """Kernel D's (12, N) input rows: 0:3 p, 3:6 v, 6 opt, 7 marched,
+    8 running, 9 exited, 10 distance, 11 h."""
+    n = p.shape[0]
+    rows = torch.zeros((12, n), dtype=torch.float32, device=p.device)
+    rows[0:3] = p.t()
+    rows[3:6] = v.t()
+    rows[8] = active.to(torch.float32)
+    rows[10] = distance
+    rows[11] = h
+    return rows
+
+
+def sens_rows(p1, v, dpdv0, dvdv0, p2, h, active):
+    """Kernel E's (32, N) input rows: 0:3 p, 3:6 v, 6:15 dpdv0 and 15:24
+    dvdv0 (row-major), 24 opt, 25 marched, 26 running, 27 crossed, 28:31
+    p2, 31 h."""
+    n = p1.shape[0]
+    rows = torch.zeros((32, n), dtype=torch.float32, device=p1.device)
+    rows[0:3] = p1.t()
+    rows[3:6] = v.t()
+    rows[6:15] = dpdv0.reshape(n, 9).t()
+    rows[15:24] = dvdv0.reshape(n, 9).t()
+    rows[26] = active.to(torch.float32)
+    rows[28:31] = p2.t()
+    rows[31] = h
+    return rows
+
+
+def run_kernel(name: str, rif, sdf, rows, max_steps: int):
+    """Launch kernel `name` ("mk_er_trace" or "mk_er_sens") on CUDA state
+    rows. Returns (output rows, per-lane trip counts); counts nothing."""
+    kernels.require_cuda(name, rows)
+    n = rows.shape[1]
+    out = torch.empty_like(rows)
+    trips = torch.zeros((n,), dtype=torch.int32, device=rows.device)
+    if n:
+        with torch.cuda.device(rows.device):
+            rc = getattr(kernels.library(), name)(
+                _params(rif, sdf), rows.data_ptr(), out.data_ptr(),
+                trips.data_ptr(), n, int(max_steps), kernels.stream(rows))
+        kernels.check(rc, name)
+    return out, trips
+
+
+def _on_cpu(name, t) -> bool:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device.type == "cpu"
+
+
+def _steps(trips):
+    if not trips.numel():
+        return torch.zeros((), dtype=torch.int64, device=trips.device)
+    return trips.amax().to(torch.int64)
+
+
+def trace(rif, sdf, p, v, distance, h, max_steps: int, active):
+    """Kernel D on CUDA tensors, trace_plain on CPU ones. Returns
+    (p, v, opt, marched, exited, steps)."""
+    if _on_cpu("ermarch.trace", p):
+        return trace_plain(rif, sdf, p, v, distance, h, max_steps, active)
+    out, trips = run_kernel("mk_er_trace", rif, sdf,
+                            trace_rows(p, v, distance, h, active), max_steps)
+    trace.launches += 1
+    return (out[0:3].t(), out[3:6].t(), out[6], out[7], out[9] > 0.5,
+            _steps(trips))
+
+
+trace.launches = 0
+
+
+def sens_march(rif, sdf, p1, v, dpdv0, dvdv0, p2, h, max_steps: int, active):
+    """Kernel E on CUDA tensors, sens_march_plain on CPU ones. Returns
+    (p, v, dpdv0, dvdv0, opt, marched, crossed, steps)."""
+    if _on_cpu("ermarch.sens_march", p1):
+        return sens_march_plain(rif, sdf, p1, v, dpdv0, dvdv0, p2, h,
+                                max_steps, active)
+    n = p1.shape[0]
+    out, trips = run_kernel(
+        "mk_er_sens", rif, sdf, sens_rows(p1, v, dpdv0, dvdv0, p2, h, active),
+        max_steps)
+    sens_march.launches += 1
+    return (out[0:3].t(), out[3:6].t(), out[6:15].t().reshape(n, 3, 3),
+            out[15:24].t().reshape(n, 3, 3), out[24], out[25], out[27] > 0.5,
+            _steps(trips))
+
+
+sens_march.launches = 0

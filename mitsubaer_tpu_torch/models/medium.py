@@ -1,6 +1,7 @@
-"""Participating media on the ported path (port of
+"""Participating media on the ported paths (port of
 mitsubaer_tpu/models/medium.py): medium parameters, the heterogeneous density
-lookup (kernel A) and ratio-tracking transmittance.
+lookup (kernel A), ratio-tracking transmittance and homogeneous distance
+sampling.
 
 Kernel A, `trilinear_lookup`, replaces the JAX package's
 `DensityBricks.lookup` as a whole (the 8x4x4 apron-brick gather plus the
@@ -17,6 +18,8 @@ import torch
 from .. import kernels
 from ..core import rng, spline
 from ..scene.types import Media
+
+INF = 3.0e38
 
 
 def trilinear_lookup_plain(grid, aabb6, p):
@@ -87,6 +90,46 @@ def density_at(media: Media, p):
 
 def eval_transmittance_homogeneous(sigma_a, sigma_s, dist):
     return torch.exp(-(sigma_a + sigma_s) * dist.unsqueeze(-1))
+
+
+def _mean3(x):
+    return (x[..., 0] + x[..., 1] + x[..., 2]) / 3.0
+
+
+def homog_strategy_pdfs(sigma_t, dist):
+    """(pdf_success per unit length, pdf_failure) of the balance-strategy
+    homogeneous distance sampler at `dist` (homogeneous.cpp pdfDistance /
+    pdfFailure). The other strategies (cfg.medium_strategies) are not ported
+    (ROADMAP Queue 1 step 7)."""
+    tmp = torch.exp(-sigma_t * dist.unsqueeze(-1))
+    return _mean3(sigma_t * tmp), _mean3(tmp)
+
+
+def sample_distance_homogeneous(sigma_a, sigma_s, sampling_weight, t_max, u,
+                                uc):
+    """Balance-strategy distance sample: a channel picked by u, an
+    exponential distance in it, gated into the medium with probability
+    sampling_weight by uc. Returns (success, dist, weight, log_pdf)."""
+    sigma_t = sigma_a + sigma_s
+    w = sampling_weight
+    in_medium = uc < w
+    u_resc = torch.where(in_medium, uc / torch.clamp_min(w, 1e-9), 0.0)
+    ch = torch.clamp((u * 3).to(torch.int64), 0, 2)
+    dens = torch.clamp_min(
+        torch.gather(sigma_t, -1, ch.unsqueeze(-1)).squeeze(-1), 1e-20)
+    t_sample = torch.where(in_medium, -torch.log1p(-u_resc) / dens, INF)
+    success = t_sample < t_max
+    dist = torch.minimum(t_sample, t_max)
+    pdf_succ, pdf_fail = homog_strategy_pdfs(sigma_t, dist)
+    tr = torch.exp(-sigma_t * dist.unsqueeze(-1))
+    pdf_succ = pdf_succ * w
+    pdf_fail = w * pdf_fail + (1.0 - w)
+    w_succ = sigma_s * tr / torch.clamp_min(pdf_succ, 1e-12).unsqueeze(-1)
+    w_fail = tr / torch.clamp_min(pdf_fail, 1e-12).unsqueeze(-1)
+    weight = torch.where(success.unsqueeze(-1), w_succ, w_fail)
+    log_pdf = torch.log(torch.clamp_min(
+        torch.where(success, pdf_succ, pdf_fail), 1e-30))
+    return success, dist, weight, log_pdf
 
 
 def transmittance_ratio_tracking(media: Media, sigma_a, sigma_s, scale, o, d,

@@ -1,14 +1,17 @@
 """Phase functions, isotropic and Henyey-Greenstein (port of
-mitsubaer_tpu/models/phase.py::eval).
+mitsubaer_tpu/models/phase.py::eval and sample).
 
 Both wi and wo are propagation directions; for g > 0 the HG lobe peaks at
 wo == wi (forward scattering), matching hg.cpp with wi negated.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
-from ..core.math import INV_FOURPI, dot, safe_sqrt
+from ..core import warp
+from ..core.math import INV_FOURPI, Frame, dot, safe_sqrt
 from ..scene.types import PH_HG, PhaseTable
 
 
@@ -26,3 +29,22 @@ def eval(ph: PhaseTable, idx, wi, wo):
     cos_forward = dot(wi, wo)
     return torch.where(kind == PH_HG, hg_pdf(g, -cos_forward),
                        torch.full_like(cos_forward, INV_FOURPI))
+
+
+@dataclass(frozen=True)
+class PhaseSample:
+    wo: torch.Tensor      # (N, 3) new propagation direction
+    pdf: torch.Tensor     # (N,)
+    weight: torch.Tensor  # (N,) value / pdf (= 1)
+
+
+def sample(ph: PhaseTable, idx, wi, u2) -> PhaseSample:
+    """Sample a propagation direction after scattering from propagation
+    direction wi (unit): HG about +wi, or the uniform sphere."""
+    i = torch.clamp(idx, 0, ph.kind.shape[0] - 1).to(torch.int64)
+    kind, g = ph.kind[i], ph.g[i]
+    wo_hg = Frame.from_normal(wi).to_world(warp.square_to_hg(g, u2))
+    wo = torch.where((kind == PH_HG).unsqueeze(-1), wo_hg,
+                     warp.square_to_uniform_sphere(u2))
+    p = eval(ph, idx, wi, wo)
+    return PhaseSample(wo=wo, pdf=p, weight=p / torch.clamp_min(p, 1e-12))

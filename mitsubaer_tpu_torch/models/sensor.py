@@ -1,5 +1,5 @@
-"""Film-point lookup for the perspective camera (port of
-mitsubaer_tpu/models/sensor.py::project).
+"""Perspective camera: ray generation and film-point lookup (port of
+mitsubaer_tpu/models/sensor.py::sample_rays, perspective only, and project).
 
 Camera space follows Mitsuba's lookAt frame: x = left, y = up, z = view
 direction; film row 0 is the top of the image.
@@ -10,8 +10,10 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import not_ported
 from ..core.math import dot, normalize
-from ..scene.types import Sensor
+from ..core.transform import apply_point, apply_vector
+from ..scene.types import SENSOR_PERSPECTIVE, Sensor
 
 
 @dataclass(frozen=True)
@@ -21,6 +23,25 @@ class FilmSample:
     valid: torch.Tensor            # inside the frustum and in front
     inv_pixel_omega: torch.Tensor  # 1 / solid angle of one pixel there
     d: torch.Tensor                # unit direction toward the camera
+
+
+@dataclass(frozen=True)
+class CameraRays:
+    o: torch.Tensor  # (N, 3)
+    d: torch.Tensor  # (N, 3) unit
+
+
+def sample_rays(sensor: Sensor, px, py, width, height) -> CameraRays:
+    """Pinhole rays through continuous pixel coordinates px in [0, W],
+    py in [0, H] (perspective.cpp). Other sensor kinds raise."""
+    if int(sensor.kind) != SENSOR_PERSPECTIVE:
+        raise not_ported(f"sensor kind {int(sensor.kind)}", 9)
+    ndc_x = 2.0 * px / width - 1.0    # -1 at image left
+    ndc_y = 2.0 * py / height - 1.0   # -1 at image top
+    d_cam = torch.stack([-ndc_x * sensor.tan_x, -ndc_y * sensor.tan_y,
+                         torch.ones_like(ndc_x)], dim=-1)
+    o = apply_point(sensor.to_world, torch.zeros_like(d_cam))
+    return CameraRays(o=o, d=normalize(apply_vector(sensor.to_world, d_cam)))
 
 
 def project(sensor: Sensor, p_world, width, height) -> FilmSample:

@@ -1,8 +1,10 @@
 """Host-side scene construction (port of mitsubaer_tpu/scene/build.py).
 
-Accumulates shapes, media and emitters in numpy and freezes them into tensors
-at `build()`. The ported slice needs triangle meshes, media, emitters and a
-perspective sensor; scenes this small need no BVH.
+Accumulates shapes, BSDFs, media and emitters in numpy and freezes them into
+tensors at `build()`. The ported slices need triangle meshes, analytic
+spheres, diffuse BSDFs, homogeneous, heterogeneous and analytic refractive
+media, point and collimated emitters and a perspective sensor; scenes this
+small need no BVH.
 """
 from __future__ import annotations
 
@@ -12,7 +14,14 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import not_ported
 from . import types as T
+
+
+@dataclass
+class _BSDF:
+    kind: int = T.BSDF_DIFFUSE
+    reflectance: tuple = (0.5, 0.5, 0.5)
 
 
 @dataclass
@@ -28,15 +37,25 @@ class _Medium:
     kind: int = T.MED_HOMOGENEOUS
     sigma_a: tuple = (0.0, 0.0, 0.0)
     sigma_s: tuple = (0.0, 0.0, 0.0)
+    sampling_weight: float = -1.0
     phase_kind: int = T.PH_ISOTROPIC
     g: float = 0.0
     scale: float = 1.0
     density: Optional[np.ndarray] = None   # (nz, ny, nx)
     density_aabb: Optional[tuple] = None
+    # refractive: analytic RIF and SDF (models/eikonal.py RIF_* / SDF_*)
+    rif_kind: int = 0
+    rif_params: tuple = (1.0,)
+    sdf_kind: int = 0
+    sdf_params: tuple = ()
 
 
 def _t(a, dtype):
     return torch.as_tensor(np.asarray(a, dtype))
+
+
+def _pad8(params) -> tuple:
+    return tuple(params) + (0.0,) * (8 - len(params))
 
 
 class SceneBuilder:
@@ -44,17 +63,22 @@ class SceneBuilder:
         self._verts = []
         self._faces = []
         self._face_shape = []
+        self._spheres = []      # (center, radius, shape_id)
         self._shapes = []
+        self._bsdfs: list[_BSDF] = []
         self._emitters: list[_Emitter] = []
         self._media: list[_Medium] = []
         self._sensor = None
         self.config = T.RenderConfig()
         self.camera_medium = -1
 
+    def add_bsdf(self, kind=T.BSDF_DIFFUSE, **kw) -> int:
+        if kind != T.BSDF_DIFFUSE:
+            raise not_ported(f"BSDF kind {kind}", 9)
+        self._bsdfs.append(_BSDF(kind=kind, **kw))
+        return len(self._bsdfs) - 1
+
     def add_medium(self, **kw) -> int:
-        if kw.get("kind") == T.MED_REFRACTIVE:
-            raise NotImplementedError(
-                "refractive media are not ported yet (ROADMAP Queue 1 step 7)")
         self._media.append(_Medium(**kw))
         return len(self._media) - 1
 
@@ -62,18 +86,28 @@ class SceneBuilder:
         self._emitters.append(_Emitter(kind=kind, **kw))
         return len(self._emitters) - 1
 
+    def _add_shape(self, bsdf, interior, exterior) -> int:
+        self._shapes.append(dict(bsdf=bsdf, emitter=-1, interior=interior,
+                                 exterior=exterior))
+        return len(self._shapes) - 1
+
     def add_mesh(self, verts, faces, bsdf=-1, interior=-1, exterior=-1,
                  to_world=None) -> int:
         verts = np.asarray(verts, np.float32)
         if to_world is not None:
             m = np.asarray(to_world, np.float32)
             verts = verts @ m[:3, :3].T + m[:3, 3]
-        shape_id = len(self._shapes)
-        self._shapes.append(dict(bsdf=bsdf, interior=interior,
-                                 exterior=exterior))
+        shape_id = self._add_shape(bsdf, interior, exterior)
         self._verts.append(verts)
         self._faces.append(np.asarray(faces, np.int32))
         self._face_shape.append(shape_id)
+        return shape_id
+
+    def add_sphere(self, center, radius, bsdf=-1, interior=-1,
+                   exterior=-1) -> int:
+        shape_id = self._add_shape(bsdf, interior, exterior)
+        self._spheres.append((np.asarray(center, np.float32), float(radius),
+                              shape_id))
         return shape_id
 
     def add_cube(self, to_world, **kw) -> int:
@@ -93,25 +127,40 @@ class SceneBuilder:
                             near=near)
 
     def build(self) -> T.Scene:
-        tri = np.concatenate([v[f] for v, f in zip(self._verts, self._faces)])
-        tri_shape = np.concatenate([np.full(len(f), s, np.int32) for f, s in
-                                    zip(self._faces, self._face_shape)])
+        if self._verts:
+            tri = np.concatenate([v[f] for v, f in zip(self._verts,
+                                                        self._faces)])
+            tri_shape = np.concatenate([
+                np.full(len(f), s, np.int32)
+                for f, s in zip(self._faces, self._face_shape)])
+        else:
+            tri = np.zeros((1, 3, 3), np.float32)
+            tri_shape = np.full((1,), -1, np.int32)
         v0 = tri[:, 0]
         e1 = tri[:, 1] - tri[:, 0]
         e2 = tri[:, 2] - tri[:, 0]
         ngu = np.cross(e1, e2)
         ng = ngu / np.maximum(np.linalg.norm(ngu, axis=-1), 1e-20)[:, None]
+        if self._spheres:
+            sc = np.stack([s[0] for s in self._spheres])
+            sr = [s[1] for s in self._spheres]
+            ss = [s[2] for s in self._spheres]
+        else:
+            sc, sr, ss = np.zeros((1, 3), np.float32), [0.0], [-1]
         geo = T.Geometry(
             v0=_t(v0, np.float32), e1=_t(e1, np.float32),
             e2=_t(e2, np.float32), ng=_t(ng, np.float32),
-            shape_id=_t(tri_shape, np.int32),
-            sph_center=torch.zeros((1, 3)), sph_radius=torch.zeros((1,)),
-            sph_shape_id=torch.full((1,), -1, dtype=torch.int32))
-        shapes = T.Shapes(**{k: _t([s[k] for s in self._shapes], np.int32)
-                             for k in ("bsdf", "interior", "exterior")})
-        # no BSDFs on this path: the JAX builder's table then holds one
-        # default diffuse entry
-        bsdfs = T.BSDFs(kind=_t([T.BSDF_DIFFUSE], np.int32))
+            shape_id=_t(tri_shape, np.int32), sph_center=_t(sc, np.float32),
+            sph_radius=_t(sr, np.float32), sph_shape_id=_t(ss, np.int32))
+        shapes = T.Shapes(**{
+            k: _t([s[k] for s in self._shapes] or [-1], np.int32)
+            for k in ("bsdf", "emitter", "interior", "exterior")})
+        # the JAX builder's table holds one default diffuse entry when the
+        # scene names no BSDF
+        bs = self._bsdfs or [_BSDF()]
+        bsdfs = T.BSDFs(kind=_t([b.kind for b in bs], np.int32),
+                        reflectance=_t([b.reflectance for b in bs],
+                                       np.float32))
         if not self._emitters:
             self._emitters.append(_Emitter(kind=T.EM_POINT, radiance=(0, 0, 0)))
         em = self._emitters
@@ -121,8 +170,12 @@ class SceneBuilder:
             position=_t([e.position for e in em], np.float32),
             direction=_t([np.asarray(e.direction)
                           / max(np.linalg.norm(e.direction), 1e-20)
-                          for e in em], np.float32))
-        allp = tri.reshape(-1, 3)
+                          for e in em], np.float32),
+            area=torch.zeros(len(em)))
+        pts = [tri.reshape(-1, 3)]
+        for c, r, _ in self._spheres:
+            pts += [c[None, :] - r, c[None, :] + r]
+        allp = np.concatenate(pts)
         return T.Scene(
             geo=geo, shapes=shapes, bsdfs=bsdfs, emitters=emitters,
             sensor=self._build_sensor(), media=self._build_media(),
@@ -145,22 +198,41 @@ class SceneBuilder:
             near=_t(s["near"], np.float32))
 
     def _build_media(self) -> T.Media:
-        media = self._media or [_Medium()]
+        media = self._media or [_Medium(sampling_weight=1.0)]
+        sigma_a = np.array([m.sigma_a for m in media], np.float32)
+        sigma_s = np.array([m.sigma_s for m in media], np.float32)
+        sigma_t = sigma_a + sigma_s
+        # default sampling weight: the largest channel albedo, at least 0.5
+        # (homogeneous.cpp:168-184)
+        sw = np.array([m.sampling_weight for m in media], np.float32)
+        for i in np.nonzero(sw < 0)[0]:
+            with np.errstate(divide="ignore", invalid="ignore"):
+                alb = np.where(sigma_t[i] > 0, sigma_s[i] / sigma_t[i], 0.0)
+            w = alb.max() if np.any(sigma_t[i] > 0) else 0.0
+            sw[i] = max(w, 0.5) if w > 0 else 0.0
         density = T.GridData(torch.zeros((1, 1, 1)), torch.zeros(3),
                              torch.ones(3))
         majorant = 0.0
+        rif_kind, rif_params, sdf_kind, sdf_params = 0, (1.0,), 0, ()
         for m in media:
             if m.kind == T.MED_HETEROGENEOUS and m.density is not None:
                 lo, hi = m.density_aabb
                 density = T.GridData(_t(m.density, np.float32),
                                      _t(lo, np.float32), _t(hi, np.float32))
                 majorant = float(np.max(m.density) * m.scale)
+            if m.kind == T.MED_REFRACTIVE:
+                rif_kind, rif_params = m.rif_kind, m.rif_params
+                sdf_kind, sdf_params = m.sdf_kind, m.sdf_params
         return T.Media(
             kind=_t([m.kind for m in media], np.int32),
-            sigma_a=_t([m.sigma_a for m in media], np.float32),
-            sigma_s=_t([m.sigma_s for m in media], np.float32),
+            sigma_a=_t(sigma_a, np.float32), sigma_s=_t(sigma_s, np.float32),
+            sampling_weight=_t(sw, np.float32),
             phase=T.PhaseTable(kind=_t([m.phase_kind for m in media], np.int32),
                                g=_t([m.g for m in media], np.float32)),
             scale=_t([m.scale for m in media], np.float32),
             density=density,
-            majorant=_t(majorant, np.float32))
+            majorant=_t(majorant, np.float32),
+            rif_kind=_t(rif_kind, np.int32),
+            rif_params=_t(_pad8(rif_params), np.float32),
+            sdf_kind=_t(sdf_kind, np.int32),
+            sdf_params=_t(_pad8(sdf_params), np.float32))

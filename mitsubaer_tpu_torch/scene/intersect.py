@@ -104,6 +104,11 @@ def intersect(geo: Geometry, o, d, t_min, t_max) -> Hit:
                shape_id=torch.where(valid, shape_id, -1), p=p, ng=ng)
 
 
+def occluded(geo: Geometry, o, d, t_min, t_max) -> torch.Tensor:
+    """Shadow query: True where something lies on o + t d, t in range."""
+    return intersect(geo, o, d, t_min, t_max).valid
+
+
 def ray_aabb(o, d, aabb_min, aabb_max):
     """Slab test: (t_near, t_far) of the box interval (empty when
     t_near > t_far)."""

@@ -2,8 +2,8 @@
 mitsubaer_tpu/scene/types.py).
 
 Only the fields that change the results of the ported slice are kept; the
-JAX package's TPU tuning knobs (`wf_*`, `er_*`, `brick_map`) have no
-counterpart. `scene_from_numpy` and `config_from_dict` take the JAX package's
+JAX package's TPU tuning knobs (`wf_*`, `er_host_stepped`, `brick_map`)
+have no counterpart. `scene_from_numpy` and `config_from_dict` take the JAX package's
 `Scene` / `RenderConfig` flattened to nested dicts of numpy arrays (same
 field names), so both packages can render the very same scene.
 
@@ -16,13 +16,15 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
-# BSDF kinds (only the null test is on the ported path)
+# BSDF kinds (diffuse and the null test are on the ported paths)
 BSDF_DIFFUSE = 0
 BSDF_NULL = 3
 
 # Emitter kinds
+EM_AREA = 0
 EM_POINT = 1
 EM_COLLIMATED = 3
+EM_CONSTANT = 4
 
 # Medium kinds
 MED_HOMOGENEOUS = 0
@@ -63,21 +65,24 @@ class Geometry(_Tensors):
 @dataclass(frozen=True)
 class Shapes(_Tensors):
     bsdf: torch.Tensor      # (NS,) int32, -1 = none (pure medium boundary)
+    emitter: torch.Tensor   # (NS,) int32, -1 = none
     interior: torch.Tensor  # (NS,) int32 medium id, -1 = vacuum
     exterior: torch.Tensor  # (NS,) int32
 
 
 @dataclass(frozen=True)
 class BSDFs(_Tensors):
-    kind: torch.Tensor      # (NB,) int32
+    kind: torch.Tensor          # (NB,) int32
+    reflectance: torch.Tensor   # (NB, 3) diffuse albedo
 
 
 @dataclass(frozen=True)
 class Emitters(_Tensors):
     kind: torch.Tensor       # (NE,) int32
-    radiance: torch.Tensor   # (NE, 3) collimated: beam power
+    radiance: torch.Tensor   # (NE, 3) point: intensity; collimated: power
     position: torch.Tensor   # (NE, 3)
     direction: torch.Tensor  # (NE, 3) unit
+    area: torch.Tensor       # (NE,) surface area of area emitters
 
 
 @dataclass(frozen=True)
@@ -104,16 +109,22 @@ class GridData(_Tensors):
 
 @dataclass(frozen=True)
 class Media(_Tensors):
-    """Medium table: at most one heterogeneous density grid per scene;
-    heterogeneous sigma_t = scale * density(p) * (sigma_a + sigma_s)."""
+    """Medium table: at most one heterogeneous density grid and one
+    refractive-index field per scene; heterogeneous
+    sigma_t = scale * density(p) * (sigma_a + sigma_s)."""
 
     kind: torch.Tensor      # (NM,) int32
     sigma_a: torch.Tensor   # (NM, 3)
     sigma_s: torch.Tensor   # (NM, 3)
+    sampling_weight: torch.Tensor  # (NM,) mediumSamplingWeight
     phase: PhaseTable
     scale: torch.Tensor     # (NM,)
     density: GridData
     majorant: torch.Tensor  # () max density * scale
+    rif_kind: torch.Tensor    # () int32, models/eikonal.py RIF_*
+    rif_params: torch.Tensor  # (8,) analytic RIF parameters
+    sdf_kind: torch.Tensor    # () int32, models/eikonal.py SDF_*
+    sdf_params: torch.Tensor  # (8,) analytic SDF parameters
 
 
 @dataclass(frozen=True)
@@ -147,6 +158,16 @@ class RenderConfig:
     bin_width: float = 1.0
     modulation: str = "none"
     engine: str = "auto"
+    # eikonal march and curved-NEE solver (heterogeneousrefractive.cpp:208)
+    er_stepsize: float = 1e-3
+    er_maxsteps: int = 4096
+    bvp_tol2: float = 1e-6
+    rr_weight: float = 1e-2
+    bvp_restarts: int = 8
+    er_bvp_hscale: float = 1.0
+    er_f64: bool = False
+    hide_emitters: bool = False
+    medium_strategies: bool = False
 
     @property
     def n_frames(self) -> int:

@@ -15,6 +15,8 @@ import torch
 from mitsubaer_tpu_torch import kernels
 from mitsubaer_tpu_torch.integrators import boxwalk as tbw
 from mitsubaer_tpu_torch.integrators import render as trender
+from mitsubaer_tpu_torch.models import eikonal as tek
+from mitsubaer_tpu_torch.models import ermarch as tem
 from mitsubaer_tpu_torch.models import medium as tmedium
 from mitsubaer_tpu_torch.scene import presets as tpresets
 
@@ -42,8 +44,8 @@ def test_library_path_is_keyed_by_sources():
     assert path.name == "libmitsubaer_kernels.so"
     assert re.fullmatch(r"[0-9a-f]{16}", path.parent.name)
     assert path.parent.parent == kernels.BUILD_ROOT
-    assert {s.name for s in kernels.CSRC.glob("*.cu")} == {"boxwalk.cu",
-                                                           "trilinear.cu"}
+    assert {s.name for s in kernels.CSRC.glob("*.cu")} == {
+        "boxwalk.cu", "ermarch.cu", "trilinear.cu"}
 
 
 def test_lookup_on_cpu_runs_plain_version_without_counting():
@@ -77,6 +79,66 @@ def test_walk_output_layout():
     assert (out[6] >= 2).all()         # >= one camera segment a sample
     np.testing.assert_array_equal(out[9].numpy(), np.ones(64))  # last sample
     assert int(out[8].max()) <= shape.max_trips
+
+
+def _er_fields(kind=tek.RIF_LINEAR):
+    prm = {tek.RIF_LINEAR: (1.3, 0.15, 0.05, -0.1),
+           tek.RIF_RADIAL: (1.2, 0.4, 0.6, 0.1, -0.1, 0.0)}[kind]
+    return tek.RifField(kind, prm), tek.SdfField(tek.SDF_SPHERE, (0, 0, 0, 1))
+
+
+def _er_trace_inputs(rif, n, seed, device="cpu"):
+    """Lanes in the unit-sphere medium with unit directions scaled by n(p)."""
+    r = np.random.default_rng(seed)
+    p = torch.from_numpy(r.uniform(-0.55, 0.55, (n, 3)).astype(np.float32))
+    d = torch.from_numpy(r.normal(size=(n, 3)).astype(np.float32))
+    v = d / d.norm(dim=-1, keepdim=True) * tek.rif_value(rif, p)[:, None]
+    dist = torch.from_numpy(r.uniform(0.05, 2.0, n).astype(np.float32))
+    act = torch.from_numpy(r.uniform(size=n) < 0.9)
+    return [t.to(device) for t in (p, v, dist, act)]
+
+
+def _er_sens_inputs(rif, n, seed, device="cpu"):
+    """The state integrate_with_sensitivities hands kernel E."""
+    r = np.random.default_rng(seed)
+    p1 = torch.from_numpy(r.uniform(-0.55, 0.55, (n, 3)).astype(np.float32))
+    p2 = torch.from_numpy(r.uniform(-2.0, 2.0, (n, 3)).astype(np.float32))
+    v0 = p2 - p1
+    r0 = tek.rif_value(rif, p1)
+    nv = v0.norm(dim=-1)
+    dvdv0 = (r0 / nv ** 3)[:, None, None] * (
+        (nv ** 2)[:, None, None] * torch.eye(3) - v0[:, :, None] * v0[:, None])
+    v = v0 / nv[:, None] * r0[:, None]
+    act = torch.from_numpy(r.uniform(size=n) < 0.9)
+    return [t.to(device) for t in (p1, v, torch.zeros((n, 3, 3)), dvdv0, p2,
+                                   act)]
+
+
+def test_er_params_layout():
+    """The 16 floats of kernels D and E: RIF kind, RIF params[0:8], SDF
+    kind, SDF params[0:6]."""
+    rif, sdf = _er_fields(tek.RIF_RADIAL)
+    q = list(tem._params(rif, sdf).q)
+    assert q[0] == tek.RIF_RADIAL and q[9] == tek.SDF_SPHERE
+    np.testing.assert_array_equal(q[1:9], np.float32([1.2, 0.4, 0.6, 0.1, -0.1,
+                                                      0, 0, 0]))
+    assert q[10:16] == [0, 0, 0, 1, 0, 0]
+
+
+def test_er_marches_on_cpu_run_plain_versions_without_counting():
+    rif, sdf = _er_fields()
+    before = tem.trace.launches, tem.sens_march.launches
+    p, v, dist, act = _er_trace_inputs(rif, 64, 0)
+    got = tem.trace(rif, sdf, p, v, dist, 0.01, 64, act)
+    want = tem.trace_plain(rif, sdf, p, v, dist, 0.01, 64, act)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    args = _er_sens_inputs(rif, 64, 1)
+    got = tem.sens_march(rif, sdf, *args[:5], 0.04, 16, args[5])
+    want = tem.sens_march_plain(rif, sdf, *args[:5], 0.04, 16, args[5])
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (tem.trace.launches, tem.sens_march.launches) == before
 
 
 def test_walk_rejects_other_devices():
@@ -141,3 +203,53 @@ def test_render_on_cuda_goes_through_kernels_and_matches_cpu(cuda):
     lit = img_c.mean(-1) > 0
     ratio = (img_g.mean(-1)[lit] / img_c.mean(-1)[lit]).median().item()
     assert 0.999 <= ratio <= 1.001
+
+
+def _compare_march(got, want, flags, rtol):
+    """Floats within atol 3e-6 / rtol on lanes whose flags agree, flags on
+    >= 99.9% of lanes, and the step count, equal."""
+    same = got[flags] == want[flags]
+    assert same.float().mean().item() >= 0.999
+    assert int(got[-1]) == int(want[-1])
+    for i, (a, b) in enumerate(zip(got[:-1], want[:-1])):
+        if i != flags:
+            torch.testing.assert_close(a[same], b[same], atol=3e-6, rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [tek.RIF_LINEAR, tek.RIF_RADIAL])
+def test_er_trace_kernel_matches_plain_on_cuda(cuda, kind):
+    rif, sdf = _er_fields(kind)
+    p, v, dist, act = _er_trace_inputs(rif, 18_432, 2, cuda)
+    before = tem.trace.launches
+    got = tem.trace(rif, sdf, p, v, dist, 0.01, 256, act)
+    assert tem.trace.launches == before + 1
+    want = tem.trace_plain(rif, sdf, p, v, dist, 0.01, 256, act)
+    torch.cuda.synchronize()
+    _compare_march(got, want, 4, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", [tek.RIF_LINEAR, tek.RIF_RADIAL])
+def test_er_sens_kernel_matches_plain_on_cuda(cuda, kind):
+    rif, sdf = _er_fields(kind)
+    args = _er_sens_inputs(rif, 36_864, 3, cuda)
+    before = tem.sens_march.launches
+    got = tem.sens_march(rif, sdf, *args[:5], 0.04, 64, args[5])
+    assert tem.sens_march.launches == before + 1
+    want = tem.sens_march_plain(rif, sdf, *args[:5], 0.04, 64, args[5])
+    torch.cuda.synchronize()
+    _compare_march(got, want, 6, 1e-4)
+
+
+@pytest.mark.cuda
+def test_er_render_on_cuda_goes_through_kernels(cuda):
+    scene, cfg = tpresets.refractive_sphere(res=12, spp=2, max_depth=3,
+                                            rif_kind=tek.RIF_LINEAR,
+                                            rif_params=(1.3, 0.15),
+                                            filter="box")
+    before = tem.trace.launches, tem.sens_march.launches
+    img = trender.render(scene, cfg, seed=0, device=cuda)
+    assert tem.trace.launches > before[0]
+    assert tem.sens_march.launches > before[1]
+    assert bool(torch.isfinite(img).all()) and img.mean().item() > 0

@@ -1,7 +1,7 @@
 """The whole slice: the port's render() on the CPU against the JAX package's
 render() composite on the boxwalk road (render.py:346-389 with use_bw taken:
 the render_boxwalk passes in interpret mode plus four beam_splat_passes at
-the same seeds), and the port's import hygiene."""
+the same seeds), the device rule, and the port's import hygiene."""
 import dataclasses
 import subprocess
 import sys
@@ -81,8 +81,9 @@ def test_render_of_carried_jax_scene_matches_preset():
     carried = T.scene_from_numpy(_tree(js))
     cfg = T.config_from_dict(jc._asdict())
     ts, tc = tpresets.volumetric_box(filter="box", **kw)
-    a = trender.render(carried, dataclasses.replace(cfg, filter="box"), seed=1)
-    b = trender.render(ts, tc, seed=1)
+    a = trender.render(carried, dataclasses.replace(cfg, filter="box"), seed=1,
+                       device="cpu")
+    b = trender.render(ts, tc, seed=1, device="cpu")
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-9)
 
 
@@ -92,7 +93,7 @@ def test_spp_per_pass_follows_render_budget():
                                          density_res=8, max_depth=2,
                                          filter="box")
     stats = {}
-    trender.render(scene, cfg, seed=0, stats=stats)
+    trender.render(scene, cfg, seed=0, device="cpu", stats=stats)
     assert len(stats["passes"]) == 1
     assert all(p[3] == 0 for p in stats["passes"])
 
@@ -108,7 +109,21 @@ def test_other_roads_raise(kw, step):
     scene, cfg = tpresets.volumetric_box(res=8, spp=1, heterogeneous=True,
                                          density_res=8, **kw)
     with pytest.raises(NotImplementedError, match=step):
-        trender.render(scene, cfg)
+        trender.render(scene, cfg, device="cpu")
+
+
+def test_render_defaults_to_cuda():
+    """No device: the card, or an error where there is none; never a quiet
+    fall-back to the CPU."""
+    scene, cfg = tpresets.volumetric_box(res=4, spp=1, heterogeneous=True,
+                                         density_res=8, max_depth=2,
+                                         filter="box")
+    if torch.cuda.is_available():
+        assert trender._device(None).type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            trender.render(scene, cfg)
+    assert trender._device("cpu").type == "cpu"
 
 
 def test_port_imports_and_renders_without_jax():
@@ -123,6 +138,11 @@ def test_port_imports_and_renders_without_jax():
                                             filter="box")
         img = render.render(scene, cfg, seed=0, device="cpu")
         assert img.shape == (8, 8, 3) and float(img.mean()) > 0
+        scene, cfg = presets.refractive_sphere(
+            res=6, spp=1, max_depth=2, rif_kind=1, rif_params=(1.3, 0.15),
+            filter="box")
+        img = render.render(scene, cfg, seed=0, device="cpu")
+        assert img.shape == (6, 6, 3) and float(img.mean()) > 0
         assert not any(m == "mitsubaer_tpu" or m.startswith("mitsubaer_tpu.")
                        for m in sys.modules)
         print("ok")
