@@ -20,7 +20,19 @@ Phases (any failure raises and the script exits non-zero):
      full width (96^2, spp 2, depth 6, linear RIF, h 1e-2, 8 BVP restarts
      at 4x h) on the card; both march kernels must have launched;
   8. the same eikonal render at 24^2 on the card and on the CPU (plain
-     versions), which must agree.
+     versions), which must agree;
+  9. kernel C (megatrack) against its plain version on the arguments of
+     the first three tracking calls of the 512^2 point-lit render's first
+     pass (captured from render_wavefront), and on the three synthetic
+     cases of tests/test_megatrack.py at 262,144 lanes; flags, taps and
+     counters equal on every lane;
+ 10. the wavefront path: render() of the point-lit heterogeneous box at
+     512^2, spp 32, depth 12, density 64^3, on the card; kernel C must
+     launch at least once a pass;
+ 11. the same render at 24^2 on the card and on the CPU, which must agree;
+ 12. render_wavefront on the beam scene (512^2, sppc 8, depth 12, no
+     emitter NEE, two transition passes) against render_boxwalk at the same
+     seed, for two seeds: pixel-by-pixel median ratio within 0.95-1.05.
 Prints one JSON line of per-kernel results (time, bound, plain version,
 library yardstick, launches on the main paths), then the contract line
 {"ok": true, "device": {...}} last.
@@ -48,6 +60,10 @@ OPS_A_POINT = 45
 OPS_B_TAP, OPS_B_SEGMENT = 190, 100
 OPS_D_STEP = {1: 54, 2: 92}
 OPS_E_STEP = {1: 267, 2: 347}
+# kernel C per density tap: five lowbias32 hashes and their uniforms, the
+# exponential step, the voxel position, the inside test and clip, three
+# stochastic corners, the brick index and load, and the weight update
+OPS_C_TAP = 160
 
 
 def _cuda_ms(fn, reps):
@@ -408,11 +424,235 @@ def main() -> int:
     if not (0.98 <= ratio <= 1.02 and mean_rel <= 0.02):
         raise AssertionError("card and CPU eikonal renders disagree")
 
+    _megatrack_phases(dev, card, results)
+
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def _mega_synthetic(n):
+    """The three cases of tests/test_megatrack.py at n lanes: (name, rows,
+    ctr, density grid, max_trips)."""
+    import numpy as np
+
+    r = np.random.default_rng(0)
+
+    def rows(o, d, tlim, maj, stm, stc, w_real, is_sh):
+        z = np.zeros((n,), np.float32)
+        return np.stack([
+            o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], z, tlim,
+            maj, stm, stc[:, 0], stc[:, 1], stc[:, 2], w_real[:, 0],
+            w_real[:, 1], w_real[:, 2], np.full(n, is_sh, np.float32),
+            np.ones(n, np.float32), z, z, z, z, z, z]).astype(np.float32)
+
+    def full(v, k=None):
+        return np.full((n,) if k is None else (n, k), v, np.float32)
+
+    dirs = r.standard_normal((n, 3)).astype(np.float32)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True)
+    x_dir = np.tile(np.float32([[1, 0, 0]]), (n, 1))
+    ramp = np.zeros((8, 8, 16), np.float32)
+    ramp[:] = np.linspace(0.0, 1.0, 16)[None, None, :]
+    ctr = np.zeros((1, n), np.int32)
+    return [
+        ("zero density", rows(r.random((n, 3)).astype(np.float32) * 7, dirs,
+                              (r.random(n) * 2 + 0.5).astype(np.float32),
+                              full(4.0), full(1.0), full(1.0, 3),
+                              full(1.0, 3), 0.0),
+         ctr, np.zeros((8, 8, 8), np.float32), 64),
+        ("constant density", rows(np.tile(np.float32([[0.5, 3.5, 3.5]]),
+                                          (n, 1)), x_dir, full(4.0),
+                                  full(1.0), full(2.0), full(2.0, 3),
+                                  full(0.9, 3), 0.0),
+         ctr, np.full((8, 8, 8), 0.5, np.float32), 64),
+        ("shadow ramp", rows(np.tile(np.float32([[0.0, 3.5, 3.5]]), (n, 1)),
+                             x_dir, full(15.0), full(1.5), full(1.5),
+                             full(1.5, 3), full(1.0, 3), 1.0),
+         ctr, ramp, 128),
+    ]
+
+
+def _compare_mega(name, got, want):
+    """Kernel C against run_plain: hit, resolved, taps and the counter equal
+    on every lane, t and fac within atol 1e-6 / rtol 1e-5. Returns the
+    largest absolute difference of t and fac."""
+    import torch
+
+    (out_k, ctr_k), (out_p, ctr_p) = got, want
+    for row, what in ((4, "hit"), (5, "resolved"), (6, "taps")):
+        bad = int((out_k[row] != out_p[row]).sum())
+        if bad:
+            raise AssertionError(f"kernel C {name}: {what} differs on {bad} "
+                                 "lanes")
+    bad = int((ctr_k != ctr_p).sum())
+    if bad:
+        raise AssertionError(f"kernel C {name}: counter differs on {bad} "
+                             "lanes")
+    torch.testing.assert_close(out_k[:4], out_p[:4], atol=1e-6, rtol=1e-5)
+    return (out_k[:4] - out_p[:4]).abs().max().item()
+
+
+def _megatrack_phases(dev, card, results):
+    """Phases 9-12: kernel C and the wavefront road."""
+    import torch
+
+    from mitsubaer_tpu_torch.integrators import boxwalk, megatrack, wavefront
+    from mitsubaer_tpu_torch.integrators import render as render_m
+    from mitsubaer_tpu_torch.scene import presets
+
+    # ---- phase 9: kernel C against its plain version ----
+    scene, cfg = presets.volumetric_box(res=512, spp=32, heterogeneous=True,
+                                        density_res=64, max_depth=12,
+                                        filter="box", emitter_kind="point")
+    scene = scene.to(dev)
+    # the arguments of the first three tracking calls of the render's first
+    # pass, captured from the engine that render_wavefront drives
+    run, calls = megatrack.run, []
+
+    def capture(*args):
+        if len(calls) < 3:
+            calls.append(args)
+        return run(*args)
+
+    capture.launches = 0        # run() counts on whatever megatrack.run is
+    megatrack.run = capture
+    try:
+        wavefront.render_wavefront(scene, cfg, 8, 0, 0)
+    finally:
+        megatrack.run = run
+    if len(calls) < 3:
+        raise AssertionError(f"the first pass made {len(calls)} tracking "
+                             "calls, not 3")
+    err = 0.0
+    for i, args in enumerate(calls):
+        n_need = int((args[0][17] > 0.5).sum())
+        got = megatrack.run(*args)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = megatrack.run_plain(*args)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        err = max(err, _compare_mega(f"render call {i}", got, want))
+        taps = int(got[0][6].sum().item())
+        print(f"kernel C on render tracking call {i} (512^2, {n_need} lanes "
+              f"with work, {taps} taps): equal to plain", flush=True)
+        if i == 0:
+            c_rows, c_ms_plain, c_taps, c_need = args, plain_ms, taps, n_need
+    for name, rows_np, ctr_np, grid, trips in _mega_synthetic(512 * 512):
+        table, nb = megatrack.build_table(torch.from_numpy(grid).to(dev))
+        nz, ny, nx = grid.shape
+        args = (torch.from_numpy(rows_np).to(dev),
+                torch.from_numpy(ctr_np).to(dev), table, 7, trips,
+                (nx, ny, nz), nb)
+        got = megatrack.run(*args)
+        err = max(err, _compare_mega(name, got, megatrack.run_plain(*args)))
+        print(f"kernel C on the {name} case (262144 lanes, max_trips "
+              f"{trips}, {int(got[0][6].sum().item())} taps): equal to plain",
+              flush=True)
+    c_ms = _cuda_ms(lambda: megatrack.run(*c_rows), 20)
+    n = c_rows[0].shape[1]
+    # a lane with work reads 18 rows and its counter; one without reads its
+    # valid flag, t and counter; each writes 8 rows and its counter
+    out_b = megatrack.C_OUT * 4 + 4
+    bytes_c = (c_need * (18 * 4 + 4 + out_b)
+               + (n - c_need) * (2 * 4 + 4 + out_b) + c_rows[2].numel() * 2)
+    bound_c = _bound(bytes_c, c_taps * OPS_C_TAP)
+    print(f"kernel C at the render's first tracking call ({n} lanes, "
+          f"{c_need} with work, {c_taps} taps, {bytes_c} B): {c_ms:.4f} ms, "
+          f"plain {c_ms_plain:.1f} ms, bound "
+          f"{bound_c[0]:.5f} ms ({bound_c[1]}), max abs err {err:.3e} "
+          f"[{card}]", flush=True)
+    results["megatrack"] = _kernel_row(
+        "megatrack", "mitsubaer_tpu_torch/csrc/megatrack.cu",
+        "mitsubaer_tpu/integrators/megatrack.py:94", err, c_ms, c_ms_plain,
+        bound_c, None)
+    del calls, c_rows
+
+    # ---- phase 10: the wavefront path at full width ----
+    megatrack.run.launches = 0
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = render_m.render(scene, cfg, seed=0, device=dev, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = megatrack.run.launches
+    passes = stats["passes"]
+    segs = sum(p_[0] for p_ in passes)
+    mrays = segs / stats["wavefront_s"] / 1e6
+    mean = img.mean().item()
+    print(f"wavefront path: 512x512 spp 32 depth 12 point light in "
+          f"{len(passes)} passes [segments, taps, super-iterations, "
+          f"unfinished] {passes}, wall {wall:.3f} s, wavefront "
+          f"{stats['wavefront_s']:.3f} s, {mrays:.3f} Mrays/s, mean "
+          f"{mean:.6f}, kernel C launches {launches} [{card}]", flush=True)
+    if (tuple(img.shape) != (cfg.height, cfg.width, 3)
+            or not bool(torch.isfinite(img).all())):
+        raise AssertionError("wavefront render produced a non-finite or "
+                             "misshapen image")
+    if not mean > 0:
+        raise AssertionError("wavefront render produced a black image")
+    if any(p_[3] != 0 for p_ in passes):
+        raise AssertionError("wavefront render left samples unfinished")
+    if launches < len(passes):
+        raise AssertionError(f"wavefront path skipped kernel C: {launches}")
+    results["megatrack"]["launches"] = launches
+
+    # ---- phase 11: card against CPU ----
+    s_scene, s_cfg = presets.volumetric_box(
+        res=24, spp=8, heterogeneous=True, density_res=32, max_depth=4,
+        filter="box", emitter_kind="point")
+    img_g = render_m.render(s_scene, s_cfg, seed=3, device=dev).cpu()
+    img_c = render_m.render(s_scene, s_cfg, seed=3, device="cpu")
+    lum_g, lum_c = img_g.mean(-1), img_c.mean(-1)
+    sel = lum_c > 0
+    ratio = (lum_g[sel] / lum_c[sel]).median().item()
+    mean_rel = abs(img_g.mean().item() / img_c.mean().item() - 1)
+    print(f"card vs CPU wavefront render at 24x24 spp 8: median pixel ratio "
+          f"{ratio:.6f}, mean rel diff {mean_rel:.2e}", flush=True)
+    if not (0.99 <= ratio <= 1.01 and mean_rel <= 0.01):
+        raise AssertionError("card and CPU wavefront renders disagree")
+
+    # ---- phase 12: wavefront against boxwalk on the beam scene ----
+    from dataclasses import replace
+
+    b_scene, b_cfg = presets.volumetric_box(
+        res=512, spp=8, heterogeneous=True, density_res=64, max_depth=12,
+        filter="box")
+    b_scene = b_scene.to(dev)
+    b_cfg = replace(b_cfg, wf_mini_passes=2)
+    for seed in (5, 6):                     # two seeds: does the gap move?
+        out = {}
+        for road in ("wavefront", "boxwalk"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if road == "wavefront":
+                L, st_ = wavefront.render_wavefront(b_scene, b_cfg, 8, seed,
+                                                    0, has_direct=False)
+            else:
+                L, st_ = boxwalk.render_boxwalk(b_scene, b_cfg, 8, seed, 0)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            st_ = st_.tolist()
+            out[road] = L.mean(-1)
+            print(f"beam scene 512x512 sppc 8 seed {seed} on {road}: "
+                  f"[segments, taps, iters, unfinished] {st_}, {secs:.3f} s, "
+                  f"{st_[0] / secs / 1e6:.3f} Mrays/s, mean "
+                  f"{L.mean().item() / 8:.6f} [{card}]", flush=True)
+            if st_[3] != 0:
+                raise AssertionError(f"{road} left samples unfinished")
+        both = (out["wavefront"] > 0) & (out["boxwalk"] > 0)
+        ratio = (out["wavefront"][both] / out["boxwalk"][both]).median().item()
+        mean_ratio = (out["wavefront"].mean() / out["boxwalk"].mean()).item()
+        print(f"beam scene seed {seed} wavefront / boxwalk: pixel-by-pixel "
+              f"median ratio {ratio:.6f} over {int(both.sum())} pixels, mean "
+              f"ratio {mean_ratio:.6f}", flush=True)
+        if not 0.95 <= ratio <= 1.05:
+            raise AssertionError("wavefront and boxwalk disagree on the beam "
+                                 "scene")
 
 
 def _er_bench_scene(presets, res, spp, max_steps):

@@ -1,9 +1,11 @@
 """mitsubaer_tpu_torch: the PyTorch/CUDA port of mitsubaer_tpu.
 
-Two forward-render roads are ported: the bounded scattering volume on the
-boxwalk road (`scene.presets.volumetric_box(..., filter="box")`) and the
+Three forward-render roads are ported: the bounded scattering volume on the
+boxwalk road (`scene.presets.volumetric_box(..., filter="box")`), every
+other steady-state volpath scene with a box filter on the wavefront road
+(e.g. `volumetric_box(..., filter="box", emitter_kind="point")`), and the
 eikonal (refractive) road, `integrator="volpath_er"`
-(`scene.presets.refractive_sphere(..., filter="box")`), both through
+(`scene.presets.refractive_sphere(..., filter="box")`), all through
 `integrators.render.render(scene, cfg, seed=..., device=...)`, which runs
 on the CUDA card unless device="cpu" is passed. Their hand-written CUDA
 kernels live in csrc/ and are built by kernels.py at first use; on CPU

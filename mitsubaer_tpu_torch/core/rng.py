@@ -7,6 +7,10 @@ package's stream bit for bit.
 uint32 arithmetic runs in int64 tensors masked to 32 bits: PyTorch's CPU
 uint32 tensors lack `+`, `>>` and `<`. Products are split into 16-bit halves
 so no intermediate leaves int64's range.
+
+A draw hashes (seed, lane, index, dim) by `hash_combine`, whose prefix over
+(seed, lane, index) does not change from draw to draw: the Sampler keeps it
+as `key`, so a draw costs one combine step and the final hash.
 """
 from __future__ import annotations
 
@@ -41,12 +45,16 @@ def _hash_u32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+def _combine(h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return _hash_u32((x + mul32(h, 0x01000193)) & M32)
+
+
 def hash_combine(*xs) -> torch.Tensor:
     ts = [x if isinstance(x, torch.Tensor) else u32(x) for x in xs]
     device = next((t.device for t in ts if t.dim() > 0), ts[0].device)
     h = u32(0x9E3779B9, device)
     for x in ts:
-        h = _hash_u32((x.to(device) + mul32(h, 0x01000193)) & M32)
+        h = _combine(h, x.to(device))
     return h
 
 
@@ -57,12 +65,14 @@ def _u32_to_float(x: torch.Tensor) -> torch.Tensor:
 @dataclass(frozen=True)
 class Sampler:
     """Stateless stream: `lane` names the pixel or ray, `index` the sample
-    within it, `dim` the next dimension to draw. All int64 uint32 bits."""
+    within it, `dim` the next dimension to draw; `key` is
+    hash_combine(seed, lane, index). All int64 uint32 bits."""
 
     lane: torch.Tensor
     index: torch.Tensor
     dim: torch.Tensor
     seed: torch.Tensor
+    key: torch.Tensor
 
 
 def make_sampler(seed, lane, sample_index, mode: int = INDEPENDENT,
@@ -73,13 +83,25 @@ def make_sampler(seed, lane, sample_index, mode: int = INDEPENDENT,
         raise NotImplementedError(
             "only the independent sampler is ported (ROADMAP Queue 1 step 1)")
     lane = u32(lane)
-    return Sampler(lane=lane, index=u32(sample_index, lane.device),
-                   dim=torch.zeros_like(lane), seed=u32(seed, lane.device))
+    index = u32(sample_index, lane.device)
+    seed = u32(seed, lane.device)
+    return Sampler(lane=lane, index=index, dim=torch.zeros_like(lane),
+                   seed=seed, key=hash_combine(seed, lane, index))
+
+
+def restart(s: Sampler, where: torch.Tensor, lane: torch.Tensor,
+            index: torch.Tensor) -> Sampler:
+    """The sampler with the lanes `where` moved to (lane, index) at dim 0."""
+    lane, index = u32(lane), u32(index)
+    return replace(
+        s, lane=torch.where(where, lane, s.lane),
+        index=torch.where(where, index, s.index),
+        dim=torch.where(where, 0, s.dim),
+        key=torch.where(where, hash_combine(s.seed, lane, index), s.key))
 
 
 def _independent_bits(s: Sampler, dim_offset: int) -> torch.Tensor:
-    return _hash_u32(hash_combine(s.seed, s.lane, s.index,
-                                  (s.dim + dim_offset) & M32))
+    return _hash_u32(_combine(s.key, (s.dim + dim_offset) & M32))
 
 
 def next_1d(s: Sampler):

@@ -24,17 +24,20 @@ def trilinear(data_zyx: torch.Tensor, aabb_min: torch.Tensor,
     ix, iy, iz = idx[..., 0], idx[..., 1], idx[..., 2]
     tx, ty, tz = t[..., 0], t[..., 1], t[..., 2]
     flat = data_zyx.reshape(-1)
+    # flat offsets of the two corners on each axis; the upper one is clamped
+    # for a one-voxel axis (idx itself is already in range)
+    x0, y0, z0 = ix, iy * nx, iz * (ny * nx)
+    x1 = torch.clamp_max(ix + 1, nx - 1)
+    y1 = torch.clamp_max(iy + 1, ny - 1) * nx
+    z1 = torch.clamp_max(iz + 1, nz - 1) * (ny * nx)
 
-    def at(dz, dy, dx):
-        ii = (torch.clamp(iz + dz, 0, nz - 1) * (ny * nx)
-              + torch.clamp(iy + dy, 0, ny - 1) * nx
-              + torch.clamp(ix + dx, 0, nx - 1))
-        return flat[ii]
+    def lerp_x(zy):
+        return flat[zy + x0] * (1 - tx) + flat[zy + x1] * tx
 
-    c00 = at(0, 0, 0) * (1 - tx) + at(0, 0, 1) * tx
-    c01 = at(0, 1, 0) * (1 - tx) + at(0, 1, 1) * tx
-    c10 = at(1, 0, 0) * (1 - tx) + at(1, 0, 1) * tx
-    c11 = at(1, 1, 0) * (1 - tx) + at(1, 1, 1) * tx
+    c00 = lerp_x(z0 + y0)
+    c01 = lerp_x(z0 + y1)
+    c10 = lerp_x(z1 + y0)
+    c11 = lerp_x(z1 + y1)
     c0 = c00 * (1 - ty) + c01 * ty
     c1 = c10 * (1 - ty) + c11 * ty
     val = c0 * (1 - tz) + c1 * tz

@@ -1,9 +1,14 @@
 """Render entry point (port of mitsubaer_tpu/integrators/render.py::render).
 
-Two roads are ported:
+Three roads are ported:
 - boxwalk: the bounded-volume scene class with a box filter
   (`boxwalk.supported`), plus the collimated-beam splat. The JAX package
   takes it only on a TPU backend; here on every device.
+- wavefront: every other steady-state volpath scene with a box filter
+  (point, collimated and constant-environment emitters, null and diffuse
+  surfaces, homogeneous and heterogeneous media), through
+  `wavefront.render_wavefront` and kernel C, plus the beam splat where the
+  scene has a collimated emitter.
 - volpath_er: the eikonal (refractive) integrator, forward and steady-state,
   with a box filter; each spp chunk runs camera rays, the host-driven bounce
   loop and the film splat, as the JAX render's host-stepped ER branch.
@@ -29,6 +34,7 @@ from ..scene.types import EM_COLLIMATED, MED_HETEROGENEOUS, RenderConfig, Scene
 from . import boxwalk, common
 from . import volpath as volpath_m
 from . import volpath_er as er_m
+from . import wavefront as wf_m
 
 _NOT_PORTED = {
     "path": 9, "direct": 9, "ao": 9, "field": 9,
@@ -53,6 +59,27 @@ def _use_wavefront(cfg: RenderConfig) -> bool:
 
 def _has_beam(scene: Scene) -> bool:
     return bool((scene.emitters.kind == EM_COLLIMATED).any())
+
+
+def _has_direct(scene: Scene) -> bool:
+    """Some emitter other than a collimated beam (NEE toward emitters)."""
+    kinds = scene.emitters.kind
+    return kinds.numel() > 0 and bool((kinds != EM_COLLIMATED).any())
+
+
+def _any_het(scene: Scene) -> bool:
+    return bool((scene.media.kind == MED_HETEROGENEOUS).any())
+
+
+def render_pass_wavefront(scene: Scene, accum_L, cfg: RenderConfig,
+                          sppc: int, seed: int, pass_idx: int,
+                          has_direct: bool = True, any_het: bool = True):
+    """One spp chunk through the wavefront engine: returns (accum_L + the
+    (npix, 3) radiance sum, int64 stats [segments, taps, super-iterations,
+    unfinished]); divide by the total spp to develop."""
+    L, stats = wf_m.render_wavefront(scene, cfg, sppc, seed, pass_idx,
+                                     has_direct=has_direct, any_het=any_het)
+    return accum_L + L, stats
 
 
 def beam_splat_pass(scene: Scene, splat, cfg: RenderConfig, n_samples: int,
@@ -120,16 +147,16 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
     device="cpu" is passed.
 
     Roads: integrator "volpath_er" takes the eikonal road (box filter,
-    steady state); "volpath" with a box filter on a scene of the boxwalk
-    class takes boxwalk. The others raise NotImplementedError naming their
-    ROADMAP Queue 1 step: the loop engine (gaussian/tent filters, step 4),
-    the wavefront engine (step 5), the surface integrators (step 9), the
-    transient sinks (step 10) and the other integrators (step 12).
+    steady state); "volpath" with a box filter takes boxwalk on a scene of
+    the boxwalk class and the wavefront engine on any other. The others
+    raise NotImplementedError naming their ROADMAP Queue 1 step: the loop
+    engine (gaussian/tent filters, step 4), the surface integrators (step
+    9), the transient sinks (step 10) and the other integrators (step 12).
 
-    If `stats` is a dict it receives, per pass, on the boxwalk road
-    "passes" ([segments, taps, iters, unfinished]) and "boxwalk_s", on the
-    eikonal road "passes" ([bounces]) and "er_s": seconds, timed with a
-    device synchronize around each pass."""
+    If `stats` is a dict it receives, per pass, "passes" ([segments, taps,
+    iters, unfinished] on the boxwalk and wavefront roads, [bounces] on the
+    eikonal road) and the seconds of the passes, timed with a device
+    synchronize around each, as "boxwalk_s", "wavefront_s" or "er_s"."""
     if spp is not None:
         cfg = replace(cfg, spp=spp)
     if cfg.integrator in _NOT_PORTED:
@@ -143,29 +170,36 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
     if not _use_wavefront(cfg):
         raise not_ported("the loop engine (gaussian/tent filters, "
                           "engine='loop')", 4)
-    if not boxwalk.supported(scene, cfg):
-        raise not_ported("the wavefront engine (scenes outside the boxwalk "
-                          "class)", 5)
+    use_bw = boxwalk.supported(scene, cfg)
+    if not use_bw:
+        wf_m.check_supported(scene, cfg)
     scene = scene.to(_device(device))
     dev = scene.aabb_min.device
     npix = cfg.width * cfg.height
     spp_per_pass = _spp_per_pass(cfg)
+    hd, het = _has_direct(scene), _any_het(scene)
     L = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
     done = 0
     pass_idx = 0
+    timer = "boxwalk_s" if use_bw else "wavefront_s"
     if stats is not None:
         stats.setdefault("passes", [])
-        stats.setdefault("boxwalk_s", 0.0)
+        stats.setdefault(timer, 0.0)
     while done < cfg.spp:
         sppc = min(spp_per_pass, cfg.spp - done)
         if stats is not None:
             _sync(dev)
             t0 = time.perf_counter()
-        Lb, st = boxwalk.render_boxwalk(scene, cfg, sppc, seed, pass_idx)
-        L = L + Lb
+        if use_bw:
+            Lb, st = boxwalk.render_boxwalk(scene, cfg, sppc, seed, pass_idx)
+            L = L + Lb
+        else:
+            L, st = render_pass_wavefront(scene, L, cfg, sppc, seed,
+                                          pass_idx, has_direct=hd,
+                                          any_het=het)
         if stats is not None:
             _sync(dev)
-            stats["boxwalk_s"] += time.perf_counter() - t0
+            stats[timer] += time.perf_counter() - t0
             stats["passes"].append(st.tolist())
         done += sppc
         pass_idx += 1
@@ -183,7 +217,8 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
 
 def _spp_per_pass(cfg: RenderConfig) -> int:
     """min(spp, 2^21 // npix), as the JAX render() fixes the per-pass
-    budget before it picks the engine (so boxwalk does not get its own)."""
+    budget before it picks the engine (so neither fast engine gets its
+    own)."""
     return max(1, min(cfg.spp, (1 << 21) // max(cfg.width * cfg.height, 1)))
 
 

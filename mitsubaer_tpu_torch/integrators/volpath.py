@@ -17,12 +17,12 @@ from ..scene.types import (BSDF_NULL, EM_COLLIMATED, MED_HETEROGENEOUS,
 
 
 def _shape_tables(scene: Scene, shape_id):
-    """(bsdf, interior, exterior) of each shape id (-1 for none)."""
+    """(bsdf, emitter, interior, exterior) of each shape id (-1 for none)."""
     sh = scene.shapes
     i = torch.clamp(shape_id, 0, sh.bsdf.shape[0] - 1).to(torch.int64)
     ok = shape_id >= 0
     return tuple(torch.where(ok, a[i], -1)
-                 for a in (sh.bsdf, sh.interior, sh.exterior))
+                 for a in (sh.bsdf, sh.emitter, sh.interior, sh.exterior))
 
 
 def _is_null_surface(scene: Scene, bsdf_idx):
@@ -62,7 +62,7 @@ def attenuated_visibility(scene: Scene, eps, o, d, dist, medium_idx, smp,
         tr_seg, smp = segment_transmittance(scene, med, cur_o, d, seg, smp,
                                             running, bricks=bricks)
         tr = torch.where(running.unsqueeze(-1), tr * tr_seg, tr)
-        b_idx, m_in, m_ex = _shape_tables(scene, hit.shape_id)
+        b_idx, _, m_in, m_ex = _shape_tables(scene, hit.shape_id)
         is_null = _is_null_surface(scene, b_idx)
         blocked = running & hit.valid & ~is_null
         tr = torch.where(blocked.unsqueeze(-1), 0.0, tr)
@@ -97,7 +97,7 @@ def get_beam(scene: Scene) -> Beam:
     s1 = torch.maximum(tf, s0)
     # the medium the beam threads: interior medium of the first shape it enters
     hit = isect.intersect(scene.geo, o[None, :], d[None, :], 0.0, 3e38)
-    _, m_in, m_ex = _shape_tables(scene, hit.shape_id)
+    _, _, m_in, m_ex = _shape_tables(scene, hit.shape_id)
     entering = dot(d[None, :], hit.ng) < 0
     med = torch.where(hit.valid, torch.where(entering, m_in, m_ex), -1)[0]
     return Beam(exists=torch.any(is_coll), o=o, d=d, power=em.radiance[e],
@@ -142,8 +142,9 @@ def build_beam_tau(scene: Scene, beam: Beam, bricks, n: int = 256):
                       torch.zeros((n, 1), device=dev)], dim=-1)
 
 
-def beam_transmittance(beam: Beam, tau_table, s):
-    """Tr(beam origin -> s) by one row lookup and a lerp of the table."""
+def beam_transmittance(beam: Beam, tau_table, s, with_density: bool = False):
+    """Tr(beam origin -> s) by one row lookup and a lerp of the table; with
+    with_density also the row's density(s) * scale."""
     n = tau_table.shape[0]
     f = (s - beam.s0) / torch.clamp_min(beam.s1 - beam.s0, 1e-9) * n - 0.5
     f = torch.clamp(f, 0.0, n - 1.0)
@@ -152,4 +153,6 @@ def beam_transmittance(beam: Beam, tau_table, s):
     row = tau_table[i0]
     tau = row[:, 0:3] + row[:, 3:6] * t
     tau = torch.where((s < beam.s0).unsqueeze(-1), 0.0, tau)
+    if with_density:
+        return torch.exp(-tau), row[:, 6]
     return torch.exp(-tau)

@@ -1,9 +1,9 @@
 """Build and load the package's CUDA kernels.
 
-The sources in csrc/*.cu are compiled by `nvcc` at first use into one shared
-library with a plain C interface, build/kernels/<hash>/libmitsubaer_kernels.so
-(keyed by a hash of the sources and flags, so an edit rebuilds), and loaded
-with ctypes. Each C function takes device pointers and the CUDA stream, and
+The sources in csrc/*.cu are compiled by `nvcc` at first use, one process
+per source, all started together, and linked into one shared library with a
+plain C interface, build/kernels/<hash>/libmitsubaer_kernels.so (keyed by a
+hash of the sources and flags, so an edit rebuilds), and loaded with ctypes. Each C function takes device pointers and the CUDA stream, and
 returns cudaGetLastError() after its launch; `check` raises on non-zero.
 
 No --use_fast_math, and --fmad=false: the kernels round as the plain PyTorch
@@ -25,8 +25,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v"]
+              "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -47,6 +46,10 @@ _SIGNATURES = {
     # (params, rows in, rows out, trips, n, max_steps, stream)
     "mk_er_trace": [ErParams, _P, _P, _P, _I, _I, _P],
     "mk_er_sens": [ErParams, _P, _P, _P, _I, _I, _P],
+    # (rows, ctr, table, out, ctr_out, n, seed, max_trips, nx, ny, nz, nbx,
+    #  nby, nbz, stream)
+    "mk_megatrack": [_P, _P, _P, _P, _P, _I, ctypes.c_uint32] + [_I] * 7
+    + [_P],
 }
 
 
@@ -72,22 +75,43 @@ def library_path() -> Path:
 
 
 def build() -> tuple[Path, float]:
-    """Compile the library if it is missing; returns (path, seconds spent)."""
+    """Compile the library if it is missing; returns (path, seconds spent).
+
+    Each source compiles to an object in its own nvcc process, all at once;
+    one more nvcc links them."""
     out = library_path()
     if out.exists():
         return out, 0.0
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out.parent / f"{src.stem}.{tag}.o"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        text, _ = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + text)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-3]} ({proc.returncode}):\n{text}")
+    tmp = out.with_suffix(f".{tag}")
+    if not failed:
+        cmd = [_nvcc(), "-shared", "-o", str(tmp),
+               *[str(obj) for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link ({proc.returncode}):\n{proc.stdout}"
+                          f"{proc.stderr}")
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    (out.parent / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+    (out.parent / "build.log").write_text("".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, out)
     return out, seconds
 

@@ -23,6 +23,7 @@ class BSDFSample:
     weight: torch.Tensor  # (N, 3) f * cos / pdf
     pdf: torch.Tensor     # (N,) solid-angle pdf (1 for the null passthrough)
     delta: torch.Tensor   # (N,) bool
+    eta: torch.Tensor     # (N,) relative IOR of the event (1: no refraction)
 
 
 def _diffuse(bs: BSDFs, idx):
@@ -60,4 +61,4 @@ def sample(bs: BSDFs, idx, wi, u2, u1) -> BSDFSample:
     p = torch.where(is_diff, pdf_diff, 1.0)
     bad = torch.all(weight == 0.0, dim=-1) | (p <= 0.0)
     return BSDFSample(wo=wo, weight=torch.where(bad.unsqueeze(-1), 0.0, weight),
-                      pdf=p, delta=~is_diff)
+                      pdf=p, delta=~is_diff, eta=torch.ones_like(p))

@@ -1,8 +1,9 @@
 """Scene description as frozen dataclasses of tensors (port of
 mitsubaer_tpu/scene/types.py).
 
-Only the fields that change the results of the ported slice are kept; the
-JAX package's TPU tuning knobs (`wf_*`, `er_host_stepped`, `brick_map`)
+Only the fields that change the results of the ported slices are kept; the
+JAX package's TPU tuning knobs (`er_host_stepped`, `brick_map`, and the
+`wf_*` fields but the two that set the wavefront engine's pass schedule)
 have no counterpart. `scene_from_numpy` and `config_from_dict` take the JAX package's
 `Scene` / `RenderConfig` flattened to nested dicts of numpy arrays (same
 field names), so both packages can render the very same scene.
@@ -168,6 +169,13 @@ class RenderConfig:
     er_f64: bool = False
     hide_emitters: bool = False
     medium_strategies: bool = False
+    # wavefront engine pass schedule: transition passes (each followed by
+    # tracking) per super-iteration, and kernel C's trip cap per call. They
+    # decide which sampler dimensions each lane draws, so they change
+    # results. (The JAX package's wf_track_iters is only an on/off flag
+    # when kernel C tracks; the port derives it from the scene's media.)
+    wf_mini_passes: int = 1
+    wf_mega_trips: int = 6
 
     @property
     def n_frames(self) -> int:

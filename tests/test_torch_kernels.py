@@ -14,7 +14,9 @@ import torch
 
 from mitsubaer_tpu_torch import kernels
 from mitsubaer_tpu_torch.integrators import boxwalk as tbw
+from mitsubaer_tpu_torch.integrators import megatrack as tmt
 from mitsubaer_tpu_torch.integrators import render as trender
+from mitsubaer_tpu_torch.integrators import wavefront as twf
 from mitsubaer_tpu_torch.models import eikonal as tek
 from mitsubaer_tpu_torch.models import ermarch as tem
 from mitsubaer_tpu_torch.models import medium as tmedium
@@ -45,7 +47,7 @@ def test_library_path_is_keyed_by_sources():
     assert re.fullmatch(r"[0-9a-f]{16}", path.parent.name)
     assert path.parent.parent == kernels.BUILD_ROOT
     assert {s.name for s in kernels.CSRC.glob("*.cu")} == {
-        "boxwalk.cu", "ermarch.cu", "trilinear.cu"}
+        "boxwalk.cu", "ermarch.cu", "megatrack.cu", "trilinear.cu"}
 
 
 def test_lookup_on_cpu_runs_plain_version_without_counting():
@@ -141,6 +143,44 @@ def test_er_marches_on_cpu_run_plain_versions_without_counting():
     assert (tem.trace.launches, tem.sens_march.launches) == before
 
 
+def _mega_inputs(n, seed, device="cpu"):
+    """Rows and counters kernel C takes in the 512^2 render's first
+    tracking call: the point-lit box's state after an event pass and a
+    transition pass (res 16 stands in for the CPU)."""
+    scene, cfg = tpresets.volumetric_box(res=n, spp=2, heterogeneous=True,
+                                         density_res=64, max_depth=12,
+                                         filter="box", emitter_kind="point")
+    scene = scene.to(device)
+    st, event_pass, _, _, _ = twf.make_engine(scene, cfg, 2, seed, 0)
+    st = event_pass(event_pass(st), mini=True)
+    mega = tmt.MegaTable(scene.media)
+    _, need, rows = twf.pack_rows(scene, mega, st)
+    ctr = torch.randint(-2 ** 31, 2 ** 31 - 1, (1, rows.shape[1]),
+                        generator=torch.Generator().manual_seed(seed),
+                        dtype=torch.int32).to(device)
+    return rows, ctr, mega, bool(need.any())
+
+
+def test_megatrack_on_cpu_runs_plain_version_without_counting():
+    rows, ctr, mega, busy = _mega_inputs(16, 0)
+    assert busy and rows.shape == (tmt.C_IN, 256)
+    before = tmt.run.launches
+    got = tmt.run(rows, ctr, mega.table, 5, 6, mega.res, mega.nb)
+    want = tmt.run_plain(rows, ctr, mega.table, 5, 6, mega.res, mega.nb)
+    assert tmt.run.launches == before
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    out, ctr_out = got
+    assert out.shape == (tmt.C_OUT, 256) and ctr_out.dtype == torch.int32
+    assert int((out[6] > 0).sum()) == int((rows[17] > 0.5).sum())
+
+
+def test_megatrack_rejects_other_devices():
+    rows, ctr, mega, _ = _mega_inputs(4, 1)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tmt.run(rows.to("meta"), ctr, mega.table, 0, 6, mega.res, mega.nb)
+
+
 def test_walk_rejects_other_devices():
     scene, cfg = _box()
     params, table, beam_tab, shape = tbw.walk_inputs(scene, cfg, 1)
@@ -203,6 +243,41 @@ def test_render_on_cuda_goes_through_kernels_and_matches_cpu(cuda):
     lit = img_c.mean(-1) > 0
     ratio = (img_g.mean(-1)[lit] / img_c.mean(-1)[lit]).median().item()
     assert 0.999 <= ratio <= 1.001
+
+
+@pytest.mark.cuda
+def test_megatrack_kernel_matches_plain_on_cuda(cuda):
+    """Kernel C against run_plain on the card: both round every product
+    (--fmad=false) and use the card's logf, so every lane agrees."""
+    rows, ctr, mega, busy = _mega_inputs(128, 2, cuda)
+    assert busy
+    for trips in (6, 64):
+        before = tmt.run.launches
+        out_k, ctr_k = tmt.run(rows, ctr, mega.table, 9, trips, mega.res,
+                               mega.nb)
+        assert tmt.run.launches == before + 1
+        out_p, ctr_p = tmt.run_plain(rows, ctr, mega.table, 9, trips,
+                                     mega.res, mega.nb)
+        torch.cuda.synchronize()
+        assert torch.equal(ctr_k, ctr_p)
+        assert torch.equal(out_k[4:8], out_p[4:8])
+        torch.testing.assert_close(out_k[:4], out_p[:4], atol=1e-6, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_wavefront_render_on_cuda_goes_through_kernel_c_and_matches_cpu(cuda):
+    scene, cfg = tpresets.volumetric_box(res=24, spp=4, heterogeneous=True,
+                                         density_res=16, max_depth=4,
+                                         filter="box", emitter_kind="point")
+    before = tmt.run.launches
+    stats = {}
+    img_g = trender.render(scene, cfg, seed=2, device=cuda, stats=stats).cpu()
+    assert tmt.run.launches >= before + stats["passes"][0][2]
+    img_c = trender.render(scene, cfg, seed=2, device="cpu")
+    assert abs(img_g.mean().item() / img_c.mean().item() - 1) <= 1e-2
+    lit = img_c.mean(-1) > 0
+    ratio = (img_g.mean(-1)[lit] / img_c.mean(-1)[lit]).median().item()
+    assert 0.99 <= ratio <= 1.01
 
 
 def _compare_march(got, want, flags, rtol):

@@ -103,7 +103,8 @@ def test_spp_per_pass_follows_render_budget():
     (dict(filter="box", engine="loop"), "step 4"),
     (dict(filter="box", integrator="path"), "step 9"),
     (dict(filter="box", integrator="bdpt"), "step 12"),
-    (dict(filter="box", emitter_kind="point"), "step 5"),
+    (dict(filter="box", emitter_kind="point", medium_strategies=True),
+     "step 7"),
 ])
 def test_other_roads_raise(kw, step):
     scene, cfg = tpresets.volumetric_box(res=8, spp=1, heterogeneous=True,
