@@ -5,9 +5,11 @@
 Phases (any failure raises and the script exits non-zero):
   1. device: require CUDA; print the card's name and power limit;
   2. build: compile csrc/*.cu with nvcc (or load the cached library);
-  3. kernel A (trilinear density lookup) against its plain version on 10^6
-     points in and around the 64^3 grid, f32 and bf16-rounded grids, and
-     torch's grid_sample on the same points as the yardstick;
+  3. kernel A (trilinear density lookup from the cell table) against its
+     plain version on 10^6 points in and around the 64^3 grid, f32 and
+     bf16-rounded grids, exact; its time through its wrapper and as a bare
+     launch, each with its host time a call, the cell table's build time,
+     and torch's grid_sample on the same points as the yardstick;
   4. kernel B (boxwalk) against its plain version at sppc 8, depth 12,
      density 64^3, at res 64 and at the main path's 512^2;
   5. the bounded-volume path: render() at 512^2, spp 32, depth 12, density
@@ -15,7 +17,9 @@ Phases (any failure raises and the script exits non-zero):
      non-zero. Then the same render at a small size on the card and on the
      CPU (plain versions), which must agree;
   6. kernels D and E (the eikonal marches) against their plain versions on
-     the card at the eikonal bench's shapes (18,432 and 36,864 lanes);
+     the card at the eikonal bench's shapes (18,432 and 36,864 lanes); E
+     exact for the linear and radial RIFs, flags and per-lane step counts
+     equal on every lane, timed bare and as the whole sens_march call;
   7. the eikonal path: render() of refractive_sphere at the eikonal bench's
      full width (96^2, spp 2, depth 6, linear RIF, h 1e-2, 8 BVP restarts
      at 4x h) on the card; both march kernels must have launched;
@@ -59,7 +63,13 @@ PEAK_BYTES = 3.35e12
 OPS_A_POINT = 45
 OPS_B_TAP, OPS_B_SEGMENT = 190, 100
 OPS_D_STEP = {1: 54, 2: 92}
-OPS_E_STEP = {1: 267, 2: 347}
+# E per lane-step, from sens_step and its loop: the work the lane's three
+# column threads share counted once (v1 and v2 6 each, the position 9, one
+# RIF evaluation with its Hessian at the new point, 6 linear or 38 radial,
+# 1/n and -1/n^2 3, the row factors 3, the sphere SDF 13, the plane side 9,
+# the stop test 2, the loop's opt, marched, crossed and trip count 6) and
+# the column work three times (dv1 and dv2 21 each, g.dp 5, dp 15)
+OPS_E_STEP = {1: 63 + 3 * 62, 2: 95 + 3 * 62}
 # kernel C per density tap: five lowbias32 hashes and their uniforms, the
 # exponential step, the voxel position, the inside test and clip, three
 # stochastic corners, the brick index and load, and the weight update
@@ -81,6 +91,22 @@ def _cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def _host_us(fn, reps):
+    """Host time of one call in microseconds: reps calls queued with no
+    synchronisation between them. Where it exceeds _cuda_ms's time of the
+    same calls, the device waited on the host."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def _bound(nbytes, ops):
     """(bound in ms, what bounds it) for the given bytes and operations."""
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_FP32 * 1e3
@@ -91,6 +117,58 @@ def _kernel_row(name, source, replaces, err, ms, plain_ms, bound, library_ms):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
                 bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms)
+
+
+def _a_points(n, dev):
+    """Kernel A's points: uniform in and around the [-1, 1]^3 grid AABB, a
+    tenth of them on its faces."""
+    import torch
+
+    gen = torch.Generator(device="cpu").manual_seed(1234)
+    pts = torch.rand((n, 3), generator=gen) * 2.4 - 1.2    # in and around
+    face = torch.randint(0, 3, (n // 10,), generator=gen)
+    side = torch.randint(0, 2, (n // 10,), generator=gen).float() * 2 - 1
+    pts[torch.arange(n // 10), face] = side                 # on the faces
+    return pts.to(dev)
+
+
+def _a_bare(grid, pts, out):
+    """One bare launch of kernel A: the C call alone, with its arguments
+    formed once (no checks, no allocation, not counted)."""
+    import torch
+
+    from mitsubaer_tpu_torch import kernels
+
+    nz, ny, nx = grid.grid.shape
+    args = (pts.data_ptr(), grid.cells.data_ptr(), grid.aabb6.data_ptr(),
+            out.data_ptr(), pts.shape[0], nx, ny, nz,
+            int(grid.cells.dtype == torch.bfloat16), kernels.stream(pts))
+    fn = kernels.library().mk_trilinear_lookup
+    return lambda: fn(*args)
+
+
+def _e_bare(rif, sdf, e_in, h, max_steps):
+    """(one bare launch of kernel E on preallocated outputs, those outputs:
+    sens_march's, then the per-lane trip counts); the launch is not
+    counted."""
+    from mitsubaer_tpu_torch import kernels
+    from mitsubaer_tpu_torch.models import ermarch
+
+    io, outs = ermarch.sens_io(*e_in[:5], h, e_in[5])
+    args = (ermarch._params(rif, sdf), io, e_in[0].shape[0], max_steps,
+            kernels.stream(e_in[0]))
+    fn = kernels.library().mk_er_sens
+    return lambda: fn(*args), outs
+
+
+def _plain_trips(want, active, h, max_steps):
+    """Per-lane trip counts of sens_march_plain's loop, from its output: a
+    lane that took k steps ran k + 1 trips (the last one stopped it) unless
+    it reached max_steps; an inactive lane ran none."""
+    import torch
+
+    k = torch.round(want[5] / h).to(torch.int32)
+    return torch.where(active, torch.clamp_max(k + 1, max_steps), 0)
 
 
 def _er_inputs(rif, n_d, n_e, seed, dev):
@@ -186,8 +264,10 @@ def main() -> int:
     log = path.parent / "build.log"
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip())
+            if "Compiling entry function" in line:
+                print("  ptxas:", line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                print("  ptxas:   ", line.strip())
     results = {}
 
     # ---- phase 3: kernel A against its plain version ----
@@ -195,30 +275,38 @@ def main() -> int:
                                         density_res=64, max_depth=12,
                                         filter="box")
     scene = scene.to(dev)
-    gen = torch.Generator(device="cpu").manual_seed(1234)
     n = 1_000_000
-    pts = torch.rand((n, 3), generator=gen) * 2.4 - 1.2    # in and around
-    face = torch.randint(0, 3, (n // 10,), generator=gen)
-    side = torch.randint(0, 2, (n // 10,), generator=gen).float() * 2 - 1
-    pts[torch.arange(n // 10), face] = side                 # on the faces
-    pts = pts.to(dev)
-    errs, ms, plain_ms = [], [], []
+    pts = _a_points(n, dev)
+    out = torch.empty((n,), dtype=torch.float32, device=dev)
+    errs, ms, plain_ms, bare_ms = [], [], [], []
     for dtype in (None, torch.bfloat16):
         grid = medium.DensityGrid(scene.media, dtype=dtype)
         got = grid.lookup(pts)
         ref = medium.trilinear_lookup_plain(grid.grid, grid.aabb6, pts)
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
-        tol = 1e-5 * grid.grid.max().item()
-        print(f"kernel A ({dtype or 'f32'}): max abs err {err:.3e} "
-              f"(tol {tol:.3e})", flush=True)
-        if not err <= tol:
-            raise AssertionError(f"trilinear_lookup disagrees: {err} > {tol}")
+        print(f"kernel A ({dtype or 'f32'}): max abs err {err:.3e}, equal on "
+              f"every point: {torch.equal(got, ref)}", flush=True)
+        if not torch.equal(got, ref):
+            raise AssertionError(f"trilinear_lookup differs from its plain "
+                                 f"version: max abs err {err}")
         errs.append(err)
+        bare = _a_bare(grid, pts, out)
+        bare_ms.append(_cuda_ms(bare, 50))
         ms.append(_cuda_ms(lambda: grid.lookup(pts), 50))
+        host = [_host_us(f, 50) for f in (bare, lambda: grid.lookup(pts))]
         plain_ms.append(_cuda_ms(
             lambda: medium.trilinear_lookup_plain(grid.grid, grid.aabb6, pts),
             20))
+        table_ms = _cuda_ms(lambda: medium.cell_table(
+            grid.grid, grid.cells.dtype), 20)
+        print(f"kernel A ({dtype or 'f32'}) at N=1e6: bare launch "
+              f"{bare_ms[-1]:.4f} ms (host {host[0]:.2f} us a call), through "
+              f"the wrapper {ms[-1]:.4f} ms (host {host[1]:.2f} us a call), "
+              f"plain {plain_ms[-1]:.4f} ms; cell table "
+              f"{tuple(grid.cells.shape)} {grid.cells.dtype} "
+              f"{grid.cells.numel() * grid.cells.element_size()} B built in "
+              f"{table_ms:.4f} ms [{card}]", flush=True)
     # yardstick: one grid_sample call on the same points (trilinear,
     # align_corners=True puts the voxel centres on the AABB as kernel A
     # does; zeros padding fades to 0 over the voxel outside the AABB, where
@@ -227,17 +315,25 @@ def main() -> int:
     lo, hi = grid.aabb6[:3], grid.aabb6[3:]
     vol = grid.grid[None, None]
     coords = ((pts - lo) / (hi - lo) * 2.0 - 1.0).reshape(1, 1, 1, n, 3)
-    lib_a_ms = _cuda_ms(lambda: torch.nn.functional.grid_sample(
-        vol, coords, mode="bilinear", padding_mode="zeros",
-        align_corners=True), 50)
+    def lib_a():
+        return torch.nn.functional.grid_sample(
+            vol, coords, mode="bilinear", padding_mode="zeros",
+            align_corners=True)
+
+    lib_a_ms = _cuda_ms(lib_a, 50)
+    lib_a_host = _host_us(lib_a, 50)
     bound_a = _bound(n * 16 + grid.grid.numel() * 4, n * OPS_A_POINT)
-    print(f"kernel A at N=1e6: {ms[0]:.4f} ms, plain {plain_ms[0]:.4f} ms, "
-          f"grid_sample {lib_a_ms:.4f} ms, bound {bound_a[0]:.4f} ms "
-          f"({bound_a[1]}) [{card}]", flush=True)
+    print(f"kernel A at N=1e6: through the wrapper {ms[0]:.4f} ms (bf16 "
+          f"{ms[1]:.4f} ms), bare launch {bare_ms[0]:.4f} ms (bf16 "
+          f"{bare_ms[1]:.4f} ms), plain {plain_ms[0]:.4f} ms, grid_sample "
+          f"{lib_a_ms:.4f} ms (host {lib_a_host:.2f} us a call), bound "
+          f"{bound_a[0]:.4f} ms ({bound_a[1]}) [{card}]", flush=True)
     results["trilinear_lookup"] = _kernel_row(
         "trilinear_lookup", "mitsubaer_tpu_torch/csrc/trilinear.cu",
         "mitsubaer_tpu/models/medium.py:118", max(errs), ms[0], plain_ms[0],
         bound_a, lib_a_ms)
+    results["trilinear_lookup"]["bare_ms"] = bare_ms[0]
+    del out
 
     # ---- phase 4: kernel B against its plain version, at res 64 and at
     # the main path's pass shape (512^2, sppc 8) ----
@@ -343,9 +439,8 @@ def main() -> int:
     plain_d_ms = (time.perf_counter() - t0) * 1e3
     err_d, share_d = _compare_march("kernel D", got, want, 4, 1e-5)
     rows_d = ermarch.trace_rows(p, v, dist, h_d, act)
-    _, trips = ermarch.run_kernel("mk_er_trace", rif, sdf, rows_d, steps_d)
-    d_ms = _cuda_ms(lambda: ermarch.run_kernel("mk_er_trace", rif, sdf,
-                                               rows_d, steps_d), 20)
+    _, trips = ermarch.run_kernel(rif, sdf, rows_d, steps_d)
+    d_ms = _cuda_ms(lambda: ermarch.run_kernel(rif, sdf, rows_d, steps_d), 20)
     n_d = p.shape[0]
     bound_d = _bound(n_d * (2 * 12 * 4 + 4),
                      int(trips.sum()) * OPS_D_STEP[rif.kind])
@@ -359,30 +454,63 @@ def main() -> int:
         "mitsubaer_tpu/models/ermarch.py:122", err_d, d_ms, plain_d_ms,
         bound_d, None)
 
-    got = ermarch.sens_march(rif, sdf, *e_in[:5], h_e, steps_e, e_in[5])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = ermarch.sens_march_plain(rif, sdf, *e_in[:5], h_e, steps_e,
-                                    e_in[5])
-    torch.cuda.synchronize()
-    plain_e_ms = (time.perf_counter() - t0) * 1e3
-    err_e, share_e = _compare_march("kernel E", got, want, 6, 1e-4)
-    rows_e = ermarch.sens_rows(*e_in[:5], h_e, e_in[5])
-    _, trips = ermarch.run_kernel("mk_er_sens", rif, sdf, rows_e, steps_e)
-    e_ms = _cuda_ms(lambda: ermarch.run_kernel("mk_er_sens", rif, sdf,
-                                               rows_e, steps_e), 20)
-    n_e = e_in[0].shape[0]
-    bound_e = _bound(n_e * (2 * 32 * 4 + 4),
-                     int(trips.sum()) * OPS_E_STEP[rif.kind])
-    print(f"kernel E at {n_e} lanes, h {h_e}, max_steps {steps_e}: "
-          f"{e_ms:.4f} ms, plain {plain_e_ms:.1f} ms, bound "
-          f"{bound_e[0]:.5f} ms ({bound_e[1]}), steps {int(got[-1])}, lane "
-          f"steps {int(trips.sum())}, crossed flags equal on {share_e:.6f}, "
-          f"max abs err {err_e:.3e} [{card}]", flush=True)
+    # kernel E, exact against its plain version for the bench's linear RIF
+    # and a radial one; the row below reports the linear case
+    radial = ek.RifField(ek.RIF_RADIAL, (1.2, 0.4, 0.6, 0.1, -0.1, 0.0))
+    cases = [(radial, _er_inputs(radial, 0, 36_864, 12, dev)[1]),
+             (rif, e_in)]
+    for e_rif, e_in in cases:
+        got = ermarch.sens_march(e_rif, sdf, *e_in[:5], h_e, steps_e,
+                                 e_in[5])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = ermarch.sens_march_plain(e_rif, sdf, *e_in[:5], h_e, steps_e,
+                                        e_in[5])
+        torch.cuda.synchronize()
+        plain_e_ms = (time.perf_counter() - t0) * 1e3
+        launch, outs = _e_bare(e_rif, sdf, e_in, h_e, steps_e)
+        launch()
+        trips = outs[-1]
+        trips_plain = _plain_trips(want, e_in[5], h_e, steps_e)
+        torch.cuda.synchronize()
+        bad = [i for i, (a, b) in enumerate(zip(got, want))
+               if not torch.equal(a, b)]
+        bad_trips = int((trips != trips_plain).sum())
+        if bad or bad_trips or not all(
+                torch.equal(a, b) for a, b in zip(outs[:-1], got)):
+            raise AssertionError(f"kernel E ({e_rif.kind}) differs from its "
+                                 f"plain version: outputs {bad}, trips on "
+                                 f"{bad_trips} lanes")
+        err_e = max((a.float() - b.float()).abs().max().item()
+                    for a, b in zip(got[:6], want[:6]))
+        bare_e_ms = _cuda_ms(launch, 20)
+
+        def call():
+            return ermarch.sens_march(e_rif, sdf, *e_in[:5], h_e, steps_e,
+                                      e_in[5])
+
+        e_ms = _cuda_ms(call, 20)
+        host = [_host_us(f, 20) for f in (launch, call)]
+        n_e = e_in[0].shape[0]
+        # in: p1, v, p2 (12 B each), two 3x3 (36 B each), active (1 B); out:
+        # p, v, two 3x3, opt, marched (4 B each), trips (8 B), crossed (1 B)
+        bound_e = _bound(n_e * (109 + 113),
+                         int(trips.sum()) * OPS_E_STEP[e_rif.kind])
+        kind = {1: "linear", 2: "radial"}[e_rif.kind]
+        print(f"kernel E ({kind} RIF) at {n_e} lanes, h {h_e}, max_steps "
+              f"{steps_e}: bare launch {bare_e_ms:.4f} ms (host "
+              f"{host[0]:.2f} us a call), whole sens_march {e_ms:.4f} ms "
+              f"(host {host[1]:.2f} us a call), plain {plain_e_ms:.1f} ms, "
+              f"bound {bound_e[0]:.5f} ms ({bound_e[1]}), steps "
+              f"{int(got[-1])}, lane steps {int(trips.sum())}, crossed lanes "
+              f"{int(got[6].sum())}, max abs err {err_e:.3e}: every output, "
+              f"flag and per-lane trip count equal [{card}]", flush=True)
     results["er_sens"] = _kernel_row(
         "er_sens", "mitsubaer_tpu_torch/csrc/ermarch.cu",
         "mitsubaer_tpu/models/ermarch.py:194", err_e, e_ms, plain_e_ms,
         bound_e, None)
+    results["er_sens"]["bare_ms"] = bare_e_ms
+    del outs, launch
 
     # ---- phase 7: the eikonal path at full width ----
     er_scene, er_cfg = _er_bench_scene(presets, 96, 2, 256)

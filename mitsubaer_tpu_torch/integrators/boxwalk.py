@@ -407,7 +407,7 @@ def walk(params, seed: int, table, beam_tab, s: WalkShape):
                          "(512, R) bf16 and beam_tab (8, 256) f32")
     out = torch.empty((s.sppc * 3 + 4, s.npix), dtype=torch.float32,
                       device=params.device)
-    with torch.cuda.device(params.device):
+    with kernels.on_device(params):
         rc = kernels.library().mk_boxwalk(
             params.data_ptr(), seed & M32, table.data_ptr(),
             beam_tab.data_ptr(), out.data_ptr(), s.npix, s.sppc, s.max_depth,

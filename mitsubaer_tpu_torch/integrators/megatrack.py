@@ -180,7 +180,7 @@ def run(rows, ctr, table, seed: int, max_trips: int, res, nb):
     ctr_out = torch.empty((1, n), dtype=torch.int32, device=rows.device)
     if n == 0:
         return out, ctr_out
-    with torch.cuda.device(rows.device):
+    with kernels.on_device(rows):
         rc = kernels.library().mk_megatrack(
             rows.data_ptr(), ctr.data_ptr(), table.data_ptr(),
             out.data_ptr(), ctr_out.data_ptr(), n, seed & M32, max_trips,

@@ -104,12 +104,12 @@ def beam_splat_pass(scene: Scene, splat, cfg: RenderConfig, n_samples: int,
     media = scene.media
     bmed = beam.medium.expand(n_samples)
     kind, _, ss, scale = medium_m.params(media, bmed)
-    dens = torch.where(kind == MED_HETEROGENEOUS,
-                       medium_m.density_at(media, y) * scale, 1.0)
+    bricks = medium_m.DensityGrid(media)
+    dens = torch.where(kind == MED_HETEROGENEOUS, bricks.lookup(y) * scale,
+                       1.0)
     sigma_s_y = ss * dens.unsqueeze(-1)
     rho = phase_m.eval(media.phase, bmed, beam.d.expand(n_samples, 3), d_yc)
 
-    bricks = medium_m.DensityGrid(media)
     tau = volpath_m.build_beam_tau(scene, beam, bricks)
     tr1 = volpath_m.beam_transmittance(beam, tau, sdist)
     tr2, smp = volpath_m.attenuated_visibility(

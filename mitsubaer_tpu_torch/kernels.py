@@ -11,6 +11,7 @@ versions do, which the lane-by-lane comparisons rely on.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -37,15 +38,29 @@ class ErParams(ctypes.Structure):
     _fields_ = [("q", ctypes.c_float * 16)]
 
 
+class SensIO(ctypes.Structure):
+    """Kernel E's tensors, by value: the inputs as ermarch.sens_march takes
+    them, the step size (h_lanes, or h where h_lanes is null) and the
+    outputs as it returns them, plus the per-lane trip counts (int64) before
+    the step count."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in (
+        "p1", "v", "dp", "dv", "p2", "active", "h_lanes")] + [
+        ("h", ctypes.c_float)] + [(f, ctypes.c_void_p) for f in (
+            "p", "vo", "dpo", "dvo", "opt", "marched", "crossed", "trips",
+            "steps")]
+
+
 _SIGNATURES = {
-    # (points, grid, aabb6, out, n, nx, ny, nz, stream)
-    "mk_trilinear_lookup": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (points, cells, aabb6, out, n, nx, ny, nz, bf16, stream)
+    "mk_trilinear_lookup": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (params, seed, table, beam_tab, out, npix, sppc, max_depth, rr_depth,
     #  width, height, stride, nx, ny, nz, nbx, nby, nbz, max_trips, stream)
     "mk_boxwalk": [_P, ctypes.c_uint32, _P, _P, _P] + [_I] * 14 + [_P],
     # (params, rows in, rows out, trips, n, max_steps, stream)
     "mk_er_trace": [ErParams, _P, _P, _P, _I, _I, _P],
-    "mk_er_sens": [ErParams, _P, _P, _P, _I, _I, _P],
+    # (params, tensors, n, max_steps, stream)
+    "mk_er_sens": [ErParams, SensIO, _I, _I, _P],
     # (rows, ctr, table, out, ctr_out, n, seed, max_trips, nx, ny, nz, nbx,
     #  nby, nbz, stream)
     "mk_megatrack": [_P, _P, _P, _P, _P, _I, ctypes.c_uint32] + [_I] * 7
@@ -136,12 +151,25 @@ def check(rc: int, name: str) -> None:
 
 
 def stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw handle of the current stream on t's device. This is the
+    binding torch's generated code launches with; torch.cuda.current_stream
+    builds a Stream object and costs several microseconds of host time a
+    call."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
+
+
+def on_device(t: torch.Tensor):
+    """A context that makes t's device current for a launch (a no-op where
+    it already is)."""
+    if t.get_device() == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
-    """Raise unless every tensor is a contiguous CUDA tensor."""
+    """Raise unless every tensor is a contiguous CUDA tensor (`is_cuda`:
+    `device.type` builds a device object, a microsecond or more a call)."""
     for t in tensors:
-        if t.device.type != "cuda" or not t.is_contiguous():
+        if not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"{name}: expected contiguous CUDA tensors, got "
                              f"{t.device} contiguous={t.is_contiguous()}")

@@ -7,7 +7,8 @@
 * E, `sens_march`: march until the ray passes the plane through its target
   or leaves the medium, carrying dp/dv0 and dv/dv0 (the loop of
   eikonal.integrate_with_sensitivities). Replaces the Pallas `_sens_kernel`
-  of mitsubaer_tpu/models/ermarch.py:194.
+  of mitsubaer_tpu/models/ermarch.py:194. It runs three threads a lane, one
+  sensitivity column each, on the caller's tensors as they are.
 
 Both take the JAX launchers' arguments and return what they return, plus
 `steps` at the end of `sens_march`'s tuple too: the number of steps the
@@ -116,42 +117,26 @@ def trace_rows(p, v, distance, h, active):
     return rows
 
 
-def sens_rows(p1, v, dpdv0, dvdv0, p2, h, active):
-    """Kernel E's (32, N) input rows: 0:3 p, 3:6 v, 6:15 dpdv0 and 15:24
-    dvdv0 (row-major), 24 opt, 25 marched, 26 running, 27 crossed, 28:31
-    p2, 31 h."""
-    n = p1.shape[0]
-    rows = torch.zeros((32, n), dtype=torch.float32, device=p1.device)
-    rows[0:3] = p1.t()
-    rows[3:6] = v.t()
-    rows[6:15] = dpdv0.reshape(n, 9).t()
-    rows[15:24] = dvdv0.reshape(n, 9).t()
-    rows[26] = active.to(torch.float32)
-    rows[28:31] = p2.t()
-    rows[31] = h
-    return rows
-
-
-def run_kernel(name: str, rif, sdf, rows, max_steps: int):
-    """Launch kernel `name` ("mk_er_trace" or "mk_er_sens") on CUDA state
-    rows. Returns (output rows, per-lane trip counts); counts nothing."""
-    kernels.require_cuda(name, rows)
+def run_kernel(rif, sdf, rows, max_steps: int):
+    """Launch kernel D on CUDA state rows. Returns (output rows, per-lane
+    trip counts); counts nothing."""
+    kernels.require_cuda("mk_er_trace", rows)
     n = rows.shape[1]
     out = torch.empty_like(rows)
     trips = torch.zeros((n,), dtype=torch.int32, device=rows.device)
     if n:
-        with torch.cuda.device(rows.device):
-            rc = getattr(kernels.library(), name)(
+        with kernels.on_device(rows):
+            rc = kernels.library().mk_er_trace(
                 _params(rif, sdf), rows.data_ptr(), out.data_ptr(),
                 trips.data_ptr(), n, int(max_steps), kernels.stream(rows))
-        kernels.check(rc, name)
+        kernels.check(rc, "mk_er_trace")
     return out, trips
 
 
 def _on_cpu(name, t) -> bool:
-    if t.device.type not in ("cpu", "cuda"):
+    if not (t.is_cpu or t.is_cuda):
         raise ValueError(f"{name}: unsupported device {t.device}")
-    return t.device.type == "cpu"
+    return t.is_cpu
 
 
 def _steps(trips):
@@ -165,14 +150,57 @@ def trace(rif, sdf, p, v, distance, h, max_steps: int, active):
     (p, v, opt, marched, exited, steps)."""
     if _on_cpu("ermarch.trace", p):
         return trace_plain(rif, sdf, p, v, distance, h, max_steps, active)
-    out, trips = run_kernel("mk_er_trace", rif, sdf,
-                            trace_rows(p, v, distance, h, active), max_steps)
-    trace.launches += 1
+    out, trips = run_kernel(rif, sdf, trace_rows(p, v, distance, h, active),
+                            max_steps)
+    if p.shape[0]:
+        trace.launches += 1
     return (out[0:3].t(), out[3:6].t(), out[6], out[7], out[9] > 0.5,
             _steps(trips))
 
 
 trace.launches = 0
+
+
+def sens_io(p1, v, dpdv0, dvdv0, p2, h, active):
+    """Check kernel E's CUDA inputs and allocate its outputs. h is a float
+    or an (N,) tensor. Returns (kernels.SensIO, outputs), the outputs being
+    (p, v, dpdv0, dvdv0, opt, marched, crossed, steps, per-lane trip
+    counts). They are views of three allocations (the floats, the flags,
+    the trip counts with the step count last), since each allocation costs
+    host time on every call and the render makes hundreds."""
+    n = p1.shape[0]
+    p1, v, dpdv0, dvdv0, p2, active = (t.contiguous() for t in (
+        p1, v, dpdv0, dvdv0, p2, active))
+    ins = [p1, v, dpdv0, dvdv0, p2]
+    shapes = [(n, 3), (n, 3), (n, 3, 3), (n, 3, 3), (n, 3)]
+    h_lanes = None
+    if isinstance(h, torch.Tensor):
+        h_lanes = h.to(device=p1.device, dtype=torch.float32).expand(
+            n).contiguous()
+        ins, shapes = ins + [h_lanes], shapes + [(n,)]
+    kernels.require_cuda("mk_er_sens", *ins, active)
+    for t, shape in zip(ins, shapes):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"mk_er_sens: expected float32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if active.dtype != torch.bool or tuple(active.shape) != (n,):
+        raise ValueError("mk_er_sens: expected a bool (N,) active mask")
+    flt = p1.new_empty((26 * n,))
+    ints = (torch.zeros if n == 0 else torch.empty)(
+        (n + 1,), dtype=torch.int64, device=p1.device)
+    outs = (flt[:3 * n].view(n, 3), flt[3 * n:6 * n].view(n, 3),
+            flt[6 * n:15 * n].view(n, 3, 3), flt[15 * n:24 * n].view(n, 3, 3),
+            flt[24 * n:25 * n], flt[25 * n:],
+            torch.empty((n,), dtype=torch.bool, device=p1.device),
+            ints[n], ints[:n])
+    io = kernels.SensIO(
+        *[t.data_ptr() for t in (p1, v, dpdv0, dvdv0, p2, active)],
+        None if h_lanes is None else h_lanes.data_ptr(),
+        0.0 if h_lanes is not None else float(h),
+        *[t.data_ptr() for t in outs[:7] + (outs[8], outs[7])])
+    # the inputs must outlive the launch: keep them with the struct
+    io.tensors = (p1, v, dpdv0, dvdv0, p2, active, h_lanes)
+    return io, outs
 
 
 def sens_march(rif, sdf, p1, v, dpdv0, dvdv0, p2, h, max_steps: int, active):
@@ -181,14 +209,15 @@ def sens_march(rif, sdf, p1, v, dpdv0, dvdv0, p2, h, max_steps: int, active):
     if _on_cpu("ermarch.sens_march", p1):
         return sens_march_plain(rif, sdf, p1, v, dpdv0, dvdv0, p2, h,
                                 max_steps, active)
-    n = p1.shape[0]
-    out, trips = run_kernel(
-        "mk_er_sens", rif, sdf, sens_rows(p1, v, dpdv0, dvdv0, p2, h, active),
-        max_steps)
-    sens_march.launches += 1
-    return (out[0:3].t(), out[3:6].t(), out[6:15].t().reshape(n, 3, 3),
-            out[15:24].t().reshape(n, 3, 3), out[24], out[25], out[27] > 0.5,
-            _steps(trips))
+    io, outs = sens_io(p1, v, dpdv0, dvdv0, p2, h, active)
+    if p1.shape[0]:
+        with kernels.on_device(p1):
+            rc = kernels.library().mk_er_sens(
+                _params(rif, sdf), io, p1.shape[0], int(max_steps),
+                kernels.stream(p1))
+        kernels.check(rc, "mk_er_sens")
+        sens_march.launches += 1
+    return outs[:-1]
 
 
 sens_march.launches = 0

@@ -5,11 +5,14 @@ sampling.
 
 Kernel A, `trilinear_lookup`, replaces the JAX package's
 `DensityBricks.lookup` as a whole (the 8x4x4 apron-brick gather plus the
-Pallas `_trilinear_brick_kernel`, medium.py:118-252): it reads the dense grid
-directly. The brick repack and the bf16 weight product were TPU gather and
-VPU tricks and are not carried over; where the JAX caller stores bricks in
-bf16, `DensityGrid(dtype=torch.bfloat16)` rounds the grid to bf16 once so the
-values match.
+Pallas `_trilinear_brick_kernel`, medium.py:118-252). It reads a table of
+corner-packed cells (`cell_table`): one record of the 8 corner values a
+cell, so a lookup is one 32-byte (f32) or 16-byte (bf16) load. The table
+takes about 8x the grid's f32 bytes (4x in bf16). The brick repack and the
+bf16 weight product were TPU gather and VPU tricks and are not carried over;
+where the JAX caller stores bricks in bf16, `DensityGrid(dtype=torch.bfloat16)`
+rounds the grid to bf16 once so the values match, and keeps its table in
+bf16.
 """
 from __future__ import annotations
 
@@ -28,29 +31,49 @@ def trilinear_lookup_plain(grid, aabb6, p):
     return spline.trilinear(grid, aabb6[:3], aabb6[3:], p)
 
 
-def trilinear_lookup(grid, aabb6, p):
-    """Kernel A (csrc/trilinear.cu) on a CUDA tensor, the plain version on a
-    CPU tensor."""
-    if p.device.type == "cpu":
+def cell_table(grid, dtype=torch.float32):
+    """Kernel A's cell records: for each of the max(nz-1,1) x max(ny-1,1) x
+    max(nx-1,1) cells of the (nz, ny, nx) grid, its 8 corner values in the
+    order the lerp reads them, (dz, dy, dx) = 000, 001, ..., 111, each corner
+    index clamped to res - 1. Returns a contiguous (cz, cy, cx, 8) tensor."""
+    def ends(res):      # the cells' lower and upper corner indices on an axis
+        return slice(0, max(res - 1, 1)), slice(min(res - 1, 1), None)
+
+    zs, ys, xs = (ends(r) for r in grid.shape)
+    return torch.stack([grid[z, y, x] for z in zs for y in ys for x in xs],
+                       dim=-1).to(dtype)
+
+
+def trilinear_lookup(grid, cells, aabb6, p):
+    """Kernel A (csrc/trilinear.cu) on the cell table `cells` of `grid` for a
+    CUDA tensor p, the plain version on `grid` for a CPU one (`cells` is
+    then not read). A lookup is a few microseconds of device time, so the
+    checks stay few: each costs host time on every call."""
+    if p.is_cpu:
         return trilinear_lookup_plain(grid, aabb6, p)
-    if p.device.type != "cuda":
+    if not p.is_cuda:
         raise ValueError(f"trilinear_lookup: unsupported device {p.device}")
-    grid, aabb6, p = (t.contiguous() for t in (grid, aabb6, p))
-    kernels.require_cuda("trilinear_lookup", grid, aabb6, p)
-    for t in (grid, aabb6, p):
-        if t.dtype != torch.float32:
-            raise ValueError(f"trilinear_lookup: expected float32, got {t.dtype}")
-    if p.dim() != 2 or p.shape[1] != 3 or grid.dim() != 3:
-        raise ValueError("trilinear_lookup: expected p (N, 3) and a 3-d grid")
+    p = p.contiguous()
+    kernels.require_cuda("trilinear_lookup", cells, aabb6, p)
+    if p.dtype != torch.float32 or aabb6.dtype != torch.float32 or \
+            cells.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"trilinear_lookup: expected float32 p and aabb6 "
+                         f"and a float32 or bfloat16 table, got {p.dtype}, "
+                         f"{aabb6.dtype} and {cells.dtype}")
+    nz, ny, nx = grid.shape
+    if p.dim() != 2 or p.shape[1] != 3 or cells.data_ptr() % 16 or \
+            cells.shape != (max(nz - 1, 1), max(ny - 1, 1), max(nx - 1, 1), 8):
+        raise ValueError("trilinear_lookup: expected p (N, 3) and the grid's "
+                         "cell table")
     n = p.shape[0]
-    out = torch.empty((n,), dtype=torch.float32, device=p.device)
+    out = p.new_empty((n,))
     if n == 0:
         return out
-    nz, ny, nx = grid.shape
-    with torch.cuda.device(p.device):
+    with kernels.on_device(p):
         rc = kernels.library().mk_trilinear_lookup(
-            p.data_ptr(), grid.data_ptr(), aabb6.data_ptr(), out.data_ptr(),
-            n, nx, ny, nz, kernels.stream(p))
+            p.data_ptr(), cells.data_ptr(), aabb6.data_ptr(), out.data_ptr(),
+            n, nx, ny, nz, int(cells.dtype == torch.bfloat16),
+            kernels.stream(p))
     kernels.check(rc, "trilinear_lookup")
     trilinear_lookup.launches += 1
     return out
@@ -68,8 +91,11 @@ def params(media: Media, idx):
 
 class DensityGrid:
     """The heterogeneous density grid as kernel A reads it (replaces the
-    JAX package's DensityBricks). dtype=torch.bfloat16 rounds the stored
-    values to bf16, as the JAX callers that store bf16 bricks do."""
+    JAX package's DensityBricks): the (nz, ny, nx) f32 grid for the plain
+    version and its cell table for the kernel, built at the first lookup
+    on the card (the plain version does not read it). dtype=torch.bfloat16
+    rounds the stored values to bf16, as the JAX callers that store bf16
+    bricks do, and keeps the table in bf16."""
 
     def __init__(self, media: Media, dtype=None):
         grid = media.density.data
@@ -78,9 +104,19 @@ class DensityGrid:
         self.grid = grid.contiguous()
         self.aabb6 = torch.cat([media.density.aabb_min,
                                 media.density.aabb_max]).to(torch.float32)
+        self._table_dtype = dtype or torch.float32
+        self._cells = None
+
+    @property
+    def cells(self):
+        """Kernel A's cell table of the grid (`cell_table`), built once."""
+        if self._cells is None:
+            self._cells = cell_table(self.grid, self._table_dtype)
+        return self._cells
 
     def lookup(self, p):
-        return trilinear_lookup(self.grid, self.aabb6, p)
+        cells = self.cells if p.is_cuda else None
+        return trilinear_lookup(self.grid, cells, self.aabb6, p)
 
 
 def density_at(media: Media, p):

@@ -1,0 +1,181 @@
+"""Kernels A and E of this tree against those of an earlier tree, on one
+NVIDIA GPU, each driven through its own tree's Python wrappers.
+
+    python3 scripts/compare_kernels_torch.py --old DIR [--out FILE]
+
+DIR is the root of an unpacked earlier tree of this repository holding at
+least its `mitsubaer_tpu_torch/` package (for example `git archive <commit>
+mitsubaer_tpu_torch | tar -x -C DIR`). Each tree runs in a process of its
+own, in turns old, new, new, old; each imports its own package, which builds
+its own kernels, and is called only through the wrappers both trees have
+(`DensityGrid(...).lookup`, `ermarch.sens_march`), so the comparison does
+not depend on either tree's C interface.
+
+Each process, on chip_smoke.py's inputs (A: 10^6 points in and around the
+64^3 grid, f32 and bf16-rounded; E: 36,864 lanes of the eikonal bench's
+linear RIF and of a radial one, h 4e-2, at most 64 steps):
+  * checks the wrapper's result against its tree's plain version (exact);
+  * times the wrapper with CUDA events (50 calls for A, 20 for E, after a
+    warm-up), and its host time a call;
+  * traces the same calls with torch.profiler and reports, a call, the
+    device time of the tree's kernel (found by name) and of all the device
+    work the wrapper made, and how many launches and copies that was.
+For A it does the same for torch's grid_sample on the same points. Prints
+the card's name and power limit and one line a measurement, and writes all
+numbers to FILE as JSON.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+KERNEL_NAMES = {"A": "trilinear_kernel", "E": "er_sens_kernel",
+                "grid_sample": "grid_sampler"}
+
+
+def _smoke():
+    """chip_smoke.py of this tree, loaded by path (an earlier tree on
+    sys.path may hold its own), for its timers and seeded inputs."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _device_per_call(fn, reps, kernel):
+    """(device ms of `kernel`, device ms of all device work, launches and
+    copies) a call, from a torch.profiler trace of reps calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    own = every = count = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            every += us
+            count += e.count
+            if kernel in e.key:
+                own += us
+    return own / reps / 1e3, every / reps / 1e3, count / reps
+
+
+def _measure(cs, name, fn, reps):
+    ms = cs._cuda_ms(fn, reps)
+    host = cs._host_us(fn, reps)
+    own, every, count = _device_per_call(fn, reps, KERNEL_NAMES[name])
+    return {"ms": ms, "host_us": host, "kernel_device_ms": own,
+            "device_ms": every, "device_ops": count}
+
+
+def worker(tree: Path) -> dict:
+    """The measurements of one tree's wrappers (run in its own process)."""
+    sys.path.insert(0, str(tree))
+    import torch
+
+    cs = _smoke()
+    from mitsubaer_tpu_torch.models import eikonal as ek
+    from mitsubaer_tpu_torch.models import ermarch, medium
+    from mitsubaer_tpu_torch.scene import presets
+
+    dev = torch.device("cuda", 0)
+    res = {"tree": str(tree), "package": medium.__file__}
+    scene, _ = presets.volumetric_box(res=64, spp=1, heterogeneous=True,
+                                      density_res=64, max_depth=12,
+                                      filter="box")
+    scene = scene.to(dev)
+    n = 1_000_000
+    pts = cs._a_points(n, dev)
+    for label, dtype in (("f32", None), ("bf16", torch.bfloat16)):
+        grid = medium.DensityGrid(scene.media, dtype=dtype)
+        got = grid.lookup(pts)
+        want = medium.trilinear_lookup_plain(grid.grid, grid.aabb6, pts)
+        if not torch.equal(got, want):
+            raise AssertionError(f"kernel A ({label}) differs from plain")
+        res[f"A_{label}"] = _measure(cs, "A", lambda: grid.lookup(pts), 50)
+    grid = medium.DensityGrid(scene.media)
+    lo, hi = grid.aabb6[:3], grid.aabb6[3:]
+    vol = grid.grid[None, None]
+    coords = ((pts - lo) / (hi - lo) * 2.0 - 1.0).reshape(1, 1, 1, n, 3)
+    res["grid_sample"] = _measure(
+        cs, "grid_sample", lambda: torch.nn.functional.grid_sample(
+            vol, coords, mode="bilinear", padding_mode="zeros",
+            align_corners=True), 50)
+
+    sdf = ek.SdfField(ek.SDF_SPHERE, (0.0, 0.0, 0.0, 1.0))
+    linear = ek.RifField(ek.RIF_LINEAR, (1.3, 0.15, 0.0, 0.0))
+    radial = ek.RifField(ek.RIF_RADIAL, (1.2, 0.4, 0.6, 0.1, -0.1, 0.0))
+    h, steps = 4e-2, 64
+    for label, rif, seed, n_d in (("linear", linear, 11, 18_432),
+                                  ("radial", radial, 12, 0)):
+        e_in = cs._er_inputs(rif, n_d, 36_864, seed, dev)[1]
+
+        def call():
+            return ermarch.sens_march(rif, sdf, *e_in[:5], h, steps, e_in[5])
+
+        got = call()
+        want = ermarch.sens_march_plain(rif, sdf, *e_in[:5], h, steps,
+                                        e_in[5])
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"kernel E ({label}) differs from plain")
+        res[f"E_{label}"] = _measure(cs, "E", call, 20)
+    return res
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--old", type=Path)
+    ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
+    ap.add_argument("--out", type=Path,
+                    default=ROOT / "build" / "compare" / "compare_kernels.json")
+    args = ap.parse_args()
+    if args.worker is not None:
+        print(json.dumps(worker(args.worker.resolve())))
+        return 0
+    if args.old is None:
+        ap.error("--old DIR is required")
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("compare_kernels_torch: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(card, flush=True)
+    trees = {"old": args.old.resolve(), "new": ROOT}
+    runs = []
+    for which in ("old", "new", "new", "old"):
+        proc = subprocess.run([sys.executable, __file__, "--worker",
+                               str(trees[which])], capture_output=True,
+                              text=True, check=False)
+        if proc.returncode != 0:
+            print(proc.stdout + proc.stderr, file=sys.stderr)
+            raise RuntimeError(f"the {which} tree's run failed")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        runs.append((which, got))
+        for key, m in got.items():
+            if isinstance(m, dict):
+                print(f"{which} {key}: {m['ms']:.4f} ms a call (host "
+                      f"{m['host_us']:.2f} us), device {m['device_ms']:.4f} "
+                      f"ms in {m['device_ops']:.1f} launches and copies, of "
+                      f"which the kernel {m['kernel_device_ms']:.4f} ms "
+                      f"[{card}]", flush=True)
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps({"card": card, "runs": runs}, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

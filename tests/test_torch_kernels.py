@@ -61,12 +61,56 @@ def test_lookup_on_cpu_runs_plain_version_without_counting():
     assert torch.equal(got, want)
 
 
+def test_density_grid_builds_its_table_only_for_the_kernel():
+    """CPU lookups run the plain version on the grid and leave the cell
+    table unbuilt; the table is built once, when first asked for."""
+    scene, _ = _box(density_res=6)
+    grid = tmedium.DensityGrid(scene.media)
+    grid.lookup(torch.from_numpy(_points(100, 2)))
+    assert grid._cells is None
+    cells = grid.cells
+    assert grid.cells is cells and cells.is_contiguous()
+    assert torch.equal(cells, tmedium.cell_table(grid.grid))
+
+
 def test_lookup_rejects_other_devices():
     scene, _ = _box()
     grid = tmedium.DensityGrid(scene.media)
     with pytest.raises(ValueError, match="unsupported device"):
-        tmedium.trilinear_lookup(grid.grid, grid.aabb6,
+        tmedium.trilinear_lookup(grid.grid, grid.cells, grid.aabb6,
                                  torch.zeros((4, 3), device="meta"))
+
+
+@pytest.mark.parametrize("shape,bf16", [((5, 7, 9), False), ((2, 6, 3), False),
+                                        ((4, 1, 2), False), ((5, 7, 9), True)])
+def test_cell_table_holds_each_cells_corners(shape, bf16):
+    """Kernel A's record of cell (z, y, x) holds grid[z+dz, y+dy, x+dx] for
+    (dz, dy, dx) = 000, 001, 010, ..., 111, each index clamped to res - 1;
+    a bf16 table of a bf16-rounded grid holds its values exactly."""
+    r = np.random.default_rng(sum(shape))
+    grid = torch.from_numpy(r.uniform(0, 2, shape).astype(np.float32))
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    if bf16:
+        grid = grid.to(torch.bfloat16).to(torch.float32)
+    cells = tmedium.cell_table(grid, dtype)
+    nz, ny, nx = shape
+    assert cells.dtype == dtype and cells.is_contiguous()
+    assert cells.shape == (max(nz - 1, 1), max(ny - 1, 1), max(nx - 1, 1), 8)
+    for z, y, x in np.ndindex(*cells.shape[:3]):
+        want = [grid[min(z + dz, nz - 1), min(y + dy, ny - 1),
+                     min(x + dx, nx - 1)].item()
+                for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)]
+        assert cells[z, y, x].float().tolist() == want
+
+
+def test_density_grid_keeps_its_table_in_the_stored_type():
+    scene, _ = _box(density_res=6)
+    f32 = tmedium.DensityGrid(scene.media)
+    b16 = tmedium.DensityGrid(scene.media, dtype=torch.bfloat16)
+    assert f32.cells.dtype == torch.float32 and f32.cells.shape == (5, 5, 5, 8)
+    assert b16.cells.dtype == torch.bfloat16
+    assert torch.equal(b16.cells, tmedium.cell_table(b16.grid, torch.bfloat16))
+    assert torch.equal(b16.cells.float(), tmedium.cell_table(b16.grid))
 
 
 def test_walk_output_layout():
@@ -143,6 +187,47 @@ def test_er_marches_on_cpu_run_plain_versions_without_counting():
     assert (tem.trace.launches, tem.sens_march.launches) == before
 
 
+@pytest.mark.parametrize("kind", [tek.RIF_LINEAR, tek.RIF_RADIAL])
+def test_sens_march_plain_splits_by_column(kind):
+    """The column split kernel E relies on: sens_march_plain run on column j
+    of dp/dv0 and dv/dv0 alone gives the full run's column j and its p, v,
+    opt, marched, crossed and steps bit for bit."""
+    rif, sdf = _er_fields(kind)
+    p1, v, dp, dv, p2, act = _er_sens_inputs(rif, 512, 4)
+    dp = dp + torch.from_numpy(np.random.default_rng(5).normal(
+        size=(512, 3, 3)).astype(np.float32))     # a column mix to carry
+    full = tem.sens_march_plain(rif, sdf, p1, v, dp, dv, p2, 0.04, 64, act)
+    assert int(full[-1]) > 4 and bool(full[6].any())
+    for j in range(3):
+        col = tem.sens_march_plain(rif, sdf, p1, v, dp[..., j:j + 1],
+                                   dv[..., j:j + 1], p2, 0.04, 64, act)
+        assert torch.equal(col[2], full[2][..., j:j + 1])
+        assert torch.equal(col[3], full[3][..., j:j + 1])
+        for i in (0, 1, 4, 5, 6, 7):
+            assert torch.equal(col[i], full[i])
+
+
+@pytest.mark.parametrize("kind,lanes_h", [(tek.RIF_RADIAL, False),
+                                          (tek.RIF_LINEAR, True)])
+def test_sens_march_on_cpu_equals_plain(kind, lanes_h):
+    rif, sdf = _er_fields(kind)
+    args = _er_sens_inputs(rif, 96, 6)
+    h = torch.full((96,), 0.03) if lanes_h else 0.03
+    before = tem.sens_march.launches
+    got = tem.sens_march(rif, sdf, *args[:5], h, 32, args[5])
+    want = tem.sens_march_plain(rif, sdf, *args[:5], h, 32, args[5])
+    assert tem.sens_march.launches == before
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_sens_march_rejects_other_devices():
+    rif, sdf = _er_fields()
+    args = [t.to("meta") for t in _er_sens_inputs(rif, 8, 0)]
+    with pytest.raises(ValueError, match="unsupported device"):
+        tem.sens_march(rif, sdf, *args[:5], 0.04, 8, args[5])
+
+
 def _mega_inputs(n, seed, device="cpu"):
     """Rows and counters kernel C takes in the 512^2 render's first
     tracking call: the point-lit box's state after an event pass and a
@@ -207,7 +292,7 @@ def test_trilinear_kernel_matches_plain_on_cuda(cuda, bf16):
     assert tmedium.trilinear_lookup.launches == before + 1
     want = tmedium.trilinear_lookup_plain(grid.grid, grid.aabb6, p)
     torch.cuda.synchronize()
-    assert (got - want).abs().max().item() <= 1e-5 * grid.grid.max().item()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.cuda
@@ -314,7 +399,22 @@ def test_er_sens_kernel_matches_plain_on_cuda(cuda, kind):
     assert tem.sens_march.launches == before + 1
     want = tem.sens_march_plain(rif, sdf, *args[:5], 0.04, 64, args[5])
     torch.cuda.synchronize()
-    _compare_march(got, want, 6, 1e-4)
+    assert int(want[-1]) > 4 and bool(want[6].any())
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_er_sens_kernel_takes_per_lane_steps_on_cuda(cuda):
+    rif, sdf = _er_fields(tek.RIF_RADIAL)
+    args = _er_sens_inputs(rif, 4096, 7, cuda)
+    h = torch.linspace(0.01, 0.05, 4096, device=cuda)
+    got = tem.sens_march(rif, sdf, *args[:5], h, 64, args[5])
+    want = tem.sens_march_plain(rif, sdf, *args[:5], h, 64, args[5])
+    torch.cuda.synchronize()
+    assert int(want[-1]) > 4 and bool(want[6].any())
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
-"""Kernel A's plain version (trilinear density lookup) against the JAX
-package's DensityBricks.lookup(fused=False), and the beam-tau table and
+"""Kernel A's plain version (trilinear density lookup) and a mirror of the
+kernel's cell-table indexing against the JAX package's
+DensityBricks.lookup(fused=False), and the beam-tau table and
 ratio-tracking transmittance at equal seed. The CUDA kernel itself is held
 against the plain version on the card (tests/test_torch_kernels.py and
 chip_smoke.py)."""
@@ -47,6 +48,51 @@ def test_trilinear_plain_matches_density_bricks(bf16):
     got = grid.lookup(torch.from_numpy(p)).numpy()
     assert (want == 0).mean() > 0.1 and (want > 0).mean() > 0.5
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def _kernel_a_mirror(grid, cells, aabb6, p):
+    """csrc/trilinear.cu's indexing in PyTorch: cell and t per axis, then
+    one record of the cell table and the lerp in the kernel's order."""
+    nz, ny, nx = grid.shape
+    res = torch.tensor([nx, ny, nz], dtype=torch.float32)
+    h = (aabb6[3:] - aabb6[:3]) / torch.clamp_min(res - 1.0, 1.0)
+    v = (p - aabb6[:3]) / h
+    inside = ((v >= 0.0) & (v <= res - 1.0)).all(-1)
+    v = torch.minimum(torch.clamp_min(v, 0.0), res - 1.0)
+    cell = torch.minimum(torch.clamp_min(torch.floor(v), 0.0),
+                         torch.clamp_min(res - 2.0, 0.0))
+    t = v - cell
+    c = cell.to(torch.int64)
+    _, cy, cx, _ = cells.shape
+    r = cells.reshape(-1, 8)[(c[:, 2] * cy + c[:, 1]) * cx + c[:, 0]].float()
+    tx, ty, tz = t.unbind(-1)
+    c00 = r[:, 0] * (1.0 - tx) + r[:, 1] * tx
+    c01 = r[:, 2] * (1.0 - tx) + r[:, 3] * tx
+    c10 = r[:, 4] * (1.0 - tx) + r[:, 5] * tx
+    c11 = r[:, 6] * (1.0 - tx) + r[:, 7] * tx
+    c0 = c00 * (1.0 - ty) + c01 * ty
+    c1 = c10 * (1.0 - ty) + c11 * ty
+    return torch.where(inside, c0 * (1.0 - tz) + c1 * tz, 0.0)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_kernel_a_indexing_equals_plain_and_density_bricks(bf16):
+    """Kernel A's cell-table indexing gives trilinear_lookup_plain bit for
+    bit on points inside, outside, on faces and on corners, and stays within
+    rtol 1e-5 of the JAX DensityBricks.lookup(fused=False)."""
+    js, ts = _scenes(density_res=13)
+    p = _points(seed=4)
+    grid = tmedium.DensityGrid(ts.media,
+                               dtype=torch.bfloat16 if bf16 else None)
+    got = _kernel_a_mirror(grid.grid, grid.cells, grid.aabb6,
+                           torch.from_numpy(p))
+    assert torch.equal(got, tmedium.trilinear_lookup_plain(
+        grid.grid, grid.aabb6, torch.from_numpy(p)))
+    want = np.asarray(jmedium.DensityBricks(
+        js.media, dtype=jnp.bfloat16 if bf16 else None).lookup(
+            jnp.asarray(p), fused=False))
+    assert (want == 0).mean() > 0.1 and (want > 0).mean() > 0.5
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-6)
 
 
 def test_density_at_matches_spline_trilinear():
