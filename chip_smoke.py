@@ -10,8 +10,12 @@ Phases (any failure raises and the script exits non-zero):
      bf16-rounded grids, exact; its time through its wrapper and as a bare
      launch, each with its host time a call, the cell table's build time,
      and torch's grid_sample on the same points as the yardstick;
-  4. kernel B (boxwalk) against its plain version at sppc 8, depth 12,
-     density 64^3, at res 64 and at the main path's 512^2;
+  4. kernel B (boxwalk) against its plain version at depth 12, density
+     64^3: at res 64 and at the main path's 512^2 (sppc 8), and at 100^2
+     (10,000 lanes, not a multiple of the block; sppc 4) with and without a
+     cut of max_trips to 30; every output row equal on every lane; the
+     per-lane trip counts' spread, the device time from a profiler trace,
+     registers and resident blocks;
   5. the bounded-volume path: render() at 512^2, spp 32, depth 12, density
      64^3, box filter, on the card; every kernel's launch counter must be
      non-zero. Then the same render at a small size on the card and on the
@@ -27,9 +31,11 @@ Phases (any failure raises and the script exits non-zero):
      versions), which must agree;
   9. kernel C (megatrack) against its plain version on the arguments of
      the first three tracking calls of the 512^2 point-lit render's first
-     pass (captured from render_wavefront), and on the three synthetic
-     cases of tests/test_megatrack.py at 262,144 lanes; flags, taps and
-     counters equal on every lane;
+     pass (captured from render_wavefront), on edge cases made from them
+     (no lane or every lane with work, 100,000 lanes, one lane, max_trips
+     2), and on the three synthetic cases of tests/test_megatrack.py at
+     262,144 lanes; every output row and the counter equal on every lane;
+     the taps' spread, device time a call and registers;
  10. the wavefront path: render() of the point-lit heterogeneous box at
      512^2, spp 32, depth 12, density 64^3, on the card; kernel C must
      launch at least once a pass;
@@ -38,7 +44,8 @@ Phases (any failure raises and the script exits non-zero):
      emitter NEE, two transition passes) against render_boxwalk at the same
      seed, for two seeds: pixel-by-pixel median ratio within 0.95-1.05.
 Prints one JSON line of per-kernel results (time, bound, plain version,
-library yardstick, launches on the main paths), then the contract line
+library yardstick, launches on the main paths; for B and C also the device
+time and registers), then the contract line
 {"ok": true, "device": {...}} last.
 """
 from __future__ import annotations
@@ -55,13 +62,23 @@ import time
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 # Operations per unit of work, counted from the CUDA sources (adds,
-# multiplies, compares, selects, divisions and transcendentals one each):
-# kernel A per point; kernel B per density tap and per path segment (the
-# tap's nine hashed uniforms, lookup and tracking step, and the collision's
-# beam NEE, phase sample and roulette spread over the segments it opens);
-# kernels D and E per march step by RIF kind (linear, radial).
+# multiplies, compares, selects, divisions, transcendentals, and the shifts,
+# xors and conversions of the hashing one each): kernel A per point; kernel
+# B per density tap and per path segment; kernels D and E per march step by
+# RIF kind (linear, radial).
 OPS_A_POINT = 45
-OPS_B_TAP, OPS_B_SEGMENT = 190, 100
+# B per tap, item by item from the tap stage of boxwalk.cu: the trip and
+# counter increments 2; the chain's start (counter conversion, multiply, two
+# adds) 4; its seven steps b0..b6 (add, three xor-shifts, two multiplies)
+# 63; u[2..6] (shift, conversion, multiply) 15; the free-flight step 5; the
+# position 6; voxel coordinates, inside test, clamp and stochastic corners
+# 44; brick index, address, load, widening and the outside select 19; the
+# tap count 1; the three factors 12; the escape test and clip 2; the
+# cheaper of the two modes' updates (shadow) 6. A real collision's u[0],
+# u[1], u[7], u[8] (two more steps of the chain) go with its body, beam
+# NEE, phase sample and roulette, spread over the segments it opens at 100
+# a segment: no output counts real collisions.
+OPS_B_TAP, OPS_B_SEGMENT = 179, 100
 OPS_D_STEP = {1: 54, 2: 92}
 # E per lane-step, from sens_step and its loop: the work the lane's three
 # column threads share counted once (v1 and v2 6 each, the position 9, one
@@ -105,6 +122,66 @@ def _host_us(fn, reps):
     us = (time.perf_counter() - t0) / reps * 1e6
     torch.cuda.synchronize()
     return us
+
+
+def _device_per_call(fn, reps, kernel, attempts=5):
+    """(device ms of `kernel`, device ms of all device work, launches and
+    copies) a call, from a torch.profiler trace of reps calls of `fn`, each
+    of which launches `kernel` once. The trace at times drops a call's
+    events, so the sums are divided by the launches of `kernel` it holds,
+    and a trace that holds none is taken again."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        own = every = count = calls = 0.0
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            if us > 0:
+                every += us
+                count += e.count
+                if kernel in e.key:
+                    own += us
+                    calls += e.count
+        if calls:
+            return own / calls / 1e3, every / calls / 1e3, count / calls
+    raise AssertionError(f"{attempts} profiler traces held no launch of "
+                         f"{kernel}")
+
+
+def _registers(build_log, kernel):
+    """Registers a thread of `kernel`, from ptxas' report (-Xptxas -v) in
+    the build log."""
+    lines = build_log.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel in line:
+            for later in lines[i + 1:]:
+                if "Used" in later and "registers" in later:
+                    return int(later.split("Used")[1].split()[0])
+    raise AssertionError(f"the build log has no ptxas report of {kernel}")
+
+
+def _differ(a, b):
+    """Where two tensors of one shape differ (NaN equals NaN)."""
+    return (a != b) & ~(a.isnan() & b.isnan())
+
+
+def _spread(x):
+    """'mean m, p50 a, p99 b, max c' of a 1-D tensor of counts."""
+    import torch
+
+    x = x.to(torch.float64)
+    q = torch.quantile(x, torch.tensor([0.5, 0.99], dtype=torch.float64,
+                                       device=x.device)).tolist()
+    return (f"mean {x.mean().item():.2f}, p50 {q[0]:.0f}, p99 {q[1]:.0f}, "
+            f"max {x.max().item():.0f}")
 
 
 def _bound(nbytes, ops):
@@ -262,8 +339,9 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc {nvcc_s:.2f} s) "
           f"-> {path.relative_to(path.parents[2])}", flush=True)
     log = path.parent / "build.log"
-    if log.exists():
-        for line in log.read_text().splitlines():
+    build_log = log.read_text() if log.exists() else ""
+    if build_log:
+        for line in build_log.splitlines():
             if "Compiling entry function" in line:
                 print("  ptxas:", line.split("'")[1])
             elif "registers" in line or "spill" in line:
@@ -335,14 +413,22 @@ def main() -> int:
     results["trilinear_lookup"]["bare_ms"] = bare_ms[0]
     del out
 
-    # ---- phase 4: kernel B against its plain version, at res 64 and at
-    # the main path's pass shape (512^2, sppc 8) ----
-    for res in (64, 512):
+    # ---- phase 4: kernel B against its plain version, at res 64, at the
+    # main path's pass shape (512^2, sppc 8), and at 100^2 (10,000 lanes,
+    # not a multiple of the block) with and without a max_trips cut ----
+    from dataclasses import replace
+
+    regs_b = _registers(build_log, "boxwalk_kernel")
+    blocks_b = boxwalk.blocks_per_sm()
+    for res, sppc, cut in ((64, 8, None), (100, 4, None), (100, 4, 30),
+                           (512, 8, None)):
         b_scene, b_cfg = presets.volumetric_box(
-            res=res, spp=8, heterogeneous=True, density_res=64, max_depth=12,
-            filter="box")
+            res=res, spp=sppc, heterogeneous=True, density_res=64,
+            max_depth=12, filter="box")
         params, table, beam_tab, shape = boxwalk.walk_inputs(
-            b_scene.to(dev), b_cfg, 8)
+            b_scene.to(dev), b_cfg, sppc)
+        if cut is not None:
+            shape = replace(shape, max_trips=cut)
         seed = boxwalk.pass_seed(7, 0)
         out_k = boxwalk.walk(params, seed, table, beam_tab, shape)
         torch.cuda.synchronize()
@@ -350,35 +436,41 @@ def main() -> int:
         out_p = boxwalk.walk_plain(params, seed, table, beam_tab, shape)
         torch.cuda.synchronize()
         plain_b_ms = (time.perf_counter() - t0) * 1e3
-        film_k, st_k = boxwalk.fold(out_k, shape)
-        film_p, st_p = boxwalk.fold(out_p, shape)
-        close = torch.isclose(film_k, film_p, rtol=1e-3, atol=1e-6).all(-1)
-        frac = close.float().mean().item()
-        st_k, st_p = st_k.tolist(), st_p.tolist()
-        print(f"kernel B at res {res}: film pixels within rtol 1e-3: "
-              f"{frac:.6f}; stats [segs, taps, iters, unfinished] kernel "
-              f"{st_k} plain {st_p}", flush=True)
-        if frac < 0.99:
-            raise AssertionError(f"boxwalk film agrees on {frac:.4f} < 0.99")
-        for i, name in ((0, "segments"), (1, "taps")):
-            rel = abs(st_k[i] - st_p[i]) / max(st_p[i], 1)
-            if rel > 0.005:
-                raise AssertionError(f"boxwalk {name} differ by {rel:.4%}")
-        if st_k[3] != 0 or st_p[3] != 0:
+        bad = _differ(out_k, out_p).any(0)
+        st_k = boxwalk.fold(out_k, shape)[1].tolist()
+        st_p = boxwalk.fold(out_p, shape)[1].tolist()
+        b_err = (out_k - out_p).abs().max().item()
+        what = f"res {res} sppc {sppc}" + (f" max_trips {cut}" if cut else "")
+        print(f"kernel B at {what} ({shape.npix} lanes): every output row "
+              f"equal on {shape.npix - int(bad.sum())} lanes; stats [segs, "
+              f"taps, iters, unfinished] kernel {st_k} plain {st_p}; trips a "
+              f"lane {_spread(out_k[sppc * 3 + 2])}", flush=True)
+        if bool(bad.any()) or st_k != st_p:
+            raise AssertionError(f"kernel B at {what} differs from its plain "
+                                 f"version on {int(bad.sum())} lanes")
+        if cut is None and st_k[3] != 0:
             raise AssertionError("boxwalk left samples unfinished")
-        b_ms = _cuda_ms(lambda: boxwalk.walk(params, seed, table, beam_tab,
-                                             shape), 5)
-        b_err = (film_k - film_p).abs().max().item()
-        bytes_b = (out_k.numel() * 4 + table.numel() * 2 + beam_tab.numel() * 4
-                   + params.numel() * 4)
-        bound_b = _bound(bytes_b, st_k[1] * OPS_B_TAP + st_k[0] * OPS_B_SEGMENT)
-        print(f"kernel B at res {res} sppc 8: {b_ms:.4f} ms, plain "
-              f"{plain_b_ms:.1f} ms, bound {bound_b[0]:.4f} ms "
-              f"({bound_b[1]}) [{card}]", flush=True)
+        if res in (64, 512):
+            def walk():
+                return boxwalk.walk(params, seed, table, beam_tab, shape)
+
+            b_ms = _cuda_ms(walk, 5)
+            b_dev = _device_per_call(walk, 5, "boxwalk_kernel")[0]
+            bytes_b = (out_k.numel() * 4 + table.numel() * 2
+                       + beam_tab.numel() * 4 + params.numel() * 4)
+            bound_b = _bound(bytes_b,
+                             st_k[1] * OPS_B_TAP + st_k[0] * OPS_B_SEGMENT)
+            print(f"kernel B at res {res} sppc 8: {b_ms:.4f} ms, device "
+                  f"{b_dev:.4f} ms, plain {plain_b_ms:.1f} ms, bound "
+                  f"{bound_b[0]:.4f} ms ({bound_b[1]}); {regs_b} registers, "
+                  f"{blocks_b} blocks of 128 a multiprocessor [{card}]",
+                  flush=True)
     results["boxwalk"] = _kernel_row(
         "boxwalk", "mitsubaer_tpu_torch/csrc/boxwalk.cu",
         "mitsubaer_tpu/integrators/boxwalk.py:153", b_err, b_ms, plain_b_ms,
         bound_b, None)
+    results["boxwalk"].update(device_ms=b_dev, registers=regs_b,
+                              blocks_per_sm=blocks_b)
 
     # ---- phase 5: the bounded-volume path ----
     medium.trilinear_lookup.launches = 0
@@ -552,7 +644,7 @@ def main() -> int:
     if not (0.98 <= ratio <= 1.02 and mean_rel <= 0.02):
         raise AssertionError("card and CPU eikonal renders disagree")
 
-    _megatrack_phases(dev, card, results)
+    _megatrack_phases(dev, card, results, build_log)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -604,26 +696,17 @@ def _mega_synthetic(n):
 
 
 def _compare_mega(name, got, want):
-    """Kernel C against run_plain: hit, resolved, taps and the counter equal
-    on every lane, t and fac within atol 1e-6 / rtol 1e-5. Returns the
-    largest absolute difference of t and fac."""
-    import torch
-
+    """Kernel C against run_plain: every output row and the counter equal on
+    every lane. Returns the largest absolute difference (0)."""
     (out_k, ctr_k), (out_p, ctr_p) = got, want
-    for row, what in ((4, "hit"), (5, "resolved"), (6, "taps")):
-        bad = int((out_k[row] != out_p[row]).sum())
-        if bad:
-            raise AssertionError(f"kernel C {name}: {what} differs on {bad} "
-                                 "lanes")
-    bad = int((ctr_k != ctr_p).sum())
-    if bad:
-        raise AssertionError(f"kernel C {name}: counter differs on {bad} "
-                             "lanes")
-    torch.testing.assert_close(out_k[:4], out_p[:4], atol=1e-6, rtol=1e-5)
-    return (out_k[:4] - out_p[:4]).abs().max().item()
+    bad = _differ(out_k, out_p).any(0) | (ctr_k != ctr_p)[0]
+    if bool(bad.any()):
+        raise AssertionError(f"kernel C {name}: outputs or counter differ on "
+                             f"{int(bad.sum())} lanes")
+    return (out_k - out_p).abs().max().item()
 
 
-def _megatrack_phases(dev, card, results):
+def _megatrack_phases(dev, card, results, build_log):
     """Phases 9-12: kernel C and the wavefront road."""
     import torch
 
@@ -656,7 +739,8 @@ def _megatrack_phases(dev, card, results):
                              "calls, not 3")
     err = 0.0
     for i, args in enumerate(calls):
-        n_need = int((args[0][17] > 0.5).sum())
+        valid = args[0][17] > 0.5
+        n_need = int(valid.sum())
         got = megatrack.run(*args)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -666,9 +750,34 @@ def _megatrack_phases(dev, card, results):
         err = max(err, _compare_mega(f"render call {i}", got, want))
         taps = int(got[0][6].sum().item())
         print(f"kernel C on render tracking call {i} (512^2, {n_need} lanes "
-              f"with work, {taps} taps): equal to plain", flush=True)
+              f"with work, {taps} taps; taps a lane with work "
+              f"{_spread(got[0][6][valid])}): every output equal to plain",
+              flush=True)
         if i == 0:
             c_rows, c_ms_plain, c_taps, c_need = args, plain_ms, taps, n_need
+    # edge cases on the first call's lanes: none or all with work, n not a
+    # multiple of the lanes a block owns, one lane, lanes cut by max_trips
+    rows0, ctr0 = c_rows[0], c_rows[1]
+    rest = c_rows[2:]
+    j = int(valid.nonzero()[0])             # call 2's first lane with work
+    edges = [("all lanes without work", rows0.clone().index_fill_(
+                  0, torch.tensor([17], device=dev), 0.0), ctr0, rest),
+             ("all lanes with work", rows0.clone().index_fill_(
+                  0, torch.tensor([17], device=dev), 1.0), ctr0, rest),
+             ("n = 100,000", rows0[:, :100_000].contiguous(),
+              ctr0[:, :100_000].contiguous(), rest),
+             ("n = 1", calls[2][0][:, j:j + 1].contiguous(),
+              calls[2][1][:, j:j + 1].contiguous(), rest),
+             ("max_trips 2", rows0, ctr0, (rest[0], rest[1], 2, *rest[3:]))]
+    for name, rows_e, ctr_e, rest_e in edges:
+        args = (rows_e, ctr_e, *rest_e)
+        got = megatrack.run(*args)
+        err = max(err, _compare_mega(name, got, megatrack.run_plain(*args)))
+        print(f"kernel C, {name} ({rows_e.shape[1]} lanes, "
+              f"{int((rows_e[17] > 0.5).sum())} with work, "
+              f"{int(got[0][6].sum().item())} taps, "
+              f"{int(got[0][5].sum().item())} resolved): every output equal "
+              "to plain", flush=True)
     for name, rows_np, ctr_np, grid, trips in _mega_synthetic(512 * 512):
         table, nb = megatrack.build_table(torch.from_numpy(grid).to(dev))
         nz, ny, nx = grid.shape
@@ -681,6 +790,12 @@ def _megatrack_phases(dev, card, results):
               f"{trips}, {int(got[0][6].sum().item())} taps): equal to plain",
               flush=True)
     c_ms = _cuda_ms(lambda: megatrack.run(*c_rows), 20)
+    c_dev = [_device_per_call(lambda: megatrack.run(*a), 20,
+                              "megatrack_kernel")[0] for a in calls]
+    regs_c = _registers(build_log, "megatrack_kernel")
+    print(f"kernel C device time a call at the render's first three tracking "
+          f"calls: {', '.join(f'{x:.4f}' for x in c_dev)} ms; {regs_c} "
+          f"registers [{card}]", flush=True)
     n = c_rows[0].shape[1]
     # a lane with work reads 18 rows and its counter; one without reads its
     # valid flag, t and counter; each writes 8 rows and its counter
@@ -697,6 +812,7 @@ def _megatrack_phases(dev, card, results):
         "megatrack", "mitsubaer_tpu_torch/csrc/megatrack.cu",
         "mitsubaer_tpu/integrators/megatrack.py:94", err, c_ms, c_ms_plain,
         bound_c, None)
+    results["megatrack"].update(device_ms=c_dev[0], registers=regs_c)
     del calls, c_rows
 
     # ---- phase 10: the wavefront path at full width ----

@@ -9,19 +9,30 @@
 // and stops; a valid one reads its other 16 used rows once (row-major
 // (24, n), so a warp's loads of a row are coalesced), loops until it
 // escapes, collides for real or reaches max_trips, and fetches each tap
-// with one indexed load of the bf16 table T[j, r] (512 KiB for a 64^3 grid, resident in the 50 MB L2). A
-// resolved lane is frozen in the TPU kernel too, so per-lane results do not
-// depend on the blocking; `lane` is the global lane index, as there.
+// with one indexed load of the bf16 table T[j, r] (512 KiB for a 64^3 grid,
+// resident in the 50 MB L2). A resolved lane is frozen in the TPU kernel
+// too, so per-lane results do not depend on the blocking; `lane` is the
+// global lane index, as there. Compiled with --fmad=false, operations in
+// the plain version's order (megatrack.run_plain): every output equals it
+// bit for bit.
 //
-// The kernel is bound by latency: every trip is a dependent chain of five
-// hashes, a log, the voxel load and a branch, and lanes of a warp leave the
-// loop at different trips. This first version aims at equality with the
-// plain version (megatrack.run_plain; compiled with --fmad=false, operations
-// in the same order), not at speed.
+// What bounds it on the H100 is the rows' traffic, not issue or the tap
+// chain. 20-47% of the lanes have work at the wavefront render's calls,
+// scattered, and each reads 4 bytes of 18 rows, but the card moves whole
+// 32-byte sectors: at 45% of lanes nearly every sector of those rows moves
+// (~28 MB a call). Redesigns that packed the lanes with work into full
+// warps measured slower on the card where half the lanes have work and
+// faster only where a fifth do: a block listing its tile's lanes in shared
+// memory behind a barrier (256 to 2,048 lanes a block), a warp listing its
+// 64 to 256 lanes without one, and several taps' loads in flight a lane.
+// This one-thread-a-lane kernel stays because it measured fastest over
+// the render's calls (PERF.md, section 6).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int MT_THREADS = 128;
 
 __device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
   x ^= x >> 16;
@@ -46,7 +57,7 @@ __device__ __forceinline__ int corner(float v, float u, float hi) {
   return (int)fminf(base + (u < v - base ? 1.0f : 0.0f), hi);
 }
 
-__global__ void __launch_bounds__(128)
+__global__ void __launch_bounds__(MT_THREADS)
 megatrack_kernel(const float* __restrict__ rows,
                  const int32_t* __restrict__ ctr,
                  const uint16_t* __restrict__ table, float* __restrict__ out,
@@ -154,9 +165,8 @@ extern "C" int mk_megatrack(const float* rows, const int32_t* ctr,
                             int32_t* ctr_out, int n, uint32_t seed,
                             int max_trips, int nx, int ny, int nz, int nbx,
                             int nby, int nbz, void* stream) {
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  megatrack_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+  const int blocks = (n + MT_THREADS - 1) / MT_THREADS;
+  megatrack_kernel<<<blocks, MT_THREADS, 0, (cudaStream_t)stream>>>(
       rows, ctr, table, out, ctr_out, n, seed, max_trips, nx, ny, nz, nbx, nby,
       nbz);
   return (int)cudaGetLastError();

@@ -7,8 +7,10 @@ tracking with stochastic-trilinear one-voxel taps -> HG or isotropic scatter
 with equiangular collimated-beam NEE -> shadow ratio tracking -> Russian
 roulette -> film row of the sample's epoch -> next sample.
 
-Kernel B, `walk`, is csrc/boxwalk.cu: one thread per lane, state in
-registers, looping trips until its own lane is done. `walk_plain` is the same
+Kernel B, `walk`, is csrc/boxwalk.cu: persistent threads that take lanes
+from a counter, state in registers, each warp running the regeneration and
+collision stages of a trip deferred for the lanes that wait on them.
+`walk_plain` is the same
 state machine over all lanes at once with torch.where, one Python loop over
 trips. A finished lane is inert (mode 3 draws no random numbers), so neither
 result depends on how lanes are grouped, and both match the JAX kernel lane
@@ -17,6 +19,7 @@ tan = sin/cos) so that a comparison measures the port and not a formula.
 """
 from __future__ import annotations
 
+import ctypes
 from dataclasses import dataclass
 
 import torch
@@ -223,8 +226,11 @@ def walk_plain(params, seed: int, table, beam_tab, s: WalkShape):
         pix = (lane + idxi * s.stride) % n
         fx = (pix % s.width).to(torch.float32) + u[0]
         fy = (pix // s.width).to(torch.float32) + u[1]
-        ndc_x = 2.0 * fx / float(s.width) - 1.0
-        ndc_y = 2.0 * fy / float(s.height) - 1.0
+        # divide elementwise: torch on CUDA divides by a Python scalar as a
+        # product with its rounded reciprocal (exact only for powers of 2),
+        # on the CPU and in the kernel it divides
+        ndc_x = 2.0 * fx / torch.full_like(fx, float(s.width)) - 1.0
+        ndc_y = 2.0 * fy / torch.full_like(fy, float(s.height)) - 1.0
         dc_x = -ndc_x * P[_P_TANX]
         dc_y = -ndc_y * P[_P_TANY]
         dw = [camR[3 * k] * dc_x + camR[3 * k + 1] * dc_y + camR[3 * k + 2]
@@ -389,8 +395,20 @@ def walk_plain(params, seed: int, table, beam_tab, s: WalkShape):
     return torch.cat([pend, segs[None], taps[None], trips[None], idx[None]])
 
 
+def check_shape(s: WalkShape) -> None:
+    """Raise unless the walk's sizes are ones both versions can index: a
+    film of npix = width * height >= 1 pixels, a lane rotation stride in
+    [0, npix), sppc >= 1 samples with sppc * npix and every output offset
+    inside int32, and max_trips >= 0."""
+    if (s.npix < 1 or s.width * s.height != s.npix or s.sppc < 1
+            or not 0 <= s.stride < s.npix or s.max_trips < 0
+            or (s.sppc * 3 + 4) * s.npix >= 1 << 31):
+        raise ValueError(f"boxwalk.walk: unsupported walk shape {s}")
+
+
 def walk(params, seed: int, table, beam_tab, s: WalkShape):
     """Kernel B (csrc/boxwalk.cu) on CUDA tensors, walk_plain on CPU ones."""
+    check_shape(s)
     if params.device.type == "cpu":
         return walk_plain(params, seed, table, beam_tab, s)
     if params.device.type != "cuda":
@@ -407,18 +425,30 @@ def walk(params, seed: int, table, beam_tab, s: WalkShape):
                          "(512, R) bf16 and beam_tab (8, 256) f32")
     out = torch.empty((s.sppc * 3 + 4, s.npix), dtype=torch.float32,
                       device=params.device)
+    # the kernel's next-lane counter (zeroed on the stream by mk_boxwalk)
+    next_lane = torch.empty((1,), dtype=torch.int32, device=params.device)
     with kernels.on_device(params):
         rc = kernels.library().mk_boxwalk(
             params.data_ptr(), seed & M32, table.data_ptr(),
             beam_tab.data_ptr(), out.data_ptr(), s.npix, s.sppc, s.max_depth,
             s.rr_depth, s.width, s.height, s.stride, *s.res, *s.nb,
-            s.max_trips, kernels.stream(params))
+            s.max_trips, next_lane.data_ptr(), kernels.stream(params))
     kernels.check(rc, "boxwalk.walk")
     walk.launches += 1
     return out
 
 
 walk.launches = 0
+
+
+def blocks_per_sm() -> int:
+    """Resident blocks of kernel B a multiprocessor on the current CUDA
+    device: the persistent grid is this many blocks times the
+    multiprocessors."""
+    blocks = ctypes.c_int(0)
+    kernels.check(kernels.library().mk_boxwalk_blocks_per_sm(
+        ctypes.addressof(blocks)), "boxwalk.blocks_per_sm")
+    return blocks.value
 
 
 def pass_seed(seed: int, pass_idx: int) -> int:

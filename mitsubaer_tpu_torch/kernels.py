@@ -55,8 +55,11 @@ _SIGNATURES = {
     # (points, cells, aabb6, out, n, nx, ny, nz, bf16, stream)
     "mk_trilinear_lookup": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # (params, seed, table, beam_tab, out, npix, sppc, max_depth, rr_depth,
-    #  width, height, stride, nx, ny, nz, nbx, nby, nbz, max_trips, stream)
-    "mk_boxwalk": [_P, ctypes.c_uint32, _P, _P, _P] + [_I] * 14 + [_P],
+    #  width, height, stride, nx, ny, nz, nbx, nby, nbz, max_trips,
+    #  next_lane (one int32 of scratch), stream)
+    "mk_boxwalk": [_P, ctypes.c_uint32, _P, _P, _P] + [_I] * 14 + [_P, _P],
+    # (resident blocks a multiprocessor, out)
+    "mk_boxwalk_blocks_per_sm": [_P],
     # (params, rows in, rows out, trips, n, max_steps, stream)
     "mk_er_trace": [ErParams, _P, _P, _P, _I, _I, _P],
     # (params, tensors, n, max_steps, stream)

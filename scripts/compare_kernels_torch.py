@@ -1,22 +1,29 @@
-"""Kernels A and E of this tree against those of an earlier tree, on one
-NVIDIA GPU, each driven through its own tree's Python wrappers.
+"""Kernels A, B, C and E of this tree against those of an earlier tree, on
+one NVIDIA GPU, each driven through its own tree's Python wrappers.
 
-    python3 scripts/compare_kernels_torch.py --old DIR [--out FILE]
+    python3 scripts/compare_kernels_torch.py --old DIR [--kernels ABCE]
+        [--out FILE]
 
 DIR is the root of an unpacked earlier tree of this repository holding at
 least its `mitsubaer_tpu_torch/` package (for example `git archive <commit>
 mitsubaer_tpu_torch | tar -x -C DIR`). Each tree runs in a process of its
 own, in turns old, new, new, old; each imports its own package, which builds
 its own kernels, and is called only through the wrappers both trees have
-(`DensityGrid(...).lookup`, `ermarch.sens_march`), so the comparison does
-not depend on either tree's C interface.
+(`DensityGrid(...).lookup`, `boxwalk.walk`, `megatrack.run`,
+`ermarch.sens_march`), so the comparison does not depend on either tree's C
+interface. DIR may also be a copy of this tree with a launch constant
+changed, to time a variant of a kernel against the kernel as it stands;
+--kernels limits the run to the kernels named (default all four).
 
 Each process, on chip_smoke.py's inputs (A: 10^6 points in and around the
-64^3 grid, f32 and bf16-rounded; E: 36,864 lanes of the eikonal bench's
-linear RIF and of a radial one, h 4e-2, at most 64 steps):
+64^3 grid, f32 and bf16-rounded; B: the 512^2 bounded volume's pass, sppc 8,
+depth 12; C: the first three tracking calls of the 512^2 point-lit render's
+first pass, captured in the process from its own tree's render_wavefront;
+E: 36,864 lanes of the eikonal bench's linear RIF and of a radial one, h
+4e-2, at most 64 steps):
   * checks the wrapper's result against its tree's plain version (exact);
-  * times the wrapper with CUDA events (50 calls for A, 20 for E, after a
-    warm-up), and its host time a call;
+  * times the wrapper with CUDA events (50 calls for A, 5 for B, 20 for C
+    and E, after a warm-up), and its host time a call;
   * traces the same calls with torch.profiler and reports, a call, the
     device time of the tree's kernel (found by name) and of all the device
     work the wrapper made, and how many launches and copies that was.
@@ -34,7 +41,8 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-KERNEL_NAMES = {"A": "trilinear_kernel", "E": "er_sens_kernel",
+KERNEL_NAMES = {"A": "trilinear_kernel", "B": "boxwalk_kernel",
+                "C": "megatrack_kernel", "E": "er_sens_kernel",
                 "grid_sample": "grid_sampler"}
 
 
@@ -48,48 +56,39 @@ def _smoke():
     return mod
 
 
-def _device_per_call(fn, reps, kernel):
-    """(device ms of `kernel`, device ms of all device work, launches and
-    copies) a call, from a torch.profiler trace of reps calls."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    own = every = count = 0.0
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-        if us > 0:
-            every += us
-            count += e.count
-            if kernel in e.key:
-                own += us
-    return own / reps / 1e3, every / reps / 1e3, count / reps
-
-
 def _measure(cs, name, fn, reps):
     ms = cs._cuda_ms(fn, reps)
     host = cs._host_us(fn, reps)
-    own, every, count = _device_per_call(fn, reps, KERNEL_NAMES[name])
+    own, every, count = cs._device_per_call(fn, reps,
+                                             KERNEL_NAMES[name])
     return {"ms": ms, "host_us": host, "kernel_device_ms": own,
             "device_ms": every, "device_ops": count}
 
 
-def worker(tree: Path) -> dict:
-    """The measurements of one tree's wrappers (run in its own process)."""
+def worker(tree: Path, which: str) -> dict:
+    """The measurements of one tree's wrappers of the kernels named in
+    `which` (run in its own process)."""
     sys.path.insert(0, str(tree))
     import torch
 
+    import mitsubaer_tpu_torch
+
     cs = _smoke()
-    from mitsubaer_tpu_torch.models import eikonal as ek
-    from mitsubaer_tpu_torch.models import ermarch, medium
+    dev = torch.device("cuda", 0)
+    res = {"tree": str(tree), "package": mitsubaer_tpu_torch.__file__}
+    for name, measure in (("A", _kernel_a), ("B", _kernel_b),
+                          ("C", _kernel_c), ("E", _kernel_e)):
+        if name in which:
+            measure(cs, dev, res)
+    return res
+
+
+def _kernel_a(cs, dev, res):
+    import torch
+
+    from mitsubaer_tpu_torch.models import medium
     from mitsubaer_tpu_torch.scene import presets
 
-    dev = torch.device("cuda", 0)
-    res = {"tree": str(tree), "package": medium.__file__}
     scene, _ = presets.volumetric_box(res=64, spp=1, heterogeneous=True,
                                       density_res=64, max_depth=12,
                                       filter="box")
@@ -112,6 +111,66 @@ def worker(tree: Path) -> dict:
             vol, coords, mode="bilinear", padding_mode="zeros",
             align_corners=True), 50)
 
+
+def _kernel_b(cs, dev, res):
+    import torch
+
+    from mitsubaer_tpu_torch.integrators import boxwalk
+    from mitsubaer_tpu_torch.scene import presets
+
+    b_scene, b_cfg = presets.volumetric_box(res=512, spp=8, heterogeneous=True,
+                                            density_res=64, max_depth=12,
+                                            filter="box")
+    params, table, beam_tab, shape = boxwalk.walk_inputs(b_scene.to(dev),
+                                                         b_cfg, 8)
+    seed = boxwalk.pass_seed(7, 0)
+
+    def walk():
+        return boxwalk.walk(params, seed, table, beam_tab, shape)
+
+    if not torch.equal(walk(), boxwalk.walk_plain(params, seed, table,
+                                                  beam_tab, shape)):
+        raise AssertionError("kernel B differs from plain")
+    res["B_512"] = _measure(cs, "B", walk, 5)
+
+
+def _kernel_c(cs, dev, res):
+    import torch
+
+    from mitsubaer_tpu_torch.integrators import megatrack, wavefront
+    from mitsubaer_tpu_torch.integrators.megatrack import run_plain
+    from mitsubaer_tpu_torch.scene import presets
+
+    c_scene, c_cfg = presets.volumetric_box(res=512, spp=32, heterogeneous=True,
+                                            density_res=64, max_depth=12,
+                                            filter="box", emitter_kind="point")
+    run, calls = megatrack.run, []
+
+    def capture(*args):
+        if len(calls) < 3:
+            calls.append(args)
+        return run(*args)
+
+    capture.launches = 0
+    megatrack.run = capture
+    try:
+        wavefront.render_wavefront(c_scene.to(dev), c_cfg, 8, 0, 0)
+    finally:
+        megatrack.run = run
+    for i, args in enumerate(calls):
+        (out_k, ctr_k), (out_p, ctr_p) = run(*args), run_plain(*args)
+        if not (torch.equal(out_k, out_p) and torch.equal(ctr_k, ctr_p)):
+            raise AssertionError(f"kernel C differs from plain at call {i}")
+        res[f"C_call{i}"] = _measure(cs, "C", lambda: run(*args), 20)
+        res[f"C_call{i}"]["lanes_with_work"] = int((args[0][17] > 0.5).sum())
+
+
+def _kernel_e(cs, dev, res):
+    import torch
+
+    from mitsubaer_tpu_torch.models import eikonal as ek
+    from mitsubaer_tpu_torch.models import ermarch
+
     sdf = ek.SdfField(ek.SDF_SPHERE, (0.0, 0.0, 0.0, 1.0))
     linear = ek.RifField(ek.RIF_LINEAR, (1.3, 0.15, 0.0, 0.0))
     radial = ek.RifField(ek.RIF_RADIAL, (1.2, 0.4, 0.6, 0.1, -0.1, 0.0))
@@ -129,18 +188,19 @@ def worker(tree: Path) -> dict:
         if not all(torch.equal(a, b) for a, b in zip(got, want)):
             raise AssertionError(f"kernel E ({label}) differs from plain")
         res[f"E_{label}"] = _measure(cs, "E", call, 20)
-    return res
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", type=Path)
+    ap.add_argument("--kernels", default="ABCE",
+                    help="the kernels to measure, of A, B, C and E")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--out", type=Path,
                     default=ROOT / "build" / "compare" / "compare_kernels.json")
     args = ap.parse_args()
     if args.worker is not None:
-        print(json.dumps(worker(args.worker.resolve())))
+        print(json.dumps(worker(args.worker.resolve(), args.kernels)))
         return 0
     if args.old is None:
         ap.error("--old DIR is required")
@@ -158,8 +218,8 @@ def main() -> int:
     runs = []
     for which in ("old", "new", "new", "old"):
         proc = subprocess.run([sys.executable, __file__, "--worker",
-                               str(trees[which])], capture_output=True,
-                              text=True, check=False)
+                               str(trees[which]), "--kernels", args.kernels],
+                              capture_output=True, text=True, check=False)
         if proc.returncode != 0:
             print(proc.stdout + proc.stderr, file=sys.stderr)
             raise RuntimeError(f"the {which} tree's run failed")
