@@ -21,12 +21,17 @@ Phases (any failure raises and the script exits non-zero):
      non-zero. Then the same render at a small size on the card and on the
      CPU (plain versions), which must agree;
   6. kernels D and E (the eikonal marches) against their plain versions on
-     the card at the eikonal bench's shapes (18,432 and 36,864 lanes); E
-     exact for the linear and radial RIFs, flags and per-lane step counts
-     equal on every lane, timed bare and as the whole sens_march call;
+     the card at the eikonal bench's shapes (18,432 and 36,864 lanes), each
+     exact for the linear and radial RIFs, every output and flag equal on
+     every lane, per-lane trip counts checked; each timed bare and as the
+     whole trace / sens_march call, with host time; D also with its
+     profiler device time, its chain floor (the lane with the most trips
+     alone in a launch) and registers;
   7. the eikonal path: render() of refractive_sphere at the eikonal bench's
      full width (96^2, spp 2, depth 6, linear RIF, h 1e-2, 8 BVP restarts
-     at 4x h) on the card; both march kernels must have launched;
+     at 4x h) on the card; both march kernels must have launched; kernel
+     D's launches in it (lanes, active lanes, trips a lane) and its device
+     time over them;
   8. the same eikonal render at 24^2 on the card and on the CPU (plain
      versions), which must agree;
   9. kernel C (megatrack) against its plain version on the arguments of
@@ -44,8 +49,8 @@ Phases (any failure raises and the script exits non-zero):
      emitter NEE, two transition passes) against render_boxwalk at the same
      seed, for two seeds: pixel-by-pixel median ratio within 0.95-1.05.
 Prints one JSON line of per-kernel results (time, bound, plain version,
-library yardstick, launches on the main paths; for B and C also the device
-time and registers), then the contract line
+library yardstick, launches on the main paths; for B, C and D also the
+device time and registers), then the contract line
 {"ok": true, "device": {...}} last.
 """
 from __future__ import annotations
@@ -79,7 +84,11 @@ OPS_A_POINT = 45
 # NEE, phase sample and roulette, spread over the segments it opens at 100
 # a segment: no output counts real collisions.
 OPS_B_TAP, OPS_B_SEGMENT = 179, 100
-OPS_D_STEP = {1: 54, 2: 92}
+# D per lane-trip, from trace_lane: the candidate (v1 6, p1 with its three
+# divisions 9), the field at its end point (6 linear, 17 radial), v2 6, the
+# next step's length 5, the sphere test 9, the opt update 2, and the loop's
+# done, trip and exit tests 4
+OPS_D_STEP = {1: 47, 2: 58}
 # E per lane-step, from sens_step and its loop: the work the lane's three
 # column threads share counted once (v1 and v2 6 each, the position 9, one
 # RIF evaluation with its Hessian at the new point, 6 linear or 38 radial,
@@ -177,6 +186,8 @@ def _spread(x):
     """'mean m, p50 a, p99 b, max c' of a 1-D tensor of counts."""
     import torch
 
+    if not x.numel():
+        return "no lanes"
     x = x.to(torch.float64)
     q = torch.quantile(x, torch.tensor([0.5, 0.99], dtype=torch.float64,
                                        device=x.device)).tolist()
@@ -238,6 +249,21 @@ def _e_bare(rif, sdf, e_in, h, max_steps):
     return lambda: fn(*args), outs
 
 
+def _d_bare(rif, sdf, d_in, h, max_steps):
+    """(one bare launch of kernel D on preallocated outputs, those outputs:
+    trace's, then the per-lane trip counts); the launch is not counted.
+    d_in is (p, v, distance, active) with at least one lane."""
+    from mitsubaer_tpu_torch import kernels
+    from mitsubaer_tpu_torch.models import ermarch
+
+    p, v, dist, act = d_in
+    io, outs = ermarch.trace_io(sdf, p, v, dist, h, act)
+    args = (ermarch._params(rif, sdf), io, p.shape[0], max_steps,
+            kernels.stream(p))
+    fn = kernels.library().mk_er_trace
+    return lambda: fn(*args), outs
+
+
 def _plain_trips(want, active, h, max_steps):
     """Per-lane trip counts of sens_march_plain's loop, from its output: a
     lane that took k steps ran k + 1 trips (the last one stopped it) unless
@@ -287,25 +313,31 @@ def _er_inputs(rif, n_d, n_e, seed, dev):
     return d_in, e_in
 
 
-def _compare_march(name, got, want, flags, rtol):
-    """Floats within atol 3e-6 / rtol on the lanes whose flags agree, the
-    flags on >= 99.9% of lanes, the step counts equal. Returns the largest
-    absolute difference."""
+def _trace_calls(run):
+    """(run(), the arguments of each kernel-D call it made): run() with
+    eikonal.trace_curved wrapped to keep a copy of its inputs, which leaves
+    ermarch.trace and its launch count as they are."""
     import torch
 
-    same = got[flags] == want[flags]
-    share = same.float().mean().item()
-    if share < 0.999:
-        raise AssertionError(f"{name}: flags agree on {share:.5f} < 0.999")
-    if int(got[-1]) != int(want[-1]):
-        raise AssertionError(f"{name}: steps {int(got[-1])} != "
-                             f"{int(want[-1])}")
-    err = 0.0
-    for i, (a, b) in enumerate(zip(got[:-1], want[:-1])):
-        if i != flags:
-            torch.testing.assert_close(a[same], b[same], atol=3e-6, rtol=rtol)
-            err = max(err, (a[same] - b[same]).abs().max().item())
-    return err, share
+    from mitsubaer_tpu_torch.models import eikonal as ek
+
+    trace_curved, calls = ek.trace_curved, []
+
+    def capture(rif, sdf, p, v, distance, h, max_steps, active,
+                differentiable=False):
+        dist = (distance.clone() if isinstance(distance, torch.Tensor)
+                else distance)
+        calls.append((rif, sdf, p.clone(), v.clone(), dist, h, max_steps,
+                      active.clone()))
+        return trace_curved(rif, sdf, p, v, distance, h, max_steps, active,
+                            differentiable)
+
+    ek.trace_curved = capture
+    try:
+        out = run()
+    finally:
+        ek.trace_curved = trace_curved
+    return out, calls
 
 
 def main() -> int:
@@ -520,35 +552,81 @@ def main() -> int:
     # ---- phase 6: kernels D and E against their plain versions, at the
     # eikonal bench's shapes ----
     rif = ek.RifField(ek.RIF_LINEAR, (1.3, 0.15, 0.0, 0.0))
+    radial = ek.RifField(ek.RIF_RADIAL, (1.2, 0.4, 0.6, 0.1, -0.1, 0.0))
     sdf = ek.SdfField(ek.SDF_SPHERE, (0.0, 0.0, 0.0, 1.0))
-    (p, v, dist, act), e_in = _er_inputs(rif, 18_432, 36_864, 11, dev)
+    d_in, e_in = _er_inputs(rif, 18_432, 36_864, 11, dev)
     h_d, steps_d, h_e, steps_e = 1e-2, 256, 4e-2, 64
-    got = ermarch.trace(rif, sdf, p, v, dist, h_d, steps_d, act)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    want = ermarch.trace_plain(rif, sdf, p, v, dist, h_d, steps_d, act)
-    torch.cuda.synchronize()
-    plain_d_ms = (time.perf_counter() - t0) * 1e3
-    err_d, share_d = _compare_march("kernel D", got, want, 4, 1e-5)
-    rows_d = ermarch.trace_rows(p, v, dist, h_d, act)
-    _, trips = ermarch.run_kernel(rif, sdf, rows_d, steps_d)
-    d_ms = _cuda_ms(lambda: ermarch.run_kernel(rif, sdf, rows_d, steps_d), 20)
-    n_d = p.shape[0]
-    bound_d = _bound(n_d * (2 * 12 * 4 + 4),
-                     int(trips.sum()) * OPS_D_STEP[rif.kind])
-    print(f"kernel D at {n_d} lanes, h {h_d}, max_steps {steps_d}: "
-          f"{d_ms:.4f} ms, plain {plain_d_ms:.1f} ms, bound "
-          f"{bound_d[0]:.5f} ms ({bound_d[1]}), steps {int(got[-1])}, lane "
-          f"steps {int(trips.sum())}, exited flags equal on {share_d:.6f}, "
-          f"max abs err {err_d:.3e} [{card}]", flush=True)
+    regs_d = _registers(build_log, "er_trace_kernelILi1ELi1E")
+
+    # kernel D, exact against its plain version for the bench's linear RIF
+    # and a radial one, every output and the step count; per-lane trip
+    # counts consistent with it; the row below reports the linear case
+    for d_rif, d_in in ((radial, _er_inputs(radial, 18_432, 0, 12, dev)[0]),
+                        (rif, d_in)):
+        def call(d_in=d_in, d_rif=d_rif):
+            return ermarch.trace(d_rif, sdf, *d_in[:3], h_d, steps_d,
+                                 d_in[3])
+
+        got = call()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = ermarch.trace_plain(d_rif, sdf, *d_in[:3], h_d, steps_d,
+                                   d_in[3])
+        torch.cuda.synchronize()
+        plain_d_ms = (time.perf_counter() - t0) * 1e3
+        launch, outs = _d_bare(d_rif, sdf, d_in, h_d, steps_d)
+        launch()
+        trips = outs[-1]
+        torch.cuda.synchronize()
+        bad = [i for i, (a, b) in enumerate(zip(got, want))
+               if a.dtype != b.dtype or not torch.equal(a, b)]
+        if bad or not all(torch.equal(a, b) for a, b in zip(outs[:-1], got)):
+            raise AssertionError(f"kernel D ({d_rif.kind}) differs from its "
+                                 f"plain version: outputs {bad}")
+        if (int(trips.max()) != int(want[-1])
+                or bool(trips[~d_in[3]].any()) or int(trips.min()) < 0):
+            raise AssertionError("kernel D's per-lane trip counts disagree "
+                                 "with its step count")
+        err_d = max((a - b).abs().max().item()
+                    for a, b in zip(got[:4], want[:4]))
+        bare_d_ms = _cuda_ms(launch, 20)
+        d_ms = _cuda_ms(call, 20)
+        host_d = [_host_us(f, 20) for f in (launch, call)]
+        dev_d, dev_all_d, ops_d = _device_per_call(call, 20,
+                                                   "er_trace_kernel")
+        # the chain floor: the lane with the most trips alone in a launch
+        j = int(trips.argmax())
+        one = [t[j:j + 1].contiguous() for t in d_in]
+        floor_d = _device_per_call(lambda: call(one), 20,
+                                   "er_trace_kernel")[0]
+        n_d = d_in[0].shape[0]
+        # in: p, v (24 B), distance (4 B), active (1 B); out: p, v (24 B),
+        # opt, marched (8 B), trips (8 B), exited (1 B); the step count
+        bound_d = _bound(n_d * 70 + 8,
+                         int(trips.sum()) * OPS_D_STEP[d_rif.kind])
+        kind = {1: "linear", 2: "radial"}[d_rif.kind]
+        print(f"kernel D ({kind} RIF) at {n_d} lanes, h {h_d}, max_steps "
+              f"{steps_d}: bare launch {bare_d_ms:.4f} ms (host "
+              f"{host_d[0]:.2f} us a call), whole trace {d_ms:.4f} ms (host "
+              f"{host_d[1]:.2f} us a call), device {dev_d:.4f} ms (all "
+              f"device work {dev_all_d:.4f} ms in {ops_d:.1f} operations a "
+              f"call), chain floor {floor_d:.4f} ms (lane {j}, "
+              f"{int(trips[j])} trips), plain {plain_d_ms:.1f} ms, bound "
+              f"{bound_d[0]:.5f} ms ({bound_d[1]}), steps {int(got[-1])}, "
+              f"lane steps {int(trips.sum())}, trips a lane "
+              f"{_spread(trips[d_in[3]])}, max abs err {err_d:.3e}: every "
+              f"output equal; {regs_d} registers [{card}]", flush=True)
     results["er_trace"] = _kernel_row(
         "er_trace", "mitsubaer_tpu_torch/csrc/ermarch.cu",
         "mitsubaer_tpu/models/ermarch.py:122", err_d, d_ms, plain_d_ms,
         bound_d, None)
+    results["er_trace"].update(bare_ms=bare_d_ms, device_ms=dev_d,
+                               host_us=host_d[1], chain_floor_ms=floor_d,
+                               registers=regs_d)
+    del outs, launch
 
     # kernel E, exact against its plain version for the bench's linear RIF
     # and a radial one; the row below reports the linear case
-    radial = ek.RifField(ek.RIF_RADIAL, (1.2, 0.4, 0.6, 0.1, -0.1, 0.0))
     cases = [(radial, _er_inputs(radial, 0, 36_864, 12, dev)[1]),
              (rif, e_in)]
     for e_rif, e_in in cases:
@@ -611,7 +689,8 @@ def main() -> int:
     stats = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    img = render_m.render(er_scene, er_cfg, seed=1, device=dev, stats=stats)
+    img, d_calls = _trace_calls(lambda: render_m.render(
+        er_scene, er_cfg, seed=1, device=dev, stats=stats))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"er_trace": ermarch.trace.launches,
@@ -630,6 +709,26 @@ def main() -> int:
         raise AssertionError(f"eikonal path skipped a kernel: {launches}")
     for name, count in launches.items():
         results[name]["launches"] = count
+    # kernel D's launches in that render: lanes, active lanes and trips a
+    # lane, and its device time over all of them (replayed as bare
+    # launches, which count nothing)
+    bares, sizes, trips = [], [], []
+    for c in d_calls:
+        if c[2].shape[0]:
+            bares.append(_d_bare(c[0], c[1], (c[2], c[3], c[4], c[7]), c[5],
+                                 c[6]))
+            bares[-1][0]()
+            trips.append(bares[-1][1][-1][c[7]])
+            sizes.append((c[2].shape[0], int(c[7].sum()),
+                          int(trips[-1].max()) if trips[-1].numel() else 0))
+    d_render = _device_per_call(lambda: [b[0]() for b in bares], 3,
+                                "er_trace_kernel")[0] * len(bares)
+    print(f"kernel D in the eikonal path: {len(bares)} launches (lanes, "
+          f"active lanes, most trips) {sizes}; trips an active lane "
+          f"{_spread(torch.cat(trips))}; device time over them "
+          f"{d_render:.4f} ms [{card}]", flush=True)
+    results["er_trace"]["render_device_ms"] = d_render
+    del bares, d_calls
 
     # ---- phase 8: the eikonal render small, card against CPU ----
     s_scene, s_cfg = _er_bench_scene(presets, 24, 4, 128)

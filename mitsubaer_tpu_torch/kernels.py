@@ -38,6 +38,20 @@ class ErParams(ctypes.Structure):
     _fields_ = [("q", ctypes.c_float * 16)]
 
 
+class TraceIO(ctypes.Structure):
+    """Kernel D's tensors, by value: the inputs as ermarch.trace takes them,
+    the arc length and step size (dist_lanes and h_lanes, or dist and h
+    where they are null), the sphere's inside threshold on r2
+    (ermarch.sphere_threshold) and the outputs as trace returns them, plus
+    the per-lane trip counts (int64) before the step count."""
+
+    _fields_ = [(f, ctypes.c_void_p) for f in (
+        "p", "v", "active", "dist_lanes", "h_lanes")] + [
+        (f, ctypes.c_float) for f in ("dist", "h", "sphere_t")] + [
+        (f, ctypes.c_void_p) for f in (
+            "po", "vo", "opt", "marched", "exited", "trips", "steps")]
+
+
 class SensIO(ctypes.Structure):
     """Kernel E's tensors, by value: the inputs as ermarch.sens_march takes
     them, the step size (h_lanes, or h where h_lanes is null) and the
@@ -60,8 +74,8 @@ _SIGNATURES = {
     "mk_boxwalk": [_P, ctypes.c_uint32, _P, _P, _P] + [_I] * 14 + [_P, _P],
     # (resident blocks a multiprocessor, out)
     "mk_boxwalk_blocks_per_sm": [_P],
-    # (params, rows in, rows out, trips, n, max_steps, stream)
-    "mk_er_trace": [ErParams, _P, _P, _P, _I, _I, _P],
+    # (params, tensors, n, max_steps, stream)
+    "mk_er_trace": [ErParams, TraceIO, _I, _I, _P],
     # (params, tensors, n, max_steps, stream)
     "mk_er_sens": [ErParams, SensIO, _I, _I, _P],
     # (rows, ctr, table, out, ctr_out, n, seed, max_trips, nx, ny, nz, nbx,

@@ -3,7 +3,8 @@
 
 * D, `trace`: march a fixed arc length through the RIF, stopping where the
   SDF reports an exit (the loop of eikonal.trace_curved). Replaces the
-  Pallas `_trace_kernel` of mitsubaer_tpu/models/ermarch.py:122.
+  Pallas `_trace_kernel` of mitsubaer_tpu/models/ermarch.py:122. It runs
+  one thread a lane on the caller's tensors as they are.
 * E, `sens_march`: march until the ray passes the plane through its target
   or leaves the medium, carrying dp/dv0 and dv/dv0 (the loop of
   eikonal.integrate_with_sensitivities). Replaces the Pallas `_sens_kernel`
@@ -21,7 +22,9 @@ launches its kernel and counts the launch; on anything else it raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -104,33 +107,81 @@ def _params(rif, sdf) -> kernels.ErParams:
     return kernels.ErParams((ctypes.c_float * 16)(*q))
 
 
-def trace_rows(p, v, distance, h, active):
-    """Kernel D's (12, N) input rows: 0:3 p, 3:6 v, 6 opt, 7 marched,
-    8 running, 9 exited, 10 distance, 11 h."""
+@functools.lru_cache(maxsize=64)
+def sphere_threshold(radius: float) -> float:
+    """T with `r2 < T` exactly where the sphere SDF reports the inside,
+    `sqrt(max(r2, 1e-30)) - radius < 0` in float32: sqrt rounds correctly
+    and never decreases, so that set is the floats below the smallest m
+    whose root is at least the radius, found by bisection over the bit
+    patterns of the floats in [0, inf]. -inf where nothing is inside (a
+    radius that is NaN, or whose m is not above 1e-30)."""
+    r = np.float32(radius)
+    if np.isnan(r):
+        return float("-inf")
+    lo, hi = 0, 0x7F800000          # +0 and +inf as bit patterns
+
+    def root(bits):
+        return np.sqrt(np.array(bits, np.uint32).view(np.float32))
+
+    if not root(hi) >= r:
+        return float("-inf")
+    while lo < hi:                  # the smallest bits whose root is >= r
+        mid = (lo + hi) // 2
+        if root(mid) >= r:
+            hi = mid
+        else:
+            lo = mid + 1
+    t = np.array(lo, np.uint32).view(np.float32)
+    return float(t) if t > np.float32(1e-30) else float("-inf")
+
+
+def _lanes_arg(name, x, n, like):
+    """A float, or a () or (N,) tensor, as kernels D and E take it: (an (N,)
+    float32 tensor or None, the float where there is none)."""
+    if not isinstance(x, torch.Tensor):
+        return None, float(x)
+    if tuple(x.shape) not in ((), (n,)):
+        raise ValueError(f"{name}: expected a float or a () or ({n},) "
+                         f"tensor, got {tuple(x.shape)}")
+    t = x.to(device=like.device, dtype=torch.float32).expand(n).contiguous()
+    return t, 0.0
+
+
+def trace_io(sdf, p, v, distance, h, active):
+    """Check kernel D's CUDA inputs and allocate its outputs. distance and h
+    are floats or (N,) tensors. Returns (kernels.TraceIO, outputs), the
+    outputs being (p, v, opt, marched, exited, steps, per-lane trip counts):
+    views of three allocations (the floats, the flags, the trip counts with
+    the step count last)."""
     n = p.shape[0]
-    rows = torch.zeros((12, n), dtype=torch.float32, device=p.device)
-    rows[0:3] = p.t()
-    rows[3:6] = v.t()
-    rows[8] = active.to(torch.float32)
-    rows[10] = distance
-    rows[11] = h
-    return rows
-
-
-def run_kernel(rif, sdf, rows, max_steps: int):
-    """Launch kernel D on CUDA state rows. Returns (output rows, per-lane
-    trip counts); counts nothing."""
-    kernels.require_cuda("mk_er_trace", rows)
-    n = rows.shape[1]
-    out = torch.empty_like(rows)
-    trips = torch.zeros((n,), dtype=torch.int32, device=rows.device)
-    if n:
-        with kernels.on_device(rows):
-            rc = kernels.library().mk_er_trace(
-                _params(rif, sdf), rows.data_ptr(), out.data_ptr(),
-                trips.data_ptr(), n, int(max_steps), kernels.stream(rows))
-        kernels.check(rc, "mk_er_trace")
-    return out, trips
+    for t in (p, v):
+        if t.dtype != torch.float32 or tuple(t.shape) != (n, 3):
+            raise ValueError(f"mk_er_trace: expected float32 ({n}, 3), got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if active.dtype != torch.bool or tuple(active.shape) != (n,):
+        raise ValueError("mk_er_trace: expected a bool (N,) active mask")
+    p, v, active = p.contiguous(), v.contiguous(), active.contiguous()
+    dist_t, dist = _lanes_arg("mk_er_trace", distance, n, p)
+    h_t, h = _lanes_arg("mk_er_trace", h, n, p)
+    kernels.require_cuda("mk_er_trace", p, v, active,
+                         *[t for t in (dist_t, h_t) if t is not None])
+    t_in = (sphere_threshold(sdf.params[3]) if sdf.kind == ek.SDF_SPHERE
+            else 0.0)
+    flt = p.new_empty((8 * n,))
+    ints = (torch.zeros if n == 0 else torch.empty)(
+        (n + 1,), dtype=torch.int64, device=p.device)
+    outs = (flt[:3 * n].view(n, 3), flt[3 * n:6 * n].view(n, 3),
+            flt[6 * n:7 * n], flt[7 * n:],
+            torch.empty((n,), dtype=torch.bool, device=p.device),
+            ints[n], ints[:n])
+    io = kernels.TraceIO(
+        p.data_ptr(), v.data_ptr(), active.data_ptr(),
+        None if dist_t is None else dist_t.data_ptr(),
+        None if h_t is None else h_t.data_ptr(), dist, h, t_in,
+        *[t.data_ptr() for t in outs[:5] + (outs[6], outs[5])])
+    # the inputs must outlive the launch: keep them with the struct
+    io.tensors = (p, v, active, dist_t, h_t)
+    return io, outs
 
 
 def _on_cpu(name, t) -> bool:
@@ -139,23 +190,20 @@ def _on_cpu(name, t) -> bool:
     return t.is_cpu
 
 
-def _steps(trips):
-    if not trips.numel():
-        return torch.zeros((), dtype=torch.int64, device=trips.device)
-    return trips.amax().to(torch.int64)
-
-
 def trace(rif, sdf, p, v, distance, h, max_steps: int, active):
     """Kernel D on CUDA tensors, trace_plain on CPU ones. Returns
     (p, v, opt, marched, exited, steps)."""
     if _on_cpu("ermarch.trace", p):
         return trace_plain(rif, sdf, p, v, distance, h, max_steps, active)
-    out, trips = run_kernel(rif, sdf, trace_rows(p, v, distance, h, active),
-                            max_steps)
+    io, outs = trace_io(sdf, p, v, distance, h, active)
     if p.shape[0]:
+        with kernels.on_device(p):
+            rc = kernels.library().mk_er_trace(
+                _params(rif, sdf), io, p.shape[0], int(max_steps),
+                kernels.stream(p))
+        kernels.check(rc, "mk_er_trace")
         trace.launches += 1
-    return (out[0:3].t(), out[3:6].t(), out[6], out[7], out[9] > 0.5,
-            _steps(trips))
+    return outs[:-1]
 
 
 trace.launches = 0
@@ -173,10 +221,8 @@ def sens_io(p1, v, dpdv0, dvdv0, p2, h, active):
         p1, v, dpdv0, dvdv0, p2, active))
     ins = [p1, v, dpdv0, dvdv0, p2]
     shapes = [(n, 3), (n, 3), (n, 3, 3), (n, 3, 3), (n, 3)]
-    h_lanes = None
-    if isinstance(h, torch.Tensor):
-        h_lanes = h.to(device=p1.device, dtype=torch.float32).expand(
-            n).contiguous()
+    h_lanes, h = _lanes_arg("mk_er_sens", h, n, p1)
+    if h_lanes is not None:
         ins, shapes = ins + [h_lanes], shapes + [(n,)]
     kernels.require_cuda("mk_er_sens", *ins, active)
     for t, shape in zip(ins, shapes):
@@ -195,8 +241,7 @@ def sens_io(p1, v, dpdv0, dvdv0, p2, h, active):
             ints[n], ints[:n])
     io = kernels.SensIO(
         *[t.data_ptr() for t in (p1, v, dpdv0, dvdv0, p2, active)],
-        None if h_lanes is None else h_lanes.data_ptr(),
-        0.0 if h_lanes is not None else float(h),
+        None if h_lanes is None else h_lanes.data_ptr(), h,
         *[t.data_ptr() for t in outs[:7] + (outs[8], outs[7])])
     # the inputs must outlive the launch: keep them with the struct
     io.tensors = (p1, v, dpdv0, dvdv0, p2, active, h_lanes)

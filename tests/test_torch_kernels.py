@@ -312,6 +312,11 @@ def test_bindings_match_the_c_interfaces():
             assert argtypes[-1] is kernels._P
     boxwalk_params = _c_parameters(source, "mk_boxwalk")
     assert boxwalk_params[-2] == "int* next_lane"
+    assert _c_parameters(source, "mk_er_trace")[:2] == ["ErParams q",
+                                                         "TraceIO io"]
+    assert [f for f, _ in kernels.TraceIO._fields_] == [
+        "p", "v", "active", "dist_lanes", "h_lanes", "dist", "h",
+        "sphere_t", "po", "vo", "opt", "marched", "exited", "trips", "steps"]
 
 
 @pytest.fixture
@@ -469,28 +474,60 @@ def test_wavefront_render_on_cuda_goes_through_kernel_c_and_matches_cpu(cuda):
     assert 0.99 <= ratio <= 1.01
 
 
-def _compare_march(got, want, flags, rtol):
-    """Floats within atol 3e-6 / rtol on lanes whose flags agree, flags on
-    >= 99.9% of lanes, and the step count, equal."""
-    same = got[flags] == want[flags]
-    assert same.float().mean().item() >= 0.999
-    assert int(got[-1]) == int(want[-1])
-    for i, (a, b) in enumerate(zip(got[:-1], want[:-1])):
-        if i != flags:
-            torch.testing.assert_close(a[same], b[same], atol=3e-6, rtol=rtol)
+_BOX = tek.SdfField(tek.SDF_BOX, (0.0, 0.05, -0.05, 0.6, 0.7, 0.8))
+
+
+def _trace_equal(got, want):
+    """Kernel D against trace_plain: every output equal, the step count
+    too."""
+    assert len(got) == len(want) == 6
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("box", [False, True], ids=["sphere", "box"])
 @pytest.mark.parametrize("kind", [tek.RIF_LINEAR, tek.RIF_RADIAL])
-def test_er_trace_kernel_matches_plain_on_cuda(cuda, kind):
+def test_er_trace_kernel_matches_plain_on_cuda(cuda, kind, box):
     rif, sdf = _er_fields(kind)
+    sdf = _BOX if box else sdf
     p, v, dist, act = _er_trace_inputs(rif, 18_432, 2, cuda)
     before = tem.trace.launches
     got = tem.trace(rif, sdf, p, v, dist, 0.01, 256, act)
     assert tem.trace.launches == before + 1
     want = tem.trace_plain(rif, sdf, p, v, dist, 0.01, 256, act)
     torch.cuda.synchronize()
-    _compare_march(got, want, 4, 1e-5)
+    assert int(want[-1]) > 30 and bool(want[4].any())
+    _trace_equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["per-lane h", "ragged n", "n = 0",
+                                  "max_steps 30", "constant RIF, no SDF"])
+def test_er_trace_kernel_edge_cases_match_plain_on_cuda(cuda, case):
+    """Per-lane step sizes and arc lengths, n not a multiple of the block,
+    no lanes, a cut of the march at 30 steps, and the constant RIF with no
+    SDF (every active lane leaves at its first step); kernel D's launch
+    counted only where it runs."""
+    rif, sdf = _er_fields(tek.RIF_RADIAL)
+    n = {"ragged n": 1_000, "n = 0": 0}.get(case, 4_096)
+    p, v, dist, act = _er_trace_inputs(rif, n, 9, cuda)
+    h, steps = 0.01, 256
+    if case == "per-lane h":
+        h = torch.linspace(0.005, 0.03, n, device=cuda)
+    elif case == "max_steps 30":
+        steps = 30
+    elif case == "constant RIF, no SDF":
+        rif = tek.RifField(tek.RIF_CONST, (1.33,))
+        sdf = tek.SdfField(tek.SDF_NONE, ())
+    else:
+        dist = 0.8
+    before = tem.trace.launches
+    got = tem.trace(rif, sdf, p, v, dist, h, steps, act)
+    assert tem.trace.launches == before + (n > 0)
+    want = tem.trace_plain(rif, sdf, p, v, dist, h, steps, act)
+    torch.cuda.synchronize()
+    _trace_equal(got, want)
 
 
 @pytest.mark.cuda
