@@ -47,11 +47,27 @@ Phases (any failure raises and the script exits non-zero):
  11. the same render at 24^2 on the card and on the CPU, which must agree;
  12. render_wavefront on the beam scene (512^2, sppc 8, depth 12, no
      emitter NEE, two transition passes) against render_boxwalk at the same
-     seed, for two seeds: pixel-by-pixel median ratio within 0.95-1.05.
+     seed, for two seeds: pixel-by-pixel median ratio within 0.95-1.05;
+ 13. the loop road, the main path's default: render() of the beam scene at
+     512^2, spp 32, depth 12, density 64^3, with its gaussian film filter
+     (4 passes of 8 spp through volpath.li, then 4 beam-splat passes) on
+     the card; kernel A must launch; its wall, bounces and Woodcock
+     iterations a pass, kernel A's launches, peak device memory and image
+     mean. Then that render's first pass again with kernel A's lookups
+     captured: every captured output (calls 0, 4, 16, 64, 256 and 1024 of
+     each point count: the Woodcock and beam-point lookups at 2,097,152
+     points, the batched visibility walk at 4,194,304) must equal the
+     plain version on the same inputs, and A is timed at each count;
+ 14. the same render at 24^2, spp 4, on the card and on the CPU, which
+     must agree by phase 8's rule;
+ 15. one loop-engine pass (engine "loop", box filter) on the 512^2 beam
+     scene (sppc 8) against render_boxwalk at the same seed:
+     pixel-by-pixel median ratio within 0.95-1.05.
 Prints one JSON line of per-kernel results (time, bound, plain version,
-library yardstick, launches on the main paths; for B, C and D also the
-device time and registers), then the contract line
-{"ok": true, "device": {...}} last.
+library yardstick, launches on the main paths; for A also its launches on
+the loop road and its checks and times at the loop road's point counts;
+for B, C and D also the device time and registers), then
+the contract line {"ok": true, "device": {...}} last.
 """
 from __future__ import annotations
 
@@ -744,6 +760,7 @@ def main() -> int:
         raise AssertionError("card and CPU eikonal renders disagree")
 
     _megatrack_phases(dev, card, results, build_log)
+    _loop_phases(dev, card, results)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -996,6 +1013,161 @@ def _megatrack_phases(dev, card, results, build_log):
         if not 0.95 <= ratio <= 1.05:
             raise AssertionError("wavefront and boxwalk disagree on the beam "
                                  "scene")
+
+
+def _loop_phases(dev, card, results):
+    """Phases 13-15: the loop road (volpath.li through kernel A)."""
+    import torch
+
+    from mitsubaer_tpu_torch.integrators import boxwalk
+    from mitsubaer_tpu_torch.integrators import render as render_m
+    from mitsubaer_tpu_torch.models import medium
+    from mitsubaer_tpu_torch.scene import presets
+
+    # ---- phase 13: the loop road at full width ----
+    scene, cfg = presets.volumetric_box(res=512, spp=32, heterogeneous=True,
+                                        density_res=64, max_depth=12)
+    scene = scene.to(dev)
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    medium.trilinear_lookup.launches = 0
+    t0 = time.perf_counter()
+    img = render_m.render(scene, cfg, seed=0, device=dev, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = medium.trilinear_lookup.launches
+    peak = torch.cuda.max_memory_allocated(dev)
+    mean = img.mean().item()
+    print(f"loop path: 512x512 spp 32 depth 12 gaussian filter in "
+          f"{len(stats['passes'])} passes [bounces, Woodcock iterations] "
+          f"{stats['passes']}, wall {wall:.3f} s, loop passes "
+          f"{stats['loop_s']:.3f} s, kernel A launches {launches}, peak "
+          f"device memory {peak / 2**30:.3f} GiB, mean {mean:.6f} [{card}]",
+          flush=True)
+    if (tuple(img.shape) != (cfg.height, cfg.width, 3)
+            or not bool(torch.isfinite(img).all())):
+        raise AssertionError("loop render produced a non-finite or "
+                             "misshapen image")
+    if not mean > 0:
+        raise AssertionError("loop render produced a black image")
+    if launches < len(stats["passes"]):
+        raise AssertionError(f"loop path skipped kernel A: {launches}")
+    results["trilinear_lookup"]["launches_loop"] = launches
+    results["trilinear_lookup"]["loop_shapes"] = _loop_lookups(
+        scene, cfg, dev, card)
+
+    # ---- phase 14: card against CPU ----
+    s_scene, s_cfg = presets.volumetric_box(res=24, spp=4, heterogeneous=True,
+                                            density_res=64, max_depth=12)
+    img_g = render_m.render(s_scene, s_cfg, seed=3, device=dev).cpu()
+    img_c = render_m.render(s_scene, s_cfg, seed=3, device="cpu")
+    lum_g, lum_c = img_g.mean(-1), img_c.mean(-1)
+    sel = lum_c > 0
+    ratio = (lum_g[sel] / lum_c[sel]).median().item()
+    mean_rel = abs(img_g.mean().item() / img_c.mean().item() - 1)
+    print(f"card vs CPU loop render at 24x24 spp 4: median pixel ratio "
+          f"{ratio:.6f}, mean rel diff {mean_rel:.2e}", flush=True)
+    if not (0.98 <= ratio <= 1.02 and mean_rel <= 0.02):
+        raise AssertionError("card and CPU loop renders disagree")
+
+    # ---- phase 15: the loop engine against boxwalk on the beam scene ----
+    from dataclasses import replace
+
+    b_cfg = replace(cfg, spp=8, filter="box", engine="loop")
+    seed = 5
+    out = {}
+    for road in ("loop", "boxwalk"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if road == "loop":
+            accum, st_ = render_m.render_pass(
+                scene, torch.zeros((512, 512, 4), device=dev), b_cfg, 8,
+                seed, 0)
+            L = accum[..., :3] / accum[..., 3:]
+        else:
+            L, st_ = boxwalk.render_boxwalk(scene, b_cfg, 8, seed, 0)
+            L, st_ = (L / 8).reshape(512, 512, 3), st_.tolist()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        out[road] = L.mean(-1).flatten()
+        print(f"beam scene 512x512 sppc 8 seed {seed} on {road}: {st_}, "
+              f"{secs:.3f} s, mean {L.mean().item():.6f} [{card}]",
+              flush=True)
+    both = (out["loop"] > 0) & (out["boxwalk"] > 0)
+    ratio = (out["loop"][both] / out["boxwalk"][both]).median().item()
+    print(f"beam scene seed {seed} loop / boxwalk: pixel-by-pixel median "
+          f"ratio {ratio:.6f} over {int(both.sum())} pixels, mean ratio "
+          f"{(out['loop'].mean() / out['boxwalk'].mean()).item():.6f}",
+          flush=True)
+    if not 0.95 <= ratio <= 1.05:
+        raise AssertionError("the loop engine and boxwalk disagree on the "
+                             "beam scene")
+
+
+def _loop_lookups(scene, cfg, dev, card):
+    """Kernel A at the point counts the loop road gives it: the first pass
+    of phase 13's render again (same seed, same lanes) with the lookups
+    captured. Every captured output, as the pass received it, must equal
+    the plain version on the same inputs; the kernel's grid must be f32.
+    Returns per point count its calls in the pass, the calls checked, and
+    the times through the wrapper and of the plain version with the bound.
+    These launches come after phase 13's count was read."""
+    import torch
+
+    from mitsubaer_tpu_torch.integrators import render as render_m
+    from mitsubaer_tpu_torch.models import film, medium
+
+    lookup, calls = medium.DensityGrid.lookup, {}
+
+    def capture(self, p):
+        out = lookup(self, p)
+        seen = calls.setdefault(p.shape[0], [0, []])
+        if seen[0] in (0, 4, 16, 64, 256, 1024):
+            seen[1].append((self, p.clone(), out.clone()))
+        seen[0] += 1
+        return out
+
+    sppc = render_m._spp_per_pass(cfg)
+    medium.DensityGrid.lookup = capture
+    try:
+        render_m.render_pass(scene, film.new_accumulator(cfg, dev), cfg,
+                             sppc, 0, 0)
+    finally:
+        medium.DensityGrid.lookup = lookup
+    lanes = sppc * cfg.height * cfg.width
+    if lanes not in calls or 2 * lanes not in calls:
+        raise AssertionError(f"the loop pass looked up no {lanes} or "
+                             f"{2 * lanes} points: {sorted(calls)}")
+    rows = []
+    for n in sorted(calls):
+        count, taken = calls[n]
+        for grid, p, out in taken:
+            if grid.cells.dtype != torch.float32:
+                raise AssertionError(f"the loop road's grid is "
+                                     f"{grid.cells.dtype}, not f32")
+            ref = medium.trilinear_lookup_plain(grid.grid, grid.aabb6, p)
+            if not torch.equal(out, ref):
+                err = (out - ref).abs().max().item()
+                raise AssertionError(f"kernel A differs from its plain "
+                                     f"version in the loop pass at {n} "
+                                     f"points: max abs err {err}")
+        if n == 0:
+            continue
+        grid, p, _ = taken[0]
+        ms = _cuda_ms(lambda g=grid, q=p: g.lookup(q), 20)
+        plain_ms = _cuda_ms(lambda g=grid, q=p: medium.trilinear_lookup_plain(
+            g.grid, g.aabb6, q), 10)
+        bound = _bound(n * 16 + grid.grid.numel() * 4, n * OPS_A_POINT)
+        print(f"kernel A in the loop pass at {n} points: {count} calls, "
+              f"{len(taken)} captured and equal to the plain version on "
+              f"every point; {ms:.4f} ms through the wrapper, plain "
+              f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) "
+              f"[{card}]", flush=True)
+        rows.append(dict(n=n, calls=count, checked=len(taken), equal=True,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                         bound_by=bound[1]))
+    return rows
 
 
 def _er_bench_scene(presets, res, spp, max_steps):

@@ -1,15 +1,23 @@
 """mitsubaer_tpu_torch: the PyTorch/CUDA port of mitsubaer_tpu.
 
-Three forward-render roads are ported: the bounded scattering volume on the
-boxwalk road (`scene.presets.volumetric_box(..., filter="box")`), every
-other steady-state volpath scene with a box filter on the wavefront road
-(e.g. `volumetric_box(..., filter="box", emitter_kind="point")`), and the
-eikonal (refractive) road, `integrator="volpath_er"`
-(`scene.presets.refractive_sphere(..., filter="box")`), all through
+Four forward-render roads are ported, all through
 `integrators.render.render(scene, cfg, seed=..., device=...)`, which runs
-on the CUDA card unless device="cpu" is passed. Their hand-written CUDA
-kernels live in csrc/ and are built by kernels.py at first use; on CPU
-tensors each kernel's plain PyTorch version runs instead.
+on the CUDA card unless device="cpu" is passed, and picks the road as the
+JAX render() does:
+- the loop engine (`integrators.volpath.li`) for a "volpath" render with
+  any film filter but box (the default filter is "gaussian") or with
+  engine="loop", and for "volpath_simple" unless engine="wavefront"
+  (`scene.presets.volumetric_box(...)`);
+- the bounded scattering volume on the boxwalk road
+  (`volumetric_box(..., filter="box")`);
+- every other steady-state volpath scene with a box filter on the
+  wavefront road (e.g. `volumetric_box(..., filter="box",
+  emitter_kind="point")`);
+- the eikonal (refractive) road, `integrator="volpath_er"`
+  (`scene.presets.refractive_sphere(...)`).
+Their hand-written CUDA kernels live in csrc/ and are built by kernels.py
+at first use; on CPU tensors each kernel's plain PyTorch version runs
+instead.
 """
 
 

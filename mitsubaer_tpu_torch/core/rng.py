@@ -18,7 +18,13 @@ from dataclasses import dataclass, replace
 
 import torch
 
-INDEPENDENT = 0
+from .. import not_ported
+
+# the JAX package's sampler modes by name; only INDEPENDENT is ported
+INDEPENDENT, LDS, STRATIFIED, HALTON, HAMMERSLEY, SOBOL = range(6)
+MODES = {"independent": INDEPENDENT, "lds": LDS, "ldsampler": LDS,
+         "stratified": STRATIFIED, "halton": HALTON,
+         "hammersley": HAMMERSLEY, "sobol": SOBOL}
 
 M32 = 0xFFFFFFFF
 _TWO_NEG_32 = 2.3283064365386963e-10   # 2^-32
@@ -75,13 +81,19 @@ class Sampler:
     key: torch.Tensor
 
 
+def mode_of(name: str) -> int:
+    """The sampler mode a config's `sampler` names; a name that is no mode
+    means the independent sampler, as in the JAX package."""
+    return MODES.get(name, INDEPENDENT)
+
+
 def make_sampler(seed, lane, sample_index, mode: int = INDEPENDENT,
                  n_samples: int = 16) -> Sampler:
     """`n_samples` (the spp) only shapes the stratified samplers, which are
     not ported; it is accepted so callers read as the JAX package's."""
     if mode != INDEPENDENT:
-        raise NotImplementedError(
-            "only the independent sampler is ported (ROADMAP Queue 1 step 1)")
+        raise not_ported(f"sampler mode {mode} (only the independent "
+                         "sampler is ported)", 1)
     lane = u32(lane)
     index = u32(sample_index, lane.device)
     seed = u32(seed, lane.device)

@@ -1,11 +1,14 @@
 """Shared integrator helpers (port of mitsubaer_tpu/integrators/common.py):
-the steady-state contribution sink, Russian roulette and the ray epsilon.
+the steady-state contribution sink, Russian roulette, the ray epsilon, and
+the camera prologue of a render pass.
 Transient, bounce and CW-ToF sinks are not ported (ROADMAP Queue 1 step 10).
 """
 from __future__ import annotations
 
 import torch
 
+from ..core import rng
+from ..models import sensor as sensor_m
 from ..scene.types import RenderConfig
 
 
@@ -38,3 +41,25 @@ def scene_epsilon(scene):
     """Relative ray epsilon from the scene extent (ShadowEpsilon analogue)."""
     diag = torch.linalg.vector_norm(scene.aabb_max - scene.aabb_min)
     return 1e-4 * torch.clamp_min(diag, 1e-3)
+
+
+def camera_samples(scene, cfg: RenderConfig, sppc: int, seed: int,
+                   pass_idx: int):
+    """The camera prologue of one spp chunk (render.py:109-124): lane
+    s * npix + pixel is sample pass_idx * sppc + s of its pixel; it draws
+    its jitter inside the pixel, then the thin-lens aperture sample (which
+    the ported pinhole camera does not read). Returns (rays, (N, 2) jitter,
+    the sampler after both draws)."""
+    H, W = cfg.height, cfg.width
+    npix = H * W
+    dev = scene.aabb_min.device
+    pixel = torch.arange(npix, dtype=torch.int64, device=dev).repeat(sppc)
+    sample_index = torch.repeat_interleave(
+        pass_idx * sppc + torch.arange(sppc, dtype=torch.int64, device=dev),
+        npix)
+    smp = rng.make_sampler(seed, pixel, sample_index, n_samples=cfg.spp)
+    jitter, smp = rng.next_2d(smp)
+    _, smp = rng.next_2d(smp)
+    px = (pixel % W).to(torch.float32) + jitter[:, 0]
+    py = (pixel // W).to(torch.float32) + jitter[:, 1]
+    return sensor_m.sample_rays(scene.sensor, px, py, W, H), jitter, smp

@@ -1,6 +1,12 @@
 """Render entry point (port of mitsubaer_tpu/integrators/render.py::render).
 
-Three roads are ported:
+Four roads are ported, chosen as the JAX render() chooses them:
+- loop: the loop engine (`volpath.li`), taken by integrator "volpath"
+  with any film filter but box (the default is gaussian) or with
+  engine="loop", and by "volpath_simple" unless engine="wavefront"; each
+  spp chunk runs camera rays, the host-driven bounce loop and the
+  filtered film splat (`render_pass`), then the collimated-beam splat
+  where the scene has a beam.
 - boxwalk: the bounded-volume scene class with a box filter
   (`boxwalk.supported`), plus the collimated-beam splat. The JAX package
   takes it only on a TPU backend; here on every device.
@@ -10,8 +16,9 @@ Three roads are ported:
   `wavefront.render_wavefront` and kernel C, plus the beam splat where the
   scene has a collimated emitter.
 - volpath_er: the eikonal (refractive) integrator, forward and steady-state,
-  with a box filter; each spp chunk runs camera rays, the host-driven bounce
-  loop and the film splat, as the JAX render's host-stepped ER branch.
+  with any film filter; each spp chunk runs camera rays, the host-driven
+  bounce loop and the film splat, as the JAX render's host-stepped ER
+  branch.
 
 Renders run on the CUDA card unless the caller passes device="cpu", where
 the plain PyTorch versions of the kernels run instead. Every other road
@@ -82,6 +89,21 @@ def render_pass_wavefront(scene: Scene, accum_L, cfg: RenderConfig,
     return accum_L + L, stats
 
 
+def render_pass(scene: Scene, accum, cfg: RenderConfig, sppc: int,
+                seed: int, pass_idx: int):
+    """One spp chunk through the loop engine (render.py:106-148): camera
+    samples, `volpath.li` and the splat with cfg.filter. Returns the
+    accumulator and [bounces, Woodcock tracking iterations]."""
+    rays, jitter, smp = common.camera_samples(scene, cfg, sppc, seed,
+                                              pass_idx)
+    sink, _, counts = volpath_m.li(scene, cfg, rays.o, rays.d, smp,
+                                   simple=cfg.integrator == "volpath_simple")
+    H, W = cfg.height, cfg.width
+    accum = film_m.splat(accum, sink.reshape(sppc, H, W, 3),
+                         jitter.reshape(sppc, H, W, 2), cfg.filter)
+    return accum, counts
+
+
 def beam_splat_pass(scene: Scene, splat, cfg: RenderConfig, n_samples: int,
                     seed: int, pass_idx: int):
     """Single-scatter light-tracing splat for a collimated beam: sample y
@@ -146,17 +168,21 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
     default (it raises where there is none), the CPU only when
     device="cpu" is passed.
 
-    Roads: integrator "volpath_er" takes the eikonal road (box filter,
-    steady state); "volpath" with a box filter takes boxwalk on a scene of
-    the boxwalk class and the wavefront engine on any other. The others
-    raise NotImplementedError naming their ROADMAP Queue 1 step: the loop
-    engine (gaussian/tent filters, step 4), the surface integrators (step
-    9), the transient sinks (step 10) and the other integrators (step 12).
+    Roads: integrator "volpath_er" takes the eikonal road (steady state);
+    "volpath" with a box filter takes boxwalk on a scene of the boxwalk
+    class and the wavefront engine on any other; "volpath" with another
+    filter or engine="loop", and "volpath_simple" unless
+    engine="wavefront", take the loop engine.
+    The others raise NotImplementedError naming their ROADMAP Queue 1
+    step: the surface integrators (step 9), the transient sinks (step 10)
+    and the other integrators (step 12).
 
     If `stats` is a dict it receives, per pass, "passes" ([segments, taps,
-    iters, unfinished] on the boxwalk and wavefront roads, [bounces] on the
+    iters, unfinished] on the boxwalk and wavefront roads, [bounces,
+    Woodcock tracking iterations] on the loop road, [bounces] on the
     eikonal road) and the seconds of the passes, timed with a device
-    synchronize around each, as "boxwalk_s", "wavefront_s" or "er_s"."""
+    synchronize around each, as "boxwalk_s", "wavefront_s", "loop_s" or
+    "er_s"."""
     if spp is not None:
         cfg = replace(cfg, spp=spp)
     if cfg.integrator in _NOT_PORTED:
@@ -164,12 +190,12 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
                           _NOT_PORTED[cfg.integrator])
     if cfg.integrator == "volpath_er":
         er_m.check_supported(cfg)
-        if cfg.filter != "box":
-            raise not_ported(f"the {cfg.filter!r} film filter", 4)
-        return _render_er(scene.to(_device(device)), cfg, seed, stats)
+        return _render_film(scene.to(_device(device)), cfg, seed, stats,
+                            "er_s", _er_pass)
     if not _use_wavefront(cfg):
-        raise not_ported("the loop engine (gaussian/tent filters, "
-                          "engine='loop')", 4)
+        scene = scene.to(_device(device))
+        img = _render_film(scene, cfg, seed, stats, "loop_s", render_pass)
+        return _add_beam_splat(scene, cfg, img, seed)
     use_bw = boxwalk.supported(scene, cfg)
     if not use_bw:
         wf_m.check_supported(scene, cfg)
@@ -204,15 +230,21 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
         done += sppc
         pass_idx += 1
     img = (L / float(cfg.spp)).reshape(cfg.height, cfg.width, 3)
-    if cfg.integrator.startswith("volpath") and _has_beam(scene):
-        n_splat = 4 * npix
-        n_passes = 4
-        splat = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
-                            device=dev)
-        for i in range(n_passes):
-            beam_splat_pass(scene, splat, cfg, n_splat, seed, i)
-        img = img + splat / float(n_splat * n_passes)
-    return img
+    return _add_beam_splat(scene, cfg, img, seed)
+
+
+def _add_beam_splat(scene: Scene, cfg: RenderConfig, img, seed: int):
+    """img plus 4 beam-splat passes of 4 npix samples each, where the
+    scene has a collimated emitter (render.py:380-389, 420-429)."""
+    if not (cfg.integrator.startswith("volpath") and _has_beam(scene)):
+        return img
+    n_splat = 4 * cfg.width * cfg.height
+    n_passes = 4
+    splat = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
+                        device=img.device)
+    for i in range(n_passes):
+        beam_splat_pass(scene, splat, cfg, n_splat, seed, i)
+    return img + splat / float(n_splat * n_passes)
 
 
 def _spp_per_pass(cfg: RenderConfig) -> int:
@@ -222,33 +254,44 @@ def _spp_per_pass(cfg: RenderConfig) -> int:
     return max(1, min(cfg.spp, (1 << 21) // max(cfg.width * cfg.height, 1)))
 
 
-def _render_er(scene: Scene, cfg: RenderConfig, seed: int, stats):
-    """The eikonal road: spp chunks of volpath_er.render_er_pass into a
-    box-filtered film (render.py:323-345)."""
+def _render_film(scene: Scene, cfg: RenderConfig, seed: int, stats,
+                 timer: str, pass_fn):
+    """spp chunks of pass_fn(scene, accum, cfg, sppc, seed, pass_idx) ->
+    (accum, counts) into the filtered film, developed: the loop road
+    (render.py:392-418) and the eikonal road's host-stepped branch
+    (render.py:323-345)."""
     dev = scene.aabb_min.device
-    H, W = cfg.height, cfg.width
     accum = film_m.new_accumulator(cfg, dev)
     spp_per_pass = _spp_per_pass(cfg)
     if stats is not None:
         stats.setdefault("passes", [])
-        stats.setdefault("er_s", 0.0)
+        stats.setdefault(timer, 0.0)
     done = pass_idx = 0
     while done < cfg.spp:
         sppc = min(spp_per_pass, cfg.spp - done)
         if stats is not None:
             _sync(dev)
             t0 = time.perf_counter()
-        sink, jitter, bounces = er_m.render_er_pass(scene, cfg, sppc, seed,
-                                                    pass_idx)
-        accum = film_m.splat(accum, sink.reshape(sppc, H, W, 3),
-                             jitter.reshape(sppc, H, W, 2), cfg.filter)
+        accum, counts = pass_fn(scene, accum, cfg, sppc, seed, pass_idx)
         if stats is not None:
             _sync(dev)
-            stats["er_s"] += time.perf_counter() - t0
-            stats["passes"].append([bounces])
+            stats[timer] += time.perf_counter() - t0
+            stats["passes"].append(counts)
         done += sppc
         pass_idx += 1
     return film_m.develop(accum)
+
+
+def _er_pass(scene: Scene, accum, cfg: RenderConfig, sppc: int, seed: int,
+             pass_idx: int):
+    """One spp chunk of the eikonal road into the film: returns the
+    accumulator and [bounces]."""
+    sink, jitter, bounces = er_m.render_er_pass(scene, cfg, sppc, seed,
+                                                pass_idx)
+    H, W = cfg.height, cfg.width
+    accum = film_m.splat(accum, sink.reshape(sppc, H, W, 3),
+                         jitter.reshape(sppc, H, W, 2), cfg.filter)
+    return accum, [bounces]
 
 
 def _sync(device):

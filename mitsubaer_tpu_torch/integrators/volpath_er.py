@@ -33,7 +33,6 @@ from ..models import eikonal as ek
 from ..models import emitter as emitter_m
 from ..models import medium as medium_m
 from ..models import phase as phase_m
-from ..models import sensor as sensor_m
 from ..scene import intersect as isect
 from ..scene.types import EM_CONSTANT, MED_REFRACTIVE, RenderConfig, Scene
 from . import common
@@ -340,19 +339,8 @@ def render_er_pass(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
     ((sppc * npix, 3) radiance, (sppc * npix, 2) jitter, bounces run)."""
     check_supported(cfg)
     emitter_m.check_supported(scene)
-    H, W = cfg.height, cfg.width
-    npix = H * W
-    dev = scene.aabb_min.device
-    pixel = torch.arange(npix, dtype=torch.int64, device=dev).repeat(sppc)
-    sample_index = torch.repeat_interleave(
-        pass_idx * sppc + torch.arange(sppc, dtype=torch.int64, device=dev),
-        npix)
-    smp = rng.make_sampler(seed, pixel, sample_index, n_samples=cfg.spp)
-    jitter, smp = rng.next_2d(smp)
-    _, smp = rng.next_2d(smp)           # the thin-lens aperture sample
-    px = (pixel % W).to(torch.float32) + jitter[:, 0]
-    py = (pixel // W).to(torch.float32) + jitter[:, 1]
-    rays = sensor_m.sample_rays(scene.sensor, px, py, W, H)
+    rays, jitter, smp = common.camera_samples(scene, cfg, sppc, seed,
+                                              pass_idx)
     rif = ek.rif_from_media(scene.media)
     sdf = ek.sdf_from_media(scene.media)
     state = new_state(rays.o, rays.d, smp)

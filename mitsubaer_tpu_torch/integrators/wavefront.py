@@ -117,21 +117,14 @@ def check_supported(scene: Scene, cfg: RenderConfig) -> None:
     """Raise for what the wavefront road does not port yet."""
     if cfg.medium_strategies:
         raise not_ported("cfg.medium_strategies", 7)
+    if rng.mode_of(cfg.sampler) != rng.INDEPENDENT:
+        raise not_ported(f"the {cfg.sampler!r} sampler", 1)
     if cfg.n_frames != 1 or cfg.modulation != "none":
         raise not_ported("transient and CW-ToF sinks", 10)
     kinds = set(scene.emitters.kind.tolist())
     if kinds - _EMITTERS:
         raise not_ported(f"emitter kinds {sorted(kinds - _EMITTERS)} on the "
                          "wavefront road", 9)
-
-
-def _medium_params(scene: Scene, idx):
-    """(kind, sigma_a, sigma_s, sampling_weight, scale): the JAX
-    medium.params, whose port returns no sampling weight."""
-    media = scene.media
-    kind, sa, ss, scale = medium_m.params(media, idx)
-    i = torch.clamp(idx, 0, media.kind.shape[0] - 1).to(torch.int64)
-    return kind, sa, ss, media.sampling_weight[i], scale
 
 
 def _w3(cond, a, b):
@@ -146,7 +139,7 @@ def pack_rows(scene: Scene, mega: megatrack.MegaTable, st: WFState):
     do_sh = st.sh_active & ~st.sh_need_isect & (st.sh_t < st.sh_seg)
     need = do_sh | st.ext_tracking
     med = torch.where(do_sh, st.sh_med, st.medium)
-    _, sa, ss, _, scale = _medium_params(scene, med)
+    _, sa, ss, scale = medium_m.params(scene.media, med)
     st_color = sa + ss
     st_mean = medium_m._mean3(st_color)
     majorant = torch.clamp_min(
@@ -174,8 +167,10 @@ def make_engine(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
 
     any_het switches tracking on: kernel C tracks every heterogeneous jump,
     so the JAX package's `wf_track_iters` is only an on/off flag there and
-    is derived from any_het here. `has_beam` is read from the scene (the JAX
-    config carries it as a static flag set by the scene builder)."""
+    is derived from any_het here. Beam NEE runs where `cfg.has_beam` is
+    set, as in the JAX engine: `volumetric_box` sets it for its beam, the
+    scene builder does not, so a builder-made beam scene renders without
+    beam NEE in both packages."""
     if row0 not in (None, 0) or full_height not in (None, cfg.height):
         raise not_ported("row-block sharding of the wavefront engine", 11)
     H, W = cfg.height, cfg.width
@@ -186,7 +181,7 @@ def make_engine(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
     dev = scene.aabb_min.device
     eps = common.scene_epsilon(scene)
     media = scene.media
-    has_beam = bool((scene.emitters.kind == EM_COLLIMATED).any())
+    has_beam = cfg.has_beam
     if has_beam:
         beam = get_beam(scene)
         beam_tau = build_beam_tau(
@@ -213,7 +208,8 @@ def make_engine(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
         sh_hit_null=b0, sh_cross_p=f3, sh_cross_med=i0 - 1,
         pix=i0, sample_open=b0, L=f3,
         pend=torch.zeros((sppc, n, 3), dtype=torch.float32, device=dev),
-        tap_ctr=i0, sampler=rng.make_sampler(seed, lane, i0),
+        tap_ctr=i0, sampler=rng.make_sampler(seed, lane, i0,
+                                             mode=rng.mode_of(cfg.sampler)),
         n_segments=torch.zeros((), dtype=torch.int64, device=dev),
         n_taps=torch.zeros((), dtype=torch.int64, device=dev),
         it=0, pending=torch.ones((), dtype=torch.bool, device=dev))
@@ -326,7 +322,7 @@ def make_engine(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
             u_b, smp = rng.next_1d(smp)
             y_b, s_b, pdf_sb, dist_b, d_yp = sample_beam_point(beam, vtx, u_b)
             bmed = beam.medium.expand(n)
-            kind_b, _, ss_b, _, _ = _medium_params(scene, bmed)
+            kind_b, _, ss_b, _ = medium_m.params(scene.media, bmed)
             tr_beam, dens_tab = beam_transmittance(beam, beam_tau, s_b,
                                                    with_density=True)
             dens_b = torch.where(kind_b == MED_HETEROGENEOUS, dens_tab, 1.0)
@@ -461,7 +457,8 @@ def make_engine(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
         hit_shape = torch.where(ext_need, hit.shape_id, st.hit_shape)
         hit_ng = _w3(ext_need, hit.ng, st.hit_ng)
 
-        kind_m, sa_m, ss_m, sw_m, _ = _medium_params(scene, medium)
+        kind_m, sa_m, ss_m, sw_m, _ = medium_m.params(
+            scene.media, medium, sampling_weight=True)
         u_hom, smp = rng.next_1d(smp)
         uc_hom, smp = rng.next_1d(smp)
         hs, ht, hw, _ = medium_m.sample_distance_homogeneous(
@@ -495,7 +492,7 @@ def make_engine(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
                                    st.sh_cross_med)
         sh_cross_p = _w3(hitting, shit.p, st.sh_cross_p)
 
-        skind, ssa, sss, _, _ = _medium_params(scene, sh_med)
+        skind, ssa, sss, _ = medium_m.params(scene.media, sh_med)
         s_hom = shx & sh_active & (skind == MED_HOMOGENEOUS)
         s_het = shx & sh_active & (skind == MED_HETEROGENEOUS)
         s_vac = shx & sh_active & ~s_hom & ~s_het

@@ -1,14 +1,58 @@
-"""Film accumulation (port of mitsubaer_tpu/models/film.py for the box
-filter): each lane knows its pixel, so a box-filtered splat of one spp chunk
-is the sum over its samples plus the sample count in the weight channel.
-Gaussian and the other filters are not ported (ROADMAP Queue 1 step 4).
+"""Film accumulation (port of mitsubaer_tpu/models/film.py, steady state):
+each lane knows its pixel, so filter reconstruction is a fixed set of
+shifted dense adds. For every tap offset (dx, dy) within the filter's
+radius the samples of one spp chunk are weighted, summed over the chunk and
+added, shifted by (dx, dy), into the accumulator; its last channel sums the
+weights. The six reconstruction filters of the JAX package (box, tent,
+gaussian, mitchell, catmullrom, lanczos) are ported; the time-binned
+`splat_frames` and `bin_index` are not (ROADMAP Queue 1 step 10).
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
-from .. import not_ported
 from ..scene.types import RenderConfig
+
+_RADIUS = {"box": 0, "tent": 1, "gaussian": 2, "mitchell": 2,
+           "catmullrom": 2, "lanczos": 3}
+
+
+def filter_radius(name: str) -> int:
+    """The taps a filter reaches on each side of the sample's pixel."""
+    return _RADIUS[name]
+
+
+def _filter_eval(name: str, x):
+    """1D reconstruction filter value at offset x (pixels)."""
+    ax = torch.abs(x)
+    if name == "box":
+        return torch.where(ax <= 0.5, 1.0, 0.0)
+    if name == "tent":
+        return torch.clamp_min(1.0 - ax, 0.0)
+    if name == "gaussian":
+        # stddev 0.5, radius 2, truncated (rfilters/gaussian.cpp)
+        alpha = 2.0                     # 1 / (2 sigma^2) with sigma = 0.5
+        tail = torch.exp(torch.tensor(-alpha * 4.0, device=x.device))
+        return torch.clamp_min(torch.exp(-alpha * x * x) - tail, 0.0)
+    if name == "lanczos":
+        # 3-lobed Lanczos-sinc window (rfilters/lanczos.cpp)
+        pix = math.pi * ax
+        sinc = torch.where(ax < 1e-4, 1.0,
+                           torch.sin(pix) / torch.clamp_min(pix, 1e-9))
+        wind = torch.where(ax < 1e-4, 1.0, torch.sin(pix / 3.0)
+                           / torch.clamp_min(pix / 3.0, 1e-9))
+        return torch.where(ax < 3.0, sinc * wind, 0.0)
+    if name in ("mitchell", "catmullrom"):
+        B, C = (1 / 3, 1 / 3) if name == "mitchell" else (0.0, 0.5)
+        ax2, ax3 = ax * ax, ax * ax * ax
+        v1 = ((12 - 9 * B - 6 * C) * ax3 + (-18 + 12 * B + 6 * C) * ax2
+              + (6 - 2 * B))
+        v2 = ((-B - 6 * C) * ax3 + (6 * B + 30 * C) * ax2
+              + (-12 * B - 48 * C) * ax + (8 * B + 24 * C))
+        return torch.where(ax < 1, v1, torch.where(ax < 2, v2, 0.0)) / 6.0
+    raise ValueError(name)
 
 
 def new_accumulator(cfg: RenderConfig, device=None):
@@ -17,16 +61,34 @@ def new_accumulator(cfg: RenderConfig, device=None):
                        device=device)
 
 
+def _shift2d(plane, dx: int, dy: int):
+    """Shift an (H, W, C) plane by (dx, dy) pixels with zero fill: the
+    sample's contribution to pixel (px + dx, py + dy) lands at that pixel."""
+    if dx == 0 and dy == 0:
+        return plane
+    H, W, _ = plane.shape
+    out = torch.zeros_like(plane)
+    if abs(dx) < W and abs(dy) < H:
+        out[max(dy, 0):H + min(dy, 0), max(dx, 0):W + min(dx, 0)] = \
+            plane[max(-dy, 0):H - max(dy, 0), max(-dx, 0):W - max(dx, 0)]
+    return out
+
+
 def splat(accum, values, jitter, filter_name: str):
     """Add one chunk of (S, H, W, 3) samples with in-pixel offsets jitter
-    (S, H, W, 2) in [0, 1)^2. The box filter weighs every sample 1."""
-    if filter_name != "box":
-        raise not_ported(f"the {filter_name!r} film filter", 4)
-    w = torch.where((torch.abs(jitter[..., 0] - 0.5) <= 0.5)
-                    & (torch.abs(jitter[..., 1] - 0.5) <= 0.5), 1.0, 0.0)
-    plane = (w.unsqueeze(-1) * values).sum(0)
-    return torch.cat([accum[..., :3] + plane,
-                      (accum[..., 3] + w.sum(0)).unsqueeze(-1)], dim=-1)
+    (S, H, W, 2) in [0, 1)^2 (x, y), weighing each sample's contribution to
+    the pixel (dx, dy) away by the filter at its offset from that pixel's
+    centre; the weight channel gets the weights, for `develop`."""
+    r = filter_radius(filter_name)
+    jx, jy = jitter[..., 0], jitter[..., 1]
+    img, wsum = accum[..., :3], accum[..., 3:]
+    for dy in range(-r, r + 1):
+        wy = _filter_eval(filter_name, jy - (dy + 0.5))        # (S, H, W)
+        for dx in range(-r, r + 1):
+            w = _filter_eval(filter_name, jx - (dx + 0.5)) * wy
+            img = img + _shift2d((w.unsqueeze(-1) * values).sum(0), dx, dy)
+            wsum = wsum + _shift2d(w.sum(0).unsqueeze(-1), dx, dy)
+    return torch.cat([img, wsum], dim=-1)
 
 
 def develop(accum):

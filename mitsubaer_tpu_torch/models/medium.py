@@ -1,7 +1,7 @@
 """Participating media on the ported paths (port of
 mitsubaer_tpu/models/medium.py): medium parameters, the heterogeneous density
-lookup (kernel A), ratio-tracking transmittance and homogeneous distance
-sampling.
+lookup (kernel A), Woodcock distance sampling, ratio-tracking
+transmittance and homogeneous distance sampling.
 
 Kernel A, `trilinear_lookup`, replaces the JAX package's
 `DensityBricks.lookup` as a whole (the 8x4x4 apron-brick gather plus the
@@ -82,10 +82,15 @@ def trilinear_lookup(grid, cells, aabb6, p):
 trilinear_lookup.launches = 0
 
 
-def params(media: Media, idx):
-    """(kind, sigma_a, sigma_s, scale) of medium idx; kind is -1 for idx < 0."""
+def params(media: Media, idx, sampling_weight: bool = False):
+    """(kind, sigma_a, sigma_s, scale) of medium idx; kind is -1 for idx < 0.
+    With sampling_weight, (kind, sigma_a, sigma_s, sampling_weight, scale),
+    the JAX package's five values."""
     i = torch.clamp(idx, 0, media.kind.shape[0] - 1).to(torch.int64)
     kind = torch.where(idx >= 0, media.kind[i], -1)
+    if sampling_weight:
+        return (kind, media.sigma_a[i], media.sigma_s[i],
+                media.sampling_weight[i], media.scale[i])
     return kind, media.sigma_a[i], media.sigma_s[i], media.scale[i]
 
 
@@ -200,3 +205,53 @@ def transmittance_ratio_tracking(media: Media, sigma_a, sigma_s, scale, o, d,
             running = running & ~escaped
         it += 1
     return torch.clamp_min(tr, 0.0), smp
+
+
+def sample_distance_woodcock(media: Media, sigma_a, sigma_s, scale, o, d,
+                             t_max, smp, active, max_steps: int = 4096,
+                             bricks=None):
+    """Delta tracking along (o, d) up to t_max against the scene majorant
+    (medium.py:534-607). Collisions are tested against the mean channel's
+    extinction; the spectral weight takes sigma_s / sigma_t_mean at a real
+    collision and (1 - sigma_t_c / majorant) / (1 - p_real) at a null one.
+    Every lane draws two numbers per step whether it runs or not, UNROLL
+    steps an iteration, so the streams stay aligned with the JAX package.
+    Returns (hit, dist, weight, p, smp, iterations): dist is t_max where
+    nothing was hit, p the last tested point. The JAX function's log_pdf
+    (the score term of gradients) is not returned (ROADMAP Queue 1 step 8)."""
+    if bricks is None:
+        bricks = DensityGrid(media)
+    st_color = sigma_a + sigma_s
+    st_mean = _mean3(st_color)
+    majorant = torch.clamp_min(media.majorant * torch.amax(st_color, dim=-1),
+                               1e-6)
+    w_real = sigma_s / torch.clamp_min(st_mean, 1e-12).unsqueeze(-1)
+    unroll = 4
+    n = o.shape[0]
+    t = torch.zeros((n,), dtype=torch.float32, device=o.device)
+    hit = torch.zeros((n,), dtype=torch.bool, device=o.device)
+    w = torch.ones((n, 3), dtype=torch.float32, device=o.device)
+    running = active
+    it = 0
+    while it < max_steps and bool(running.any()):
+        for _ in range(unroll):
+            u1, smp = rng.next_1d(smp)
+            u2, smp = rng.next_1d(smp)
+            t_new = t - torch.log1p(-u1) / majorant
+            escaped = t_new >= t_max
+            dens = bricks.lookup(o + t_new.unsqueeze(-1) * d) * scale
+            p_real = dens * st_mean / majorant
+            real = u2 < p_real
+            hit_new = running & ~escaped & real
+            null_col = running & ~escaped & ~real
+            w_null = (1.0 - dens.unsqueeze(-1) * st_color
+                      / majorant.unsqueeze(-1)) \
+                / torch.clamp_min(1.0 - p_real, 1e-12).unsqueeze(-1)
+            w = torch.where(hit_new.unsqueeze(-1), w * w_real, w)
+            w = torch.where(null_col.unsqueeze(-1), w * w_null, w)
+            t = torch.where(running, t_new, t)
+            hit = hit | hit_new
+            running = null_col
+        it += 1
+    p = o + t.unsqueeze(-1) * d
+    return hit, torch.where(hit, t, t_max), w, p, smp, it

@@ -49,7 +49,8 @@ def volumetric_box(res: int = 256, spp: int = 16, max_depth: int = 12,
                                                  [0, 1, 0]),
                              fov_deg=95.8402, fov_axis="x")
     b.config = replace(b.config, width=res, height=res, spp=spp,
-                       max_depth=max_depth, integrator=integrator, **cfg_kw)
+                       max_depth=max_depth, integrator=integrator,
+                       has_beam=(emitter_kind == "collimated"), **cfg_kw)
     return b.build(), b.config
 
 

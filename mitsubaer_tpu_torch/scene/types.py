@@ -151,7 +151,10 @@ class RenderConfig:
     max_depth: int = 12
     rr_depth: int = 5
     integrator: str = "path"
-    filter: str = "gaussian"
+    filter: str = "gaussian"    # box | tent | gaussian | mitchell |
+    #   catmullrom | lanczos
+    sampler: str = "independent"  # only the independent mode is ported;
+    #   names that are not sampler modes mean it too, as in the JAX package
     spp: int = 16
     decomposition: str = "steadystate"
     min_bound: float = 0.0
@@ -169,6 +172,9 @@ class RenderConfig:
     er_f64: bool = False
     hide_emitters: bool = False
     medium_strategies: bool = False
+    has_beam: bool = False      # the beam NEE of the loop and wavefront
+    #   engines; volumetric_box sets it for its collimated beam, the scene
+    #   builder leaves it False (as in the JAX package)
     # wavefront engine pass schedule: transition passes (each followed by
     # tracking) per super-iteration, and kernel C's trip cap per call. They
     # decide which sampler dimensions each lane draws, so they change

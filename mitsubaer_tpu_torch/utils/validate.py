@@ -1,11 +1,12 @@
-"""Deterministic validation reference (port of
-mitsubaer_tpu/utils/validate.py::single_scatter_quadrature).
+"""Deterministic validation references (port of
+mitsubaer_tpu/utils/validate.py::single_scatter_quadrature and
+beam_double_scatter_quadrature).
 
-The single-scatter image of a point-lit heterogeneous medium bounded by the
-scene AABB, by midpoint quadrature: the absolute anchor that the wavefront
-engine's tracking estimators converge to. Its density lookups go through
-`DensityGrid.lookup` (kernel A on the card). The beam double-scatter anchor
-is not ported yet (ROADMAP Queue 1 step 4).
+By midpoint quadrature: the single-scatter image of a point-lit
+heterogeneous medium bounded by the scene AABB, and the double-scatter
+image of the collimated-beam scene. They are the absolute anchors that the
+wavefront, boxwalk and loop engines' estimators converge to. Their density
+lookups go through `DensityGrid.lookup` (kernel A on the card).
 """
 from __future__ import annotations
 
@@ -73,6 +74,96 @@ def single_scatter_quadrature(scene, cfg, *, medium: int = 0,
         emit = light_I / (dist_l ** 2)[..., None]
         integrand = (T_cam * (dmid[..., None] * ss) * rho[..., None]
                      * T_light * emit)
+        return torch.sum(integrand * dt[:, None, None], dim=1)
+
+    offs = (np.arange(sub) + 0.5) / sub
+    img = np.zeros((H, W, 3), np.float64)
+    pix = np.arange(W * H)
+    for oy in offs:
+        for ox in offs:
+            px = torch.from_numpy((pix % W + ox).astype(np.float32)).to(dev)
+            py = torch.from_numpy((pix // W + oy).astype(np.float32)).to(dev)
+            img += block(px, py).cpu().numpy().reshape(H, W, 3)
+    return img / (sub * sub)
+
+
+def beam_double_scatter_quadrature(scene, cfg, *, medium: int = 0,
+                                   sub: int = 2, nt: int = 96,
+                                   ns: int = 192) -> np.ndarray:
+    """(H, W, 3) float64 truth for the collimated-beam scene at
+    max_depth=2, whose shortest light path is camera -> x (scatter) <- y
+    (scatter on the beam) <- beam:
+
+      L_c(pix) = avg_sub INT_t T_cam,c sigma_s_c(x)
+                 INT_s rho(d_cam, d_xy) e^{-tau_c(x, y)} / d^2
+                        sigma_s_c(y) rho(b_d, d_yx) T_beam,c(s) P_c ds dt
+
+    with `sub`^2 subpixel rays, `nt` camera steps, `ns` beam steps and 64
+    steps along each chord x-y for its optical depth, on the scene's
+    device, four camera rays at a time (nt * ns * 64 lookups each)."""
+    from ..integrators.volpath import get_beam
+
+    dev = scene.aabb_min.device
+    grid = medium_m.DensityGrid(scene.media)
+    ss = scene.media.sigma_s[medium]
+    st = scene.media.sigma_a[medium] + ss
+    scale = scene.media.scale[medium]
+    phase = scene.media.phase
+    beam = get_beam(scene)
+    W, H = cfg.width, cfg.height
+    lo, hi = scene.aabb_min, scene.aabb_max
+    nsh = 64                        # shadow-chord quadrature steps
+    k = torch.arange(nt, dtype=torch.float32, device=dev) + 0.5
+    kk = (torch.arange(nsh, dtype=torch.float32, device=dev) + 0.5) / nsh
+
+    # beam samples y_j, shared by every pixel
+    ds_ = (beam.s1 - beam.s0) / ns
+    sj = beam.s0 + (torch.arange(ns, dtype=torch.float32, device=dev)
+                    + 0.5) * ds_
+    y = beam.o[None, :] + sj[:, None] * beam.d[None, :]          # (ns, 3)
+    dy = grid.lookup(y) * scale
+    tau_beam = (torch.cumsum(dy, dim=0) - 0.5 * dy) * ds_
+    T_beam = torch.exp(-tau_beam[:, None] * st[None, :])         # (ns, 3)
+
+    def inner(x, di):
+        """(P, nt, 3) beam integral at camera points x (P, nt, 3) of rays
+        with directions di (P, 3)."""
+        P = x.shape[0]
+        to_x = x[:, :, None, :] - y[None, None]              # (P, nt, ns, 3)
+        dist = torch.clamp_min(torch.linalg.vector_norm(to_x, dim=-1), 1e-6)
+        w = to_x / dist[..., None]
+        pssh = y[None, None, :, None, :] \
+            + (kk[None, None, None, :, None] * dist[..., None, None]) \
+            * w[..., None, :]
+        dsh = (grid.lookup(pssh.reshape(-1, 3)) * scale).reshape(
+            P, nt, ns, nsh)
+        tau_sh = torch.sum(dsh, dim=-1) * (dist / nsh)
+        T_sh = torch.exp(-tau_sh[..., None] * st)
+        midx = torch.full((P * nt * ns,), medium, dtype=torch.int64,
+                          device=dev)
+        rho_x = phase_m.eval(phase, midx, di[:, None, None, :].expand(
+            w.shape).reshape(-1, 3), (-w).reshape(-1, 3)).reshape(P, nt, ns)
+        rho_y = phase_m.eval(phase, midx, beam.d.expand(w.shape).reshape(
+            -1, 3), w.reshape(-1, 3)).reshape(P, nt, ns)
+        val = (rho_x[..., None] * T_sh / (dist ** 2)[..., None]
+               * (dy[:, None] * ss) * rho_y[..., None] * T_beam
+               * beam.power) * ds_
+        return torch.sum(val, dim=2)
+
+    def block(px, py):
+        rays = sensor_m.sample_rays(scene.sensor, px, py, W, H)
+        o, d = rays.o, rays.d
+        t0, t1 = isect.ray_aabb(o, d, lo, hi)
+        t0 = torch.clamp_min(t0, 0.0)
+        dt = torch.clamp_min(t1 - t0, 0.0) / nt
+        tmid = t0[:, None] + k[None, :] * dt[:, None]
+        x = o[:, None, :] + tmid[..., None] * d[:, None, :]      # (N, nt, 3)
+        dx = (grid.lookup(x.reshape(-1, 3)) * scale).reshape(x.shape[:2])
+        dtau = dx[..., None] * st * dt[:, None, None]
+        T_cam = torch.exp(-(torch.cumsum(dtau, dim=1) - 0.5 * dtau))
+        inner_all = torch.cat([inner(x[i:i + 4], d[i:i + 4])
+                               for i in range(0, x.shape[0], 4)])
+        integrand = T_cam * (dx[..., None] * ss) * inner_all
         return torch.sum(integrand * dt[:, None, None], dim=1)
 
     offs = (np.arange(sub) + 0.5) / sub

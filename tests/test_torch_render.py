@@ -99,8 +99,9 @@ def test_spp_per_pass_follows_render_budget():
 
 
 @pytest.mark.parametrize("kw,step", [
-    (dict(filter="gaussian"), "step 4"),
-    (dict(filter="box", engine="loop"), "step 4"),
+    (dict(filter="gaussian", sampler="ldsampler"), "step 1"),
+    (dict(filter="gaussian", decomposition="transient", max_bound=4.0),
+     "step 10"),
     (dict(filter="box", integrator="path"), "step 9"),
     (dict(filter="box", integrator="bdpt"), "step 12"),
     (dict(filter="box", emitter_kind="point", medium_strategies=True),
@@ -139,6 +140,10 @@ def test_port_imports_and_renders_without_jax():
                                             filter="box")
         img = render.render(scene, cfg, seed=0, device="cpu")
         assert img.shape == (8, 8, 3) and float(img.mean()) > 0
+        scene, cfg = presets.volumetric_box(res=6, spp=2, heterogeneous=True,
+                                            density_res=8, max_depth=2)
+        img = render.render(scene, cfg, seed=0, device="cpu")
+        assert img.shape == (6, 6, 3) and float(img.mean()) > 0
         scene, cfg = presets.refractive_sphere(
             res=6, spp=1, max_depth=2, rif_kind=1, rif_params=(1.3, 0.15),
             filter="box")
