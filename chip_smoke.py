@@ -62,12 +62,37 @@ Phases (any failure raises and the script exits non-zero):
      must agree by phase 8's rule;
  15. one loop-engine pass (engine "loop", box filter) on the 512^2 beam
      scene (sppc 8) against render_boxwalk at the same seed:
-     pixel-by-pixel median ratio within 0.95-1.05.
+     pixel-by-pixel median ratio within 0.95-1.05;
+ 16. kernel A' (the grid gradient of kernel A's lookups) against its plain
+     version at 2^20 points on the 64^3 grid, the points spread uniformly
+     and in a dense cluster, within A_BWD_TOL of the largest voxel (float
+     atomics add in a varying order), and both against float64 sums;
+     gradcheck of TrilinearLookup in
+     float64 on the CPU; its time (uniform and clustered), the plain
+     version's, the bound and grid_sample's backward;
+ 17. the training path at full width: render_diff of the 512^2 beam scene
+     (sppc 4, depth 12, density 64^3, beam NEE) at sigma_s x 1.5 as the
+     target, then 3 Adam steps (lr 5e-2) of loss_and_grad from the
+     preset's parameters; the loss and every gradient finite, each
+     gradient non-zero, kernels A and A' launched, one cell table a render
+     built from the detached grid; each step's wall, peak device memory,
+     launches of A and A', bounces and Woodcock iterations, and how far
+     sigma_s moved. One more step with kernel A''s calls captured (calls
+     0, 4, 16, 64, 256 of each point count): each result within
+     A_BWD_TOL["step"] of its largest voxel from the plain version on the
+     same points and output gradients, and A' timed at each count. Then
+     tests/test_inverse.py's sigma_s recovery on the card, 3 steps:
+     sigma_s must move toward its target;
+ 18. loss_and_grad at 16^2, density 16^3, depth 4, sppc 4 on the card and
+     on the CPU: the loss within rtol 1e-4, each gradient field within
+     GRAD_CARD_CPU_TOL of its largest CPU magnitude.
 Prints one JSON line of per-kernel results (time, bound, plain version,
 library yardstick, launches on the main paths; for A also its launches on
-the loop road and its checks and times at the loop road's point counts;
-for B, C and D also the device time and registers), then
-the contract line {"ok": true, "device": {...}} last.
+the loop road and its checks and times at the loop road's point counts,
+and its launches in a training step; for B, C and D also the device time
+and registers; for A' its clustered time and its checks and times at
+the training step's point counts), then the contract line
+{"ok": true, "device": {...}} last.
 """
 from __future__ import annotations
 
@@ -75,6 +100,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): fp32 outside the
 # tensor cores and HBM3 bandwidth. A kernel's bound is the larger of its
@@ -116,6 +142,22 @@ OPS_E_STEP = {1: 63 + 3 * 62, 2: 95 + 3 * 62}
 # exponential step, the voxel position, the inside test and clip, three
 # stochastic corners, the brick index and load, and the weight update
 OPS_C_TAP = 160
+# kernel A' per point, from trilinear_backward_kernel: kernel A's cell
+# arithmetic (20 an axis: conversions, the spacing, the position, the
+# inside tests, clamps, floor and fraction), the zero test, the upper corner
+# indices 6, the weight products with their one-minus terms 21, the
+# addresses 24 and the 8 atomic adds
+OPS_A_BWD_POINT = 120
+# phases 16 and 17: kernel A' against its plain version, max |diff| over the
+# largest voxel. Both sum in float32 in a varying order (atomics,
+# index_add_): the spread points' voxels take ~32 terms each, the cluster's
+# 27 voxels ~300,000; a training step's calls spread as the uniform points
+# (measured on an H100: at most 2.1e-8)
+A_BWD_TOL = {"uniform": 1e-5, "clustered": 1e-4, "step": 1e-5}
+# phase 18: card against CPU, each gradient field's largest difference over
+# its largest CPU magnitude: ulp-level exp/log differences and the atomics'
+# order (measured on an H100: at most 1.6e-6, no collision test flipped)
+GRAD_CARD_CPU_TOL = 1e-4
 
 
 def _cuda_ms(fn, reps):
@@ -761,6 +803,7 @@ def main() -> int:
 
     _megatrack_phases(dev, card, results, build_log)
     _loop_phases(dev, card, results)
+    _training_phases(dev, card, results)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -1168,6 +1211,342 @@ def _loop_lookups(scene, cfg, dev, card):
                          ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
                          bound_by=bound[1]))
     return rows
+
+
+def _training_phases(dev, card, results):
+    """Phases 16-18: kernel A' and the training path (diff.render)."""
+    import numpy as np
+    import torch
+
+    from mitsubaer_tpu_torch.diff import render as diff_m
+    from mitsubaer_tpu_torch.integrators import volpath
+    from mitsubaer_tpu_torch.models import medium
+    from mitsubaer_tpu_torch.scene import presets
+
+    # ---- phase 16: kernel A' against its plain version ----
+    scene, cfg = presets.volumetric_box(res=512, spp=4, heterogeneous=True,
+                                        density_res=64, max_depth=12)
+    scene = scene.to(dev)
+    grid = medium.DensityGrid(scene.media)
+    shape, aabb6 = tuple(grid.grid.shape), grid.aabb6
+    n = 1 << 20
+    r = np.random.default_rng(16)
+    grad_out = torch.from_numpy(r.normal(size=n).astype(np.float32)).to(dev)
+    clouds = {
+        "uniform": r.uniform(-1.0, 1.0, (n, 3)),
+        "clustered": np.asarray([0.1, -0.2, 0.3]) + r.uniform(
+            -0.02, 0.02, (n, 3)),
+    }
+    ms, err = {}, 0.0
+    for name, pts in clouds.items():
+        p = torch.from_numpy(pts.astype(np.float32)).to(dev)
+        got = medium.trilinear_lookup_backward(shape, aabb6, p, grad_out)
+        want = medium.trilinear_lookup_backward_plain(shape, aabb6, p,
+                                                      grad_out)
+        # the same float32 weights, summed in float64
+        exact = medium.trilinear_lookup_backward_plain(
+            shape, aabb6, p, grad_out.double())
+        torch.cuda.synchronize()
+        scale = want.abs().max().item()
+        rel = (got - want).abs().max().item() / scale
+        rel64 = [((x.double() - exact).abs().max() / exact.abs().max()).item()
+                 for x in (got, want)]
+        print(f"kernel A' ({name}, N=2^20, 64^3): max |diff| / max |grad| "
+              f"{rel:.3e} (max |grad| {scale:.4e}); against the float64 "
+              f"sums: kernel {rel64[0]:.3e}, plain {rel64[1]:.3e}; "
+              f"{int((want != 0).sum())} voxels touched", flush=True)
+        if not rel <= A_BWD_TOL[name]:
+            raise AssertionError(f"kernel A' differs from its plain version "
+                                 f"({name}): {rel}")
+        err = max(err, (got - want).abs().max().item())
+        ms[name] = _cuda_ms(lambda q=p: medium.trilinear_lookup_backward(
+            shape, aabb6, q, grad_out), 50)
+        if name == "uniform":
+            plain_ms = _cuda_ms(
+                lambda q=p: medium.trilinear_lookup_backward_plain(
+                    shape, aabb6, q, grad_out), 10)
+            # yardstick: grid_sample's backward to the volume (trilinear,
+            # align_corners=True: the voxel centres on the AABB, as A)
+            vol = grid.grid[None, None].clone().requires_grad_()
+            lo, hi = aabb6[:3], aabb6[3:]
+            coords = ((p - lo) / (hi - lo) * 2.0 - 1.0).reshape(1, 1, 1, n, 3)
+            out = torch.nn.functional.grid_sample(
+                vol, coords, mode="bilinear", padding_mode="zeros",
+                align_corners=True)
+            g_view = grad_out.reshape(out.shape)
+            lib_ms = _cuda_ms(lambda: torch.autograd.grad(
+                out, vol, g_view, retain_graph=True), 50)
+            del out, vol, coords
+    bound = _bound(n * 16 + 2 * grid.grid.numel() * 4, n * OPS_A_BWD_POINT)
+    print(f"kernel A' at N=2^20 on 64^3: uniform {ms['uniform']:.4f} ms, "
+          f"clustered {ms['clustered']:.4f} ms (zeroing included), plain "
+          f"{plain_ms:.4f} ms, grid_sample backward {lib_ms:.4f} ms, bound "
+          f"{bound[0]:.4f} ms ({bound[1]}) [{card}]", flush=True)
+    results["trilinear_lookup_backward"] = _kernel_row(
+        "trilinear_lookup_backward", "mitsubaer_tpu_torch/csrc/trilinear.cu",
+        "mitsubaer_tpu/models/medium.py:206", err, ms["uniform"], plain_ms,
+        bound, lib_ms)
+    results["trilinear_lookup_backward"]["ms_clustered"] = ms["clustered"]
+    g64 = torch.rand((4, 5, 6), dtype=torch.float64, requires_grad=True)
+    p64 = torch.rand((64, 3), dtype=torch.float64) * 2.4 - 1.2
+    a64 = torch.tensor([-1.0, -1.0, -1.0, 1.0, 1.0, 1.0], dtype=torch.float64)
+    if not torch.autograd.gradcheck(
+            lambda g: medium.TrilinearLookup.apply(g, None, a64, p64), (g64,)):
+        raise AssertionError("TrilinearLookup fails gradcheck")
+    print("TrilinearLookup gradcheck (float64, CPU plain versions): passed",
+          flush=True)
+
+    # ---- phase 17: the training path at full width ----
+    li, counts = volpath.li, []
+
+    def counting_li(*a, **k):
+        out = li(*a, **k)
+        counts.append(out[2])
+        return out
+
+    cell_table, tables = medium.cell_table, []
+
+    def counting_table(g, *a):
+        tables.append(g.requires_grad)
+        return cell_table(g, *a)
+
+    sppc, target_seed, seed = 4, 123, 7
+    params = diff_m.get_params(scene)
+    volpath.li, medium.cell_table = counting_li, counting_table
+    try:
+        with torch.no_grad():
+            target = diff_m.render_diff(
+                scene, params._replace(sigma_s=params.sigma_s * 1.5), cfg,
+                sppc, target_seed, 0, device=dev)
+        leaves = diff_m.MediumParams(*(t.detach().clone().requires_grad_()
+                                       for t in params))
+        opt = torch.optim.Adam(leaves, lr=5e-2)
+        steps = []
+        for i in range(3):
+            counts.clear()
+            tables.clear()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            medium.trilinear_lookup.launches = 0
+            medium.trilinear_lookup_backward.launches = 0
+            t0 = time.perf_counter()
+            loss, grads = diff_m.loss_and_grad(scene, leaves, cfg, sppc, seed,
+                                               i, target, device=dev)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = (medium.trilinear_lookup.launches,
+                        medium.trilinear_lookup_backward.launches)
+            peak = torch.cuda.max_memory_allocated(dev)
+            for leaf, g in zip(leaves, grads):
+                leaf.grad = g
+            opt.step()
+            mags = {f: getattr(grads, f).abs().max().item()
+                    for f in diff_m.MediumParams._fields}
+            steps.append(dict(wall=wall, peak=peak, launches=launches,
+                              counts=counts[0], loss=loss.item()))
+            print(f"training step {i}: {cfg.width}x{cfg.height} sppc {sppc} "
+                  f"({cfg.width * cfg.height * sppc} lanes), loss {loss.item():.6e}, wall {wall:.3f} s, peak "
+                  f"device memory {peak / 2**30:.3f} GiB, launches A "
+                  f"{launches[0]} A' {launches[1]}, [bounces, Woodcock "
+                  f"iterations] {counts[0]}, max |grad| {mags}, sigma_s now "
+                  f"{leaves.sigma_s.detach().cpu().tolist()} [{card}]",
+                  flush=True)
+            if not (np.isfinite(loss.item()) and all(
+                    bool(torch.isfinite(g).all()) for g in grads)):
+                raise AssertionError(f"training step {i}: non-finite loss "
+                                     f"or gradient")
+            if not all(v > 0 for v in mags.values()):
+                raise AssertionError(f"training step {i}: a zero gradient "
+                                     f"{mags}")
+            if launches[0] == 0 or launches[1] == 0:
+                raise AssertionError(f"training step {i} skipped a kernel: "
+                                     f"{launches}")
+            if tables != [False]:
+                raise AssertionError(f"training step {i} built cell tables "
+                                     f"{tables} (want one, detached)")
+    finally:
+        volpath.li, medium.cell_table = li, cell_table
+    moved = (leaves.sigma_s.detach() - params.sigma_s).flatten().tolist()
+    wanted = (0.5 * params.sigma_s).flatten().tolist()
+    print(f"training: sigma_s moved by {moved}, the target is {wanted} away "
+          f"(per channel; reported, not held: the sign of this scene's "
+          f"sigma_s gradient at sppc 4 varies from pass to pass, PERF.md), "
+          f"losses "
+          f"{[s_['loss'] for s_ in steps]} [{card}]", flush=True)
+    results["trilinear_lookup_backward"]["train_shapes"] = _train_backward(
+        scene, leaves, cfg, sppc, seed, target, dev, card)
+    _recovery(dev, card)
+    results["trilinear_lookup_backward"]["launches"] = steps[0]["launches"][1]
+    results["trilinear_lookup"]["launches_train"] = steps[0]["launches"][0]
+    results["trilinear_lookup_backward"]["train_steps"] = [
+        dict(wall_s=s_["wall"], peak_gib=s_["peak"] / 2**30,
+             launches_a=s_["launches"][0], launches_a_bwd=s_["launches"][1],
+             bounces_woodcock=s_["counts"]) for s_ in steps]
+
+    # ---- phase 18: card against CPU ----
+    s_scene, s_cfg = presets.volumetric_box(res=16, spp=4, heterogeneous=True,
+                                            density_res=16, max_depth=4)
+    s_params = diff_m.get_params(s_scene)
+    s_target = np.full((16, 16, 3), 0.05, np.float32)
+    loss_g, grad_g = diff_m.loss_and_grad(s_scene, s_params, s_cfg, 4, 3, 0,
+                                          s_target, device=dev)
+    loss_c, grad_c = diff_m.loss_and_grad(s_scene, s_params, s_cfg, 4, 3, 0,
+                                          s_target, device="cpu")
+    rel_loss = abs(loss_g.item() / loss_c.item() - 1)
+    rel = {}
+    for f in diff_m.MediumParams._fields:
+        want = getattr(grad_c, f)
+        rel[f] = ((getattr(grad_g, f).cpu() - want).abs().max()
+                  / want.abs().max()).item()
+    print(f"card vs CPU loss_and_grad at 16x16 sppc 4: loss rel diff "
+          f"{rel_loss:.2e}, gradient max |diff| / max |CPU| {rel}",
+          flush=True)
+    if not rel_loss <= 1e-4:
+        raise AssertionError("card and CPU losses disagree")
+    if not all(v <= GRAD_CARD_CPU_TOL for v in rel.values()):
+        raise AssertionError(f"card and CPU gradients disagree: {rel}")
+
+
+def _train_backward(scene, leaves, cfg, sppc, seed, target, dev, card):
+    """Kernel A' at the point counts the training step gives it: one more
+    loss_and_grad of phase 17 with TrilinearLookup.backward wrapped, which
+    captures calls 0, 4, 16, 64 and 256 of each point count with their
+    points, output gradients and grid gradient. Each captured result must
+    lie within A_BWD_TOL["step"] of its largest voxel from the plain
+    version on the same inputs (a result that is zero there must be zero).
+    Returns per point count its calls in the step, the calls checked, the
+    largest error, and the times of A' and of the plain version with the
+    bound. These launches come after phase 17's counts were read."""
+    import torch
+
+    from mitsubaer_tpu_torch.diff import render as diff_m
+    from mitsubaer_tpu_torch.models import medium
+
+    fn = medium.TrilinearLookup
+    backward, calls = vars(fn)["backward"], {}
+
+    def capture(ctx, grad_out):
+        # saved tensors unpack once under checkpointing: hand them over
+        aabb6, p = ctx.saved_tensors
+        out = backward.__func__(types.SimpleNamespace(
+            saved_tensors=(aabb6, p), shape=ctx.shape), grad_out)
+        seen = calls.setdefault(p.shape[0], [0, []])
+        if seen[0] in (0, 4, 16, 64, 256):
+            seen[1].append((ctx.shape, aabb6, p.clone(), grad_out.clone(),
+                            out[0].clone()))
+        seen[0] += 1
+        return out
+
+    fn.backward = staticmethod(capture)
+    try:
+        diff_m.loss_and_grad(scene, leaves, cfg, sppc, seed, 3, target,
+                             device=dev)
+    finally:
+        fn.backward = backward
+    lanes = sppc * cfg.height * cfg.width
+    if lanes not in calls or 2 * lanes not in calls:
+        raise AssertionError(f"the training step's backward took no {lanes} "
+                             f"or {2 * lanes} points: {sorted(calls)}")
+    rows = []
+    for n in sorted(calls):
+        count, taken = calls[n]
+        worst, worst64 = 0.0, [0.0, 0.0]
+        for shape, aabb6, p, g_out, got in taken:
+            want = medium.trilinear_lookup_backward_plain(shape, aabb6, p,
+                                                          g_out)
+            exact = medium.trilinear_lookup_backward_plain(
+                shape, aabb6, p, g_out.double())
+            scale = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            if scale == 0.0:
+                if err != 0.0:
+                    raise AssertionError(f"kernel A' at {n} points in the "
+                                         f"training step: {err} where the "
+                                         f"plain version is zero")
+                continue
+            worst = max(worst, err / scale)
+            for k, x in enumerate((got, want)):
+                worst64[k] = max(worst64[k], (
+                    (x.double() - exact).abs().max()
+                    / exact.abs().max()).item())
+            if not err <= A_BWD_TOL["step"] * scale:
+                raise AssertionError(f"kernel A' differs from its plain "
+                                     f"version at {n} points in the training "
+                                     f"step: max |diff| / max |grad| "
+                                     f"{err / scale}")
+        shape, aabb6, p, g_out, _ = taken[0]
+        ms = _cuda_ms(lambda: medium.trilinear_lookup_backward(
+            shape, aabb6, p, g_out), 20)
+        plain_ms = _cuda_ms(lambda: medium.trilinear_lookup_backward_plain(
+            shape, aabb6, p, g_out), 10)
+        voxels = shape[0] * shape[1] * shape[2]
+        bound = _bound(n * 16 + 2 * voxels * 4, n * OPS_A_BWD_POINT)
+        print(f"kernel A' in the training step at {n} points: {count} calls, "
+              f"{len(taken)} captured, max |diff| / max |grad| against the "
+              f"plain version {worst:.3e} (against the float64 sums: kernel "
+              f"{worst64[0]:.3e}, plain {worst64[1]:.3e}); {ms:.4f} ms "
+              f"through the wrapper, plain {plain_ms:.4f} ms, bound "
+              f"{bound[0]:.4f} ms ({bound[1]}) [{card}]", flush=True)
+        rows.append(dict(n=n, calls=count, checked=len(taken),
+                         max_rel_err=worst, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound[0], bound_by=bound[1]))
+    return rows
+
+
+def _inverse_scene(sigma_s):
+    """tests/test_inverse.py::small_volume_scene: a homogeneous box (sigma_a
+    0.1), a point light, 8x8 pixels, depth 6."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from mitsubaer_tpu_torch.core import transform as tf
+    from mitsubaer_tpu_torch.scene import types as T
+    from mitsubaer_tpu_torch.scene.build import SceneBuilder
+
+    b = SceneBuilder()
+    med = b.add_medium(kind=T.MED_HOMOGENEOUS, sigma_a=(0.1,) * 3,
+                       sigma_s=(sigma_s,) * 3)
+    b.add_cube(to_world=np.eye(4, dtype=np.float32), bsdf=-1, interior=med)
+    b.add_emitter(T.EM_POINT, radiance=(20.0,) * 3, position=(0, 0.5, -3))
+    b.set_perspective_sensor(tf.look_at([0, 0, -4], [0, 0, 0], [0, 1, 0]), 30)
+    cfg = replace(b.config, width=8, height=8, spp=1, max_depth=6,
+                  integrator="volpath")
+    return b.build(), cfg
+
+
+def _recovery(dev, card):
+    """tests/test_inverse.py::TestSigmaRecovery on the card, cut to 3
+    steps: the target at sigma_s 0.8 (64 spp), Adam (lr 5e-2) on
+    loss_and_grad at sppc 32 from 0.3; sigma_s must rise by more than one
+    step's 0.05."""
+    import torch
+
+    from mitsubaer_tpu_torch.diff import render as diff_m
+
+    scene_t, cfg = _inverse_scene(0.8)
+    with torch.no_grad():
+        target = diff_m.render_diff(scene_t, diff_m.get_params(scene_t), cfg,
+                                    64, 123, 0, device=dev)
+    scene = _inverse_scene(0.3)[0]
+    leaves = diff_m.MediumParams(*(
+        t.detach().to(dev).requires_grad_()
+        for t in diff_m.get_params(scene)))
+    opt = torch.optim.Adam(leaves, lr=5e-2)
+    path = []
+    for i in range(3):
+        loss, grads = diff_m.loss_and_grad(scene, leaves, cfg, 32, 7, i,
+                                           target, device=dev)
+        for leaf, g in zip(leaves, grads):
+            leaf.grad = g
+        opt.step()
+        path.append(leaves.sigma_s.detach().mean().item())
+    print(f"sigma_s recovery (tests/test_inverse.py's scene, 0.3 -> 0.8): "
+          f"after each step {path}, last loss {loss.item():.6e} [{card}]",
+          flush=True)
+    if not path[-1] > 0.35:
+        raise AssertionError(f"sigma_s did not move toward the target: "
+                             f"{path}")
 
 
 def _er_bench_scene(presets, res, spp, max_steps):

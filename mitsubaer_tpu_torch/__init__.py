@@ -15,6 +15,11 @@ JAX render() does:
   emitter_kind="point")`);
 - the eikonal (refractive) road, `integrator="volpath_er"`
   (`scene.presets.refractive_sphere(...)`).
+The training path, `diff.render` (`render_diff`, `loss_and_grad`,
+`image_grad`), differentiates the loop engine with respect to the medium
+parameters (sigma_a, sigma_s, the density grid, the HG g) and runs on the
+card unless device="cpu" is passed; gradients of the eikonal road wait for
+ROADMAP Queue 1 step 8b.
 Their hand-written CUDA kernels live in csrc/ and are built by kernels.py
 at first use; on CPU tensors each kernel's plain PyTorch version runs
 instead.

@@ -97,3 +97,24 @@ def mis_weight_power(pdf_a, pdf_b):
     a2 = pdf_a * pdf_a
     denom = a2 + pdf_b * pdf_b
     return torch.where(denom > 0, a2 / torch.clamp_min(denom, 1e-30), 0.0)
+
+
+# tables of more rows than this are indexed (smalltab._MAX_UNROLL)
+_MAX_UNROLL = 16
+
+
+def take_rows(table: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """table[i]: rows of a small per-medium table for per-lane indices i (in
+    range), as the JAX package's smalltab.take: a select chain over the
+    rows. Its backward, as autograd forms it, sums the lanes of each row;
+    the backward of plain indexing (an index_put_ with accumulate)
+    serialises on a row that a million lanes share, ~190 ms a call on an
+    H100."""
+    n = table.shape[0]
+    if n > _MAX_UNROLL:
+        return table[i]
+    expand = i.shape + (1,) * (table.dim() - 1)
+    out = table[0].expand(i.shape + table.shape[1:])
+    for k in range(1, n):
+        out = torch.where((i == k).view(expand), table[k], out)
+    return out

@@ -27,6 +27,27 @@
 // operation (cell = clip(floor(x), 0, res-2), t = x - cell, zero outside the
 // AABB); it is compiled without fused multiply-add so it rounds the same way,
 // and the bf16 values widen to f32 exactly.
+//
+// Kernel A': the gradient of kernel A's lookups with respect to the
+// (nz, ny, nx) grid, for the training path (models/medium.py::
+// TrilinearLookup). The JAX package has no backward Pallas kernel: it
+// differentiates its unfused lookup with XLA (medium.py:206-252,
+// fused=False). Each point inside the AABB adds grad_out * w_k to its 8
+// corner voxels of the zeroed f32 grid with atomicAdd; the cell, t, the
+// clamps and the zero outside the AABB are kernel A's, and the corner
+// indices are clamped to res - 1, so on a one-voxel axis two coinciding
+// corners add both weights to one voxel. The weights are formed in the order
+// autograd forms them through the lerps ((g (1-tz)) (1-ty)) (1-tx), so each
+// term equals models/medium.py::trilinear_lookup_backward_plain's; the sums'
+// order, and so their last bits, vary with the atomics' order.
+//
+// What bounds it: 12 B of point and 4 B of gradient a point plus the grid
+// read and written once (the zeroing, by the wrapper) at 3.35 TB/s. Eight
+// atomics a point go to L2; points that cluster in a few cells contend on
+// the same addresses and serialise there. One thread a point, global
+// atomics: the simple design first. A warp-aggregated or shared-memory
+// privatised scatter is the next step if the clustered times show
+// contention.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -53,17 +74,12 @@ __device__ __forceinline__ void load_record(const uint16_t* cells,
   }
 }
 
-template <typename Cell>
-__global__ void __launch_bounds__(kThreads)
-    trilinear_kernel(const float* __restrict__ p,
-                     const Cell* __restrict__ cells,
-                     const float* __restrict__ aabb6, float* __restrict__ out,
-                     int n, int nx, int ny, int nz) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int res_i[3] = {nx, ny, nz};
-  float t[3];
-  int c[3];
+// Kernel A's cell arithmetic for point i: returns false outside the AABB,
+// else the cell c (x, y, z) and its fractions t.
+__device__ __forceinline__ bool cell_of(const float* __restrict__ p,
+                                        const float* __restrict__ aabb6,
+                                        int i, const int res_i[3], int c[3],
+                                        float t[3]) {
   bool inside = true;
   for (int k = 0; k < 3; ++k) {
     float res = (float)res_i[k];
@@ -76,7 +92,21 @@ __global__ void __launch_bounds__(kThreads)
     c[k] = (int)cell;
     t[k] = v - cell;
   }
-  if (!inside) {
+  return inside;
+}
+
+template <typename Cell>
+__global__ void __launch_bounds__(kThreads)
+    trilinear_kernel(const float* __restrict__ p,
+                     const Cell* __restrict__ cells,
+                     const float* __restrict__ aabb6, float* __restrict__ out,
+                     int n, int nx, int ny, int nz) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int res_i[3] = {nx, ny, nz};
+  float t[3];
+  int c[3];
+  if (!cell_of(p, aabb6, i, res_i, c, t)) {
     out[i] = 0.0f;
     return;
   }
@@ -91,6 +121,35 @@ __global__ void __launch_bounds__(kThreads)
   float c0 = c00 * (1.0f - ty) + c01 * ty;
   float c1 = c10 * (1.0f - ty) + c11 * ty;
   out[i] = c0 * (1.0f - tz) + c1 * tz;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    trilinear_backward_kernel(const float* __restrict__ p,
+                              const float* __restrict__ grad_out,
+                              const float* __restrict__ aabb6,
+                              float* __restrict__ grad_grid, int n, int nx,
+                              int ny, int nz) {
+  int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int res_i[3] = {nx, ny, nz};
+  float t[3];
+  int c[3];
+  if (!cell_of(p, aabb6, i, res_i, c, t)) return;
+  const float g = grad_out[i];
+  if (g == 0.0f) return;  // adds nothing (a NaN or inf still adds)
+  const long long x[2] = {c[0], min(c[0] + 1, nx - 1)};
+  const long long y[2] = {c[1], min(c[1] + 1, ny - 1)};
+  const long long z[2] = {c[2], min(c[2] + 1, nz - 1)};
+  const float tx = t[0], ty = t[1], tz = t[2];
+  const float gz[2] = {g * (1.0f - tz), g * tz};
+  for (int dz = 0; dz < 2; ++dz) {
+    const float gzy[2] = {gz[dz] * (1.0f - ty), gz[dz] * ty};
+    for (int dy = 0; dy < 2; ++dy) {
+      float* row = grad_grid + (z[dz] * ny + y[dy]) * nx;
+      atomicAdd(row + x[0], gzy[dy] * (1.0f - tx));
+      atomicAdd(row + x[1], gzy[dy] * tx);
+    }
+  }
 }
 
 }  // namespace
@@ -108,6 +167,19 @@ extern "C" int mk_trilinear_lookup(const float* p, const void* cells,
   else
     trilinear_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         p, (const float*)cells, aabb6, out, n, nx, ny, nz);
+  return (int)cudaGetLastError();
+}
+
+// grad_grid: the zeroed (nz, ny, nx) float32 gradient of the grid; each point
+// inside the AABB adds grad_out[i] times its 8 trilinear weights.
+extern "C" int mk_trilinear_lookup_backward(const float* p,
+                                            const float* grad_out,
+                                            const float* aabb6,
+                                            float* grad_grid, int n, int nx,
+                                            int ny, int nz, void* stream) {
+  const int blocks = (n + kThreads - 1) / kThreads;
+  trilinear_backward_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      p, grad_out, aabb6, grad_grid, n, nx, ny, nz);
   return (int)cudaGetLastError();
 }
 

@@ -17,11 +17,20 @@ def new_sink(n: int, device=None) -> torch.Tensor:
     return torch.zeros((n, 3), dtype=torch.float32, device=device)
 
 
-def add_contribution(sink, value, active):
+def add_contribution(sink, value, active, log_p=None):
     """sink + value where active; non-finite values carry no energy (they
-    are numerical casualties on degenerate lanes) and are dropped."""
+    are numerical casualties on degenerate lanes) and are dropped, before
+    the mask, so that NaN primals never reach the backward pass.
+
+    log_p: the attached log-density of the parameter-dependent sampling
+    decisions behind the contribution (common.py:33-56). Where given, the
+    zero-valued surrogate value.detach() * (log_p - log_p.detach()) is
+    added, whose derivative is the score term value * dlog_p."""
     value = torch.where(torch.isfinite(value), value, 0.0)
-    return sink + torch.where(active.unsqueeze(-1), value, 0.0)
+    value = torch.where(active.unsqueeze(-1), value, 0.0)
+    if log_p is not None:
+        value = value + value.detach() * (log_p - log_p.detach()).unsqueeze(-1)
+    return sink + value
 
 
 def russian_roulette(throughput, eta_scale, u, depth, cfg: RenderConfig):

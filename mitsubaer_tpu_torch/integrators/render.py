@@ -157,7 +157,7 @@ def _device(device) -> torch.device:
     another. Never falls back to the CPU."""
     device = torch.device("cuda" if device is None else device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("render(): no CUDA device; pass device='cpu' to "
+        raise RuntimeError("no CUDA device; pass device='cpu' to "
                            "run the plain PyTorch versions on the CPU")
     return device
 

@@ -12,16 +12,27 @@ emitter NEE connection and, with `cfg.has_beam`, one beam NEE connection
 vertex); both shadow segments are walked in one batched
 `attenuated_visibility` call. The bounce loop runs on the host, one `body`
 a bounce, while some lane is active and `iters < 2 max_depth + 8`: the
-JAX `li`'s while loop, with one device sync a bounce. Transient and
-CW-ToF sinks (step 10), `medium_strategies` (step 7), gradients (step 8)
-and direct sampling of area, spot and directional emitters (step 9) raise
-`not_ported` with their ROADMAP Queue 1 step.
+JAX `li`'s while loop, with one device sync a bounce.
+
+`li(..., differentiable=True)` is the JAX package's differentiable mode
+(diff/render.py): sampling decisions detached, weights attached, the
+log-density of the decisions carried as `log_p` and added to every
+contribution as a score surrogate, the tracking loops capped at 64 tests,
+and each bounce run under `torch.utils.checkpoint` (the counterpart of
+JAX's checkpointed scan), so the stored graph is one bounce's. The RNG is
+a stateless hash, so a recomputed bounce draws the same numbers and its
+host-synced trip counts come out the same. Transient and CW-ToF sinks
+(step 10), `medium_strategies` (step 7) and direct sampling of area, spot
+and directional emitters (step 9) raise `not_ported` with their ROADMAP
+Queue 1 step.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
+import torch.utils.checkpoint
 
 from .. import not_ported
 from ..core import rng
@@ -53,9 +64,10 @@ def _is_null_surface(scene: Scene, bsdf_idx):
 
 
 def segment_transmittance(scene: Scene, medium_idx, o, d, dist, smp, active,
-                          bricks=None):
+                          bricks=None, differentiable: bool = False):
     """Transmittance of straight segments inside medium `medium_idx` (-1 is
-    vacuum): analytic when homogeneous, ratio tracking when heterogeneous."""
+    vacuum): analytic when homogeneous, ratio tracking when heterogeneous
+    (capped at 64 tests with `differentiable`)."""
     media = scene.media
     kind, sa, ss, scale = medium_m.params(media, medium_idx)
     tr = torch.ones((o.shape[0], 3), dtype=torch.float32, device=o.device)
@@ -64,24 +76,26 @@ def segment_transmittance(scene: Scene, medium_idx, o, d, dist, smp, active,
     tr = torch.where(hom.unsqueeze(-1), tr_h, tr)
     het = active & (kind == MED_HETEROGENEOUS)
     tr_r, smp = medium_m.transmittance_ratio_tracking(
-        media, sa, ss, scale, o, d, dist, smp, het, bricks=bricks)
+        media, sa, ss, scale, o, d, dist, smp, het, bricks=bricks,
+        differentiable=differentiable)
     return torch.where(het.unsqueeze(-1), tr_r, tr), smp
 
 
 def attenuated_visibility(scene: Scene, eps, o, d, dist, medium_idx, smp,
-                          active, max_crossings: int = 4, bricks=None):
+                          active, max_crossings: int = 4, bricks=None,
+                          differentiable: bool = False):
     """Transmittance along shadow segments, walking through null medium
-    boundaries (Scene::evalTransmittanceAll); opaque surfaces give 0."""
+    boundaries (Scene::evalTransmittanceAll); opaque surfaces give 0. At
+    most max_crossings segments a lane, in either mode."""
     n = o.shape[0]
-    cur_o, remaining, med = o, dist, medium_idx
-    tr = torch.ones((n, 3), dtype=torch.float32, device=o.device)
-    running = active
-    it = 0
-    while it < max_crossings and bool(running.any()):
+
+    def crossing_trip(state):
+        cur_o, remaining, med, tr, running, smp = state
         hit = isect.intersect(scene.geo, cur_o, d, eps * 0.5, remaining - eps)
         seg = torch.where(hit.valid, hit.t, remaining)
         tr_seg, smp = segment_transmittance(scene, med, cur_o, d, seg, smp,
-                                            running, bricks=bricks)
+                                            running, bricks=bricks,
+                                            differentiable=differentiable)
         tr = torch.where(running.unsqueeze(-1), tr * tr_seg, tr)
         b_idx, _, m_in, m_ex = _shape_tables(scene, hit.shape_id)
         is_null = _is_null_surface(scene, b_idx)
@@ -93,7 +107,18 @@ def attenuated_visibility(scene: Scene, eps, o, d, dist, medium_idx, smp,
         cur_o = torch.where(crossing.unsqueeze(-1), hit.p + d * eps, cur_o)
         remaining = torch.where(crossing, remaining - seg - eps, remaining)
         running = crossing & (remaining > eps)
-        it += 1
+        return cur_o, remaining, med, tr, running, smp
+
+    # a crossing trip not run would have drawn a ratio-tracking loop's
+    # numbers on every lane
+    draws = medium_m.tracking_trips(medium_m.MAX_STEPS,
+                                      differentiable) * medium_m.UNROLL
+    state = (o, dist, medium_idx,
+             torch.ones((n, 3), dtype=torch.float32, device=o.device),
+             active, smp)
+    (_, _, _, tr, _, smp), _ = medium_m.bounded_while(
+        lambda st: st[4], crossing_trip, state, max_crossings, differentiable,
+        lambda st, k: st[:5] + (medium_m.skip_draws(st[5], k * draws),))
     return tr, smp
 
 
@@ -146,7 +171,9 @@ def sample_beam_point(beam: Beam, p, u):
 
 def build_beam_tau(scene: Scene, beam: Beam, bricks, n: int = 256):
     """(n, 8) table along the beam by midpoint quadrature:
-    row i = [tau_rgb(s_i), tau_rgb(s_i+1) - tau_rgb(s_i), density(s_i)*scale, 0]."""
+    row i = [tau_rgb(s_i), tau_rgb(s_i+1) - tau_rgb(s_i), density(s_i)*scale, 0].
+    On a grid that requires grad the lookups are attached, so the density
+    gradient reaches the table (kernel A' in its backward)."""
     dev = beam.o.device
     si = beam.s0 + (torch.arange(n, dtype=torch.float32, device=dev) + 0.5) \
         / n * (beam.s1 - beam.s0)
@@ -213,6 +240,8 @@ class PassTables:
 
 @dataclass(frozen=True)
 class State:
+    """A bounce's lane state; log_p (the log-density of the lane's
+    parameter-dependent decisions so far) only in differentiable mode."""
     o: torch.Tensor
     d: torch.Tensor
     throughput: torch.Tensor
@@ -223,6 +252,7 @@ class State:
     last_pdf: torch.Tensor
     last_delta: torch.Tensor
     medium: torch.Tensor
+    log_p: torch.Tensor | None
     iters: int
     sampler: rng.Sampler
 
@@ -252,9 +282,12 @@ def visibility_sampler(smp: rng.Sampler, k: int, iters: int) -> rng.Sampler:
 
 
 def body(scene: Scene, cfg: RenderConfig, s: State, tabs: PassTables,
-         simple: bool = False):
+         simple: bool = False, differentiable: bool = False):
     """One bounce of every lane (volpath.py:292-564). Returns the next
-    state and the Woodcock tracking iterations it ran."""
+    state and the Woodcock tracking iterations it ran. With
+    `differentiable` the tracking loops stop at 64 tests and log_p
+    accumulates at the medium sample (volpath.py:326-328) and the phase
+    sample (:504-506) and feeds every contribution's score surrogate."""
     n = s.o.shape[0]
     eps, bricks, beam = tabs.eps, tabs.bricks, tabs.beam
     media = scene.media
@@ -270,12 +303,17 @@ def body(scene: Scene, cfg: RenderConfig, s: State, tabs: PassTables,
                                               sampling_weight=True)
     u_hom, smp = rng.next_1d(smp)
     uc_hom, smp = rng.next_1d(smp)
-    hs, ht, hw, _ = medium_m.sample_distance_homogeneous(sa, ss, sw, t_far,
-                                                         u_hom, uc_hom)
+    hs, ht, hw, h_logp = medium_m.sample_distance_homogeneous(
+        sa, ss, sw, t_far, u_hom, uc_hom)
     het = in_medium & (kind == MED_HETEROGENEOUS)
-    ws, wt, ww, _, smp, wood_iters = medium_m.sample_distance_woodcock(
-        media, sa, ss, scale, s.o, s.d, t_far, smp, het, bricks=bricks)
+    ws, wt, ww, _, smp, wood_iters, w_logp = medium_m.sample_distance_woodcock(
+        media, sa, ss, scale, s.o, s.d, t_far, smp, het, bricks=bricks,
+        differentiable=differentiable)
     is_hom = kind == MED_HOMOGENEOUS
+    log_p = None
+    if differentiable:
+        log_p = s.log_p + torch.where(
+            in_medium, torch.where(is_hom, h_logp, w_logp), 0.0)
     scattered = in_medium & torch.where(is_hom, hs, ws)
     m_t = torch.where(is_hom, ht, wt)
     m_weight = _w3(in_medium, _w3(is_hom, hw, ww), 1.0)
@@ -291,7 +329,7 @@ def body(scene: Scene, cfg: RenderConfig, s: State, tabs: PassTables,
                         0.0 if simple else mis_weight_power(s.last_pdf,
                                                             env_pdf))
     sink = common.add_contribution(s.sink, throughput * env
-                                   * w_env.unsqueeze(-1), escaped)
+                                   * w_env.unsqueeze(-1), escaped, log_p)
 
     # ---------- surface tables ----------
     b_idx, e_idx, m_in, m_ex = _shape_tables(scene, hit.shape_id)
@@ -307,7 +345,8 @@ def body(scene: Scene, cfg: RenderConfig, s: State, tabs: PassTables,
                                                             lum_pdf))
     shown = ~(s.depth == 1) if cfg.hide_emitters else True
     sink = common.add_contribution(sink, throughput * le
-                                   * w_hit.unsqueeze(-1), hit_emitter & shown)
+                                   * w_hit.unsqueeze(-1), hit_emitter & shown,
+                                   log_p)
 
     depth_ok = s.depth < cfg.max_depth
 
@@ -347,14 +386,15 @@ def body(scene: Scene, cfg: RenderConfig, s: State, tabs: PassTables,
     vis_smp = visibility_sampler(smp, len(seg_o), s.iters)
     tr_all, _ = attenuated_visibility(
         scene, eps, torch.cat(seg_o), torch.cat(seg_d), torch.cat(seg_dist),
-        torch.cat(seg_med), vis_smp, torch.cat(seg_act), bricks=bricks)
+        torch.cat(seg_med), vis_smp, torch.cat(seg_act), bricks=bricks,
+        differentiable=differentiable)
 
     w_nee = torch.where(ds.delta, 1.0, mis_weight_power(ds.pdf, pdf_vtx))
     if simple:
         w_nee = torch.ones_like(w_nee)
     contrib = (throughput * f_vtx * ds.value * tr_all[:n]
                * (w_nee / torch.clamp_min(ds.pdf, 1e-12)).unsqueeze(-1))
-    sink = common.add_contribution(sink, contrib, vis_needed)
+    sink = common.add_contribution(sink, contrib, vis_needed, log_p)
 
     # =========== beam NEE ===========
     if cfg.has_beam:
@@ -373,7 +413,7 @@ def body(scene: Scene, cfg: RenderConfig, s: State, tabs: PassTables,
         f_med_b = phase_m.eval(media.phase, s.medium, s.d, -d_yp)
         f_b = _w3(scattered, f_med_b.unsqueeze(-1), f_srf_b)
         sink = common.add_contribution(sink, throughput * f_b * bval,
-                                       nee_active)
+                                       nee_active, log_p)
 
     # =========== direction sampling ===========
     u2p, smp = rng.next_2d(smp)
@@ -382,6 +422,9 @@ def body(scene: Scene, cfg: RenderConfig, s: State, tabs: PassTables,
     bs = bsdf_m.sample(scene.bsdfs, b_idx, wi_srf, u2p, u1p)
     new_d = _w3(scattered, ps.wo, frame.to_world(bs.wo))
     scatter_w = _w3(scattered, ps.weight.unsqueeze(-1), bs.weight)
+    if differentiable:
+        log_p = log_p + torch.where(
+            scattered, torch.log(torch.clamp_min(ps.pdf, 1e-30)), 0.0)
     new_pdf = torch.where(scattered, ps.pdf, bs.pdf)
     new_delta = ~scattered & bs.delta
     # null surfaces: pass straight through, no weight, no depth
@@ -422,15 +465,26 @@ def body(scene: Scene, cfg: RenderConfig, s: State, tabs: PassTables,
         last_pdf=torch.where(active, new_pdf, s.last_pdf),
         last_delta=torch.where(active, new_delta, s.last_delta),
         medium=torch.where(active, new_medium, s.medium),
+        log_p=None if log_p is None else torch.where(active, log_p, s.log_p),
         iters=s.iters + 1, sampler=smp), wood_iters
 
 
+def _checkpointed(step, s: State):
+    """step(s) with its graph dropped after the forward and recomputed in
+    the backward (non-reentrant checkpoint; the sampler is a stateless
+    hash, so torch's RNG state need not be kept)."""
+    return torch.utils.checkpoint.checkpoint(
+        step, s, use_reentrant=False, preserve_rng_state=False)
+
+
 def li(scene: Scene, cfg: RenderConfig, o, d, sampler: rng.Sampler,
-       simple: bool = False):
+       simple: bool = False, differentiable: bool = False):
     """Radiance along the (N, 3) camera rays (o, d): the bounce loop of the
     JAX `li` on the host. `simple` is volpath_simple (no MIS: emitters seen
-    by a non-delta bounce count 0, NEE counts in full). Returns the (N, 3)
-    sink, the sampler after the last bounce and [bounces, Woodcock
+    by a non-delta bounce count 0, NEE counts in full). `differentiable`
+    is the JAX `li(differentiable=True)`: the sink carries gradients to the
+    scene's medium parameters, each bounce under a checkpoint. Returns the
+    (N, 3) sink, the sampler after the last bounce and [bounces, Woodcock
     tracking iterations]."""
     check_supported(scene, cfg)
     n = o.shape[0]
@@ -445,9 +499,12 @@ def li(scene: Scene, cfg: RenderConfig, o, d, sampler: rng.Sampler,
         last_pdf=torch.zeros((n,), device=dev),
         last_delta=torch.ones((n,), dtype=torch.bool, device=dev),
         medium=scene.camera_medium.to(torch.int64).expand(n),
+        log_p=torch.zeros((n,), device=dev) if differentiable else None,
         iters=0, sampler=sampler)
+    step = functools.partial(body, scene, cfg, tabs=tabs, simple=simple,
+                             differentiable=differentiable)
     wood = 0
     while s.iters < 2 * cfg.max_depth + 8 and bool(s.active.any()):
-        s, k = body(scene, cfg, s, tabs, simple)
+        s, k = _checkpointed(step, s) if differentiable else step(s)
         wood += k
     return s.sink, s.sampler, [s.iters, wood]

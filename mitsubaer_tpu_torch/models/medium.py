@@ -1,7 +1,10 @@
 """Participating media on the ported paths (port of
 mitsubaer_tpu/models/medium.py): medium parameters, the heterogeneous density
-lookup (kernel A), Woodcock distance sampling, ratio-tracking
-transmittance and homogeneous distance sampling.
+lookup (kernel A) and its gradient (kernel A', `TrilinearLookup`), Woodcock
+distance sampling, ratio-tracking transmittance and homogeneous distance
+sampling, each with the differentiable mode of the JAX package (detached
+sampling decisions, attached weights, and the log-density of the decisions
+for the score term).
 
 Kernel A, `trilinear_lookup`, replaces the JAX package's
 `DensityBricks.lookup` as a whole (the 8x4x4 apron-brick gather plus the
@@ -16,13 +19,55 @@ bf16.
 """
 from __future__ import annotations
 
+from dataclasses import replace
+
 import torch
 
 from .. import kernels
 from ..core import rng, spline
+from ..core.math import take_rows
 from ..scene.types import Media
 
 INF = 3.0e38
+UNROLL = 4      # collision tests a trip of the tracking loops, as in JAX
+MAX_STEPS = 4096        # the tracking loops' trip cap in forward mode
+DIFF_MAX_TESTS = 64     # the differentiable tracking loops' cap in tests
+
+
+def bounded_while(running_of, body, state, max_trips: int,
+                  differentiable: bool, skip):
+    """The tracking loops' host loop (medium.py:37-45): body(state) while
+    some lane of running_of(state) runs, at most max_trips times. Returns
+    (state, trips run). The JAX package runs a while loop in forward mode
+    and, when it differentiates, a scan of exactly max_trips trips. The
+    bodies mask themselves on their running flags, so a trip after the
+    last lane stopped changes nothing but the sampler: every lane still
+    draws its numbers. In differentiable mode skip(state, k) therefore
+    stands for the k trips not run (it advances the samplers' dimensions),
+    so the streams that follow stay the scan's."""
+    trips = 0
+    while trips < max_trips and bool(running_of(state).any()):
+        state = body(state)
+        trips += 1
+    if differentiable and trips < max_trips:
+        state = skip(state, max_trips - trips)
+    return state, trips
+
+
+def skip_draws(smp: rng.Sampler, k: int) -> rng.Sampler:
+    """The sampler after k draws whose values are not needed."""
+    return replace(smp, dim=(smp.dim + k) & rng.M32)
+
+
+def tracking_trips(max_steps: int, differentiable: bool) -> int:
+    """The trip cap of a tracking loop: max_steps trips of UNROLL tests in
+    forward mode, ceil(min(max_steps, 64) / UNROLL) in differentiable mode
+    (medium.py:597-600, 646-649). A lane still running at the
+    differentiable cap is truncated: it keeps the weights so far and, in
+    Woodcock tracking, reports no hit."""
+    if differentiable:
+        return (min(max_steps, DIFF_MAX_TESTS) + UNROLL - 1) // UNROLL
+    return max_steps
 
 
 def trilinear_lookup_plain(grid, aabb6, p):
@@ -82,25 +127,132 @@ def trilinear_lookup(grid, cells, aabb6, p):
 trilinear_lookup.launches = 0
 
 
+def _cell_weights(shape, aabb6, p):
+    """Kernel A's cell arithmetic: (inside, cell (N, 3) int64, t (N, 3)) of
+    (N, 3) points on an (nz, ny, nx) grid, per axis (x, y, z)."""
+    nz, ny, nx = shape
+    res = torch.tensor([nx, ny, nz], dtype=torch.float32, device=p.device)
+    h = (aabb6[3:] - aabb6[:3]) / torch.clamp_min(res - 1.0, 1.0)
+    v = (p - aabb6[:3]) / h
+    inside = torch.all((v >= 0.0) & (v <= res - 1.0), dim=-1)
+    v = torch.minimum(torch.clamp_min(v, 0.0), res - 1.0)
+    cell = torch.minimum(torch.clamp_min(torch.floor(v), 0.0),
+                         torch.clamp_min(res - 2.0, 0.0))
+    return inside, cell.to(torch.int64), v - cell
+
+
+def trilinear_lookup_backward_plain(shape, aabb6, p, grad_out):
+    """Plain PyTorch version of kernel A': the gradient of kernel A's
+    lookups with respect to the (nz, ny, nx) grid of `shape`, for the
+    (N,) gradient grad_out of the outputs at the (N, 3) points p. Each
+    point inside the AABB adds grad_out * w_k to its 8 corner voxels, the
+    weights formed in the order autograd forms them through the lerps
+    ((g (1 - tz)) (1 - ty)) (1 - tx), ...; corner indices are clamped to
+    res - 1, so on a one-voxel axis the two coinciding corners add both
+    their weights to one voxel. One index_add_ scatters all 8 N terms."""
+    nz, ny, nx = shape
+    inside, cell, t = _cell_weights(shape, aabb6, p)
+    g = torch.where(inside, grad_out, 0.0)
+    tx, ty, tz = t.unbind(-1)
+    x0, y0, z0 = cell.unbind(-1)
+    x1 = torch.clamp_max(x0 + 1, nx - 1)
+    y1 = torch.clamp_max(y0 + 1, ny - 1)
+    z1 = torch.clamp_max(z0 + 1, nz - 1)
+    idx, val = [], []
+    for z, gz in ((z0, g * (1.0 - tz)), (z1, g * tz)):
+        for y, gzy in ((y0, gz * (1.0 - ty)), (y1, gz * ty)):
+            for x, w in ((x0, gzy * (1.0 - tx)), (x1, gzy * tx)):
+                idx.append((z * ny + y) * nx + x)
+                val.append(w)
+    out = torch.zeros((nz * ny * nx,), dtype=grad_out.dtype, device=p.device)
+    out.index_add_(0, torch.cat(idx), torch.cat(val))
+    return out.reshape(nz, ny, nx)
+
+
+def trilinear_lookup_backward(shape, aabb6, p, grad_out):
+    """Kernel A' (csrc/trilinear.cu, `mk_trilinear_lookup_backward`): the
+    grid gradient of kernel A's lookups, as trilinear_lookup_backward_plain
+    computes it, for CUDA tensors; the plain version for CPU ones. The
+    kernel adds with float atomics, so the sums' order, and their last
+    bits, vary from run to run."""
+    if p.is_cpu:
+        return trilinear_lookup_backward_plain(shape, aabb6, p, grad_out)
+    if not p.is_cuda:
+        raise ValueError(f"trilinear_lookup_backward: unsupported device "
+                         f"{p.device}")
+    p, grad_out = p.contiguous(), grad_out.contiguous()
+    kernels.require_cuda("trilinear_lookup_backward", p, grad_out, aabb6)
+    if p.dtype != torch.float32 or grad_out.dtype != torch.float32 or \
+            aabb6.dtype != torch.float32:
+        raise ValueError(f"trilinear_lookup_backward: expected float32 "
+                         f"tensors, got {p.dtype}, {grad_out.dtype} and "
+                         f"{aabb6.dtype}")
+    n = p.shape[0]
+    if p.dim() != 2 or p.shape[1] != 3 or grad_out.shape != (n,):
+        raise ValueError("trilinear_lookup_backward: expected p (N, 3) and "
+                         "grad_out (N,)")
+    nz, ny, nx = shape
+    grad = torch.zeros((nz, ny, nx), dtype=torch.float32, device=p.device)
+    if n == 0:
+        return grad
+    with kernels.on_device(p):
+        rc = kernels.library().mk_trilinear_lookup_backward(
+            p.data_ptr(), grad_out.data_ptr(), aabb6.data_ptr(),
+            grad.data_ptr(), n, nx, ny, nz, kernels.stream(p))
+    kernels.check(rc, "trilinear_lookup_backward")
+    trilinear_lookup_backward.launches += 1
+    return grad
+
+
+trilinear_lookup_backward.launches = 0
+
+
+class TrilinearLookup(torch.autograd.Function):
+    """Kernel A with its gradient to the grid: forward is kernel A on the
+    cell table `cells` (built from the detached grid), backward kernel A'.
+    On CPU tensors both are the plain versions. The JAX package
+    differentiates its unfused lookup with XLA; there the positions are
+    detached (medium.py:506, 571), and here a p that requires grad raises
+    rather than getting no gradient."""
+
+    @staticmethod
+    def forward(ctx, grid, cells, aabb6, p):
+        if ctx.needs_input_grad[3] or ctx.needs_input_grad[2]:
+            raise ValueError("TrilinearLookup: no gradient flows to the "
+                             "points or the AABB; detach them")
+        ctx.save_for_backward(aabb6, p)
+        ctx.shape = tuple(grid.shape)
+        return trilinear_lookup(grid.detach(), cells, aabb6, p)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        aabb6, p = ctx.saved_tensors
+        grad = trilinear_lookup_backward(ctx.shape, aabb6, p, grad_out)
+        return grad, None, None, None
+
+
 def params(media: Media, idx, sampling_weight: bool = False):
     """(kind, sigma_a, sigma_s, scale) of medium idx; kind is -1 for idx < 0.
     With sampling_weight, (kind, sigma_a, sigma_s, sampling_weight, scale),
     the JAX package's five values."""
     i = torch.clamp(idx, 0, media.kind.shape[0] - 1).to(torch.int64)
     kind = torch.where(idx >= 0, media.kind[i], -1)
+    sa, ss = take_rows(media.sigma_a, i), take_rows(media.sigma_s, i)
     if sampling_weight:
-        return (kind, media.sigma_a[i], media.sigma_s[i],
-                media.sampling_weight[i], media.scale[i])
-    return kind, media.sigma_a[i], media.sigma_s[i], media.scale[i]
+        return kind, sa, ss, media.sampling_weight[i], media.scale[i]
+    return kind, sa, ss, media.scale[i]
 
 
 class DensityGrid:
     """The heterogeneous density grid as kernel A reads it (replaces the
     JAX package's DensityBricks): the (nz, ny, nx) f32 grid for the plain
-    version and its cell table for the kernel, built at the first lookup
-    on the card (the plain version does not read it). dtype=torch.bfloat16
-    rounds the stored values to bf16, as the JAX callers that store bf16
-    bricks do, and keeps the table in bf16."""
+    version and its cell table for the kernel, built once, at the first
+    lookup on the card, from the detached grid (the plain version does not
+    read it). Where the grid requires grad and grad is enabled, lookups go
+    through `TrilinearLookup` (kernel A forward, kernel A' backward); a
+    checkpointed bounce that runs again finds the table built.
+    dtype=torch.bfloat16 rounds the stored values to bf16, as the JAX
+    callers that store bf16 bricks do, and keeps the table in bf16."""
 
     def __init__(self, media: Media, dtype=None):
         grid = media.density.data
@@ -116,11 +268,13 @@ class DensityGrid:
     def cells(self):
         """Kernel A's cell table of the grid (`cell_table`), built once."""
         if self._cells is None:
-            self._cells = cell_table(self.grid, self._table_dtype)
+            self._cells = cell_table(self.grid.detach(), self._table_dtype)
         return self._cells
 
     def lookup(self, p):
         cells = self.cells if p.is_cuda else None
+        if self.grid.requires_grad and torch.is_grad_enabled():
+            return TrilinearLookup.apply(self.grid, cells, self.aabb6, p)
         return trilinear_lookup(self.grid, cells, self.aabb6, p)
 
 
@@ -150,17 +304,21 @@ def sample_distance_homogeneous(sigma_a, sigma_s, sampling_weight, t_max, u,
                                 uc):
     """Balance-strategy distance sample: a channel picked by u, an
     exponential distance in it, gated into the medium with probability
-    sampling_weight by uc. Returns (success, dist, weight, log_pdf)."""
+    sampling_weight by uc. Returns (success, dist, weight, log_pdf). The
+    distance is detached and the weight keeps sigma attached; log_pdf is
+    the attached log-density of the decision at the detached sample
+    (medium.py:468-525)."""
     sigma_t = sigma_a + sigma_s
     w = sampling_weight
     in_medium = uc < w
     u_resc = torch.where(in_medium, uc / torch.clamp_min(w, 1e-9), 0.0)
     ch = torch.clamp((u * 3).to(torch.int64), 0, 2)
     dens = torch.clamp_min(
-        torch.gather(sigma_t, -1, ch.unsqueeze(-1)).squeeze(-1), 1e-20)
+        torch.gather(sigma_t, -1, ch.unsqueeze(-1)).squeeze(-1),
+        1e-20).detach()
     t_sample = torch.where(in_medium, -torch.log1p(-u_resc) / dens, INF)
     success = t_sample < t_max
-    dist = torch.minimum(t_sample, t_max)
+    dist = torch.minimum(t_sample, t_max).detach()
     pdf_succ, pdf_fail = homog_strategy_pdfs(sigma_t, dist)
     tr = torch.exp(-sigma_t * dist.unsqueeze(-1))
     pdf_succ = pdf_succ * w
@@ -173,25 +331,32 @@ def sample_distance_homogeneous(sigma_a, sigma_s, sampling_weight, t_max, u,
     return success, dist, weight, log_pdf
 
 
+def _majorant(media: Media, st_color):
+    """The tracking majorant of each lane, detached (medium.py:491)."""
+    return torch.clamp_min(media.majorant * torch.amax(st_color, dim=-1),
+                           1e-6).detach()
+
+
 def transmittance_ratio_tracking(media: Media, sigma_a, sigma_s, scale, o, d,
-                                 t_max, smp, active, max_steps: int = 4096,
-                                 bricks=None):
+                                 t_max, smp, active,
+                                 max_steps: int = MAX_STEPS, bricks=None,
+                                 differentiable: bool = False):
     """Unbiased ratio-tracking transmittance along shadow segments. Every
     lane draws one number per step whether it runs or not, in steps of
-    UNROLL as in the JAX package, so the streams stay aligned with it."""
+    UNROLL as in the JAX package, so the streams stay aligned with it. The
+    tap positions are detached; the factors keep sigma and the density
+    attached. `differentiable` caps the loop at 64 tests
+    (`tracking_trips`)."""
     if bricks is None:
         bricks = DensityGrid(media)
     st_color = sigma_a + sigma_s
-    majorant = torch.clamp_min(media.majorant * torch.amax(st_color, dim=-1),
-                               1e-6)
-    unroll = 4
+    majorant = _majorant(media, st_color)
     n = o.shape[0]
-    t = torch.zeros((n,), dtype=torch.float32, device=o.device)
-    tr = torch.ones((n, 3), dtype=torch.float32, device=o.device)
-    running = active
-    it = 0
-    while it < max_steps and bool(running.any()):
-        for _ in range(unroll):
+    o, d, t_max = o.detach(), d.detach(), t_max.detach()
+
+    def body(state):
+        t, tr, running, smp = state
+        for _ in range(UNROLL):
             u1, smp = rng.next_1d(smp)
             t_new = t - torch.log1p(-u1) / majorant
             escaped = t_new >= t_max
@@ -203,38 +368,47 @@ def transmittance_ratio_tracking(media: Media, sigma_a, sigma_s, scale, o, d,
                              tr)
             t = torch.where(running, t_new, t)
             running = running & ~escaped
-        it += 1
+        return t, tr, running, smp
+
+    state = (torch.zeros((n,), dtype=torch.float32, device=o.device),
+             torch.ones((n, 3), dtype=torch.float32, device=o.device),
+             active, smp)
+    (_, tr, _, smp), _ = bounded_while(
+        lambda st: st[2], body, state,
+        tracking_trips(max_steps, differentiable), differentiable,
+        lambda st, k: st[:3] + (skip_draws(st[3], k * UNROLL),))
     return torch.clamp_min(tr, 0.0), smp
 
 
 def sample_distance_woodcock(media: Media, sigma_a, sigma_s, scale, o, d,
-                             t_max, smp, active, max_steps: int = 4096,
-                             bricks=None):
+                             t_max, smp, active, max_steps: int = MAX_STEPS,
+                             bricks=None, differentiable: bool = False):
     """Delta tracking along (o, d) up to t_max against the scene majorant
     (medium.py:534-607). Collisions are tested against the mean channel's
     extinction; the spectral weight takes sigma_s / sigma_t_mean at a real
     collision and (1 - sigma_t_c / majorant) / (1 - p_real) at a null one.
     Every lane draws two numbers per step whether it runs or not, UNROLL
     steps an iteration, so the streams stay aligned with the JAX package.
-    Returns (hit, dist, weight, p, smp, iterations): dist is t_max where
-    nothing was hit, p the last tested point. The JAX function's log_pdf
-    (the score term of gradients) is not returned (ROADMAP Queue 1 step 8)."""
+    The majorant, distances, tap positions and accept/reject tests are
+    detached; the weights keep sigma and the density attached.
+    Returns (hit, dist, weight, p, smp, iterations, log_p): dist is t_max
+    where nothing was hit, p the last tested point. With `differentiable`
+    the loop stops at 64 tests (a lane still running there reports no hit,
+    dist t_max and its null-collision weights so far) and log_p is the
+    attached log-density of the lane's decisions, log p_real at a real
+    collision and log(1 - p_real) at a null one; otherwise log_p is None."""
     if bricks is None:
         bricks = DensityGrid(media)
     st_color = sigma_a + sigma_s
     st_mean = _mean3(st_color)
-    majorant = torch.clamp_min(media.majorant * torch.amax(st_color, dim=-1),
-                               1e-6)
+    majorant = _majorant(media, st_color)
     w_real = sigma_s / torch.clamp_min(st_mean, 1e-12).unsqueeze(-1)
-    unroll = 4
     n = o.shape[0]
-    t = torch.zeros((n,), dtype=torch.float32, device=o.device)
-    hit = torch.zeros((n,), dtype=torch.bool, device=o.device)
-    w = torch.ones((n, 3), dtype=torch.float32, device=o.device)
-    running = active
-    it = 0
-    while it < max_steps and bool(running.any()):
-        for _ in range(unroll):
+    o, d, t_max = o.detach(), d.detach(), t_max.detach()
+
+    def body(state):
+        t, hit, running, smp, w, log_p = state
+        for _ in range(UNROLL):
             u1, smp = rng.next_1d(smp)
             u2, smp = rng.next_1d(smp)
             t_new = t - torch.log1p(-u1) / majorant
@@ -249,9 +423,24 @@ def sample_distance_woodcock(media: Media, sigma_a, sigma_s, scale, o, d,
                 / torch.clamp_min(1.0 - p_real, 1e-12).unsqueeze(-1)
             w = torch.where(hit_new.unsqueeze(-1), w * w_real, w)
             w = torch.where(null_col.unsqueeze(-1), w * w_null, w)
+            if log_p is not None:
+                log_p = log_p + torch.where(
+                    hit_new, torch.log(torch.clamp_min(p_real, 1e-20)), 0.0
+                ) + torch.where(null_col, torch.log(
+                    torch.clamp_min(1.0 - p_real, 1e-20)), 0.0)
             t = torch.where(running, t_new, t)
             hit = hit | hit_new
             running = null_col
-        it += 1
+        return t, hit, running, smp, w, log_p
+
+    zeros = torch.zeros((n,), dtype=torch.float32, device=o.device)
+    state = (zeros, torch.zeros((n,), dtype=torch.bool, device=o.device),
+             active, smp,
+             torch.ones((n, 3), dtype=torch.float32, device=o.device),
+             zeros if differentiable else None)
+    (t, hit, _, smp, w, log_p), it = bounded_while(
+        lambda st: st[2], body, state,
+        tracking_trips(max_steps, differentiable), differentiable,
+        lambda st, k: st[:3] + (skip_draws(st[3], 2 * k * UNROLL),) + st[4:])
     p = o + t.unsqueeze(-1) * d
-    return hit, torch.where(hit, t, t_max), w, p, smp, it
+    return hit, torch.where(hit, t, t_max), w, p, smp, it, log_p

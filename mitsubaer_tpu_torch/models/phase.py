@@ -11,7 +11,7 @@ from dataclasses import dataclass
 import torch
 
 from ..core import warp
-from ..core.math import INV_FOURPI, Frame, dot, safe_sqrt
+from ..core.math import INV_FOURPI, Frame, dot, safe_sqrt, take_rows
 from ..scene.types import PH_HG, PhaseTable
 
 
@@ -25,7 +25,7 @@ def eval(ph: PhaseTable, idx, wi, wo):
     """Phase value (== pdf) of medium `idx` for (N, 3) directions. Only
     isotropic and HG are ported; callers gate on the scene's phase kinds."""
     i = torch.clamp(idx, 0, ph.kind.shape[0] - 1).to(torch.int64)
-    kind, g = ph.kind[i], ph.g[i]
+    kind, g = ph.kind[i], take_rows(ph.g, i)
     cos_forward = dot(wi, wo)
     return torch.where(kind == PH_HG, hg_pdf(g, -cos_forward),
                        torch.full_like(cos_forward, INV_FOURPI))
@@ -40,11 +40,17 @@ class PhaseSample:
 
 def sample(ph: PhaseTable, idx, wi, u2) -> PhaseSample:
     """Sample a propagation direction after scattering from propagation
-    direction wi (unit): HG about +wi, or the uniform sphere."""
+    direction wi (unit): HG about +wi, or the uniform sphere. In the
+    differentiable form of the JAX package (phase.py:178-189): wo is
+    detached, the weight p / max(p.detach(), 1e-12) is 1 in value and keeps
+    the pathwise derivative with respect to g, and the pdf stays attached
+    for the integrator's score term."""
     i = torch.clamp(idx, 0, ph.kind.shape[0] - 1).to(torch.int64)
-    kind, g = ph.kind[i], ph.g[i]
+    kind, g = ph.kind[i], take_rows(ph.g, i)
     wo_hg = Frame.from_normal(wi).to_world(warp.square_to_hg(g, u2))
     wo = torch.where((kind == PH_HG).unsqueeze(-1), wo_hg,
                      warp.square_to_uniform_sphere(u2))
+    wo = wo.detach()
     p = eval(ph, idx, wi, wo)
-    return PhaseSample(wo=wo, pdf=p, weight=p / torch.clamp_min(p, 1e-12))
+    return PhaseSample(wo=wo, pdf=p,
+                       weight=p / torch.clamp_min(p.detach(), 1e-12))

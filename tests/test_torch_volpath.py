@@ -159,11 +159,12 @@ def test_woodcock_matches_jax():
             jrng.make_sampler(jnp.uint32(9), lanes, 3), a,
             bricks=jmedium.DensityBricks(js.media)))(o, d, t_max, active)
     _, tsa, tss, tscale = tmedium.params(ts.media, torch.from_numpy(idx))
-    hit_t, dist_t, w_t, p_t, smp_t, iters = tmedium.sample_distance_woodcock(
+    out = tmedium.sample_distance_woodcock(
         ts.media, tsa, tss, tscale, torch.from_numpy(o), torch.from_numpy(d),
         torch.from_numpy(t_max),
         trng.make_sampler(9, torch.from_numpy(lanes.astype(np.int64)), 3),
         torch.from_numpy(active))
+    hit_t, dist_t, w_t, p_t, smp_t, iters, _ = out
     dim_j = np.asarray(smp_j.dim)
     np.testing.assert_array_equal(smp_t.dim.numpy(), dim_j)
     assert iters == int(dim_j[0]) // 8 > 1      # 4 steps of 2 draws each
