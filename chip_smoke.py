@@ -85,13 +85,39 @@ Phases (any failure raises and the script exits non-zero):
      sigma_s must move toward its target;
  18. loss_and_grad at 16^2, density 16^3, depth 4, sppc 4 on the card and
      on the CPU: the loss within rtol 1e-4, each gradient field within
-     GRAD_CARD_CPU_TOL of its largest CPU magnitude.
+     GRAD_CARD_CPU_TOL of its largest CPU magnitude;
+ 19. the eikonal training path at full width: bench.py::bench_er_grad's
+     configuration (radial RIF, 32^2 spp 2, 2,048 lanes, depth 4, h 1e-2,
+     er_maxsteps 192, 8 BVP restarts), the gradient of mean(sink) of
+     volpath_er.li(differentiable=True) with respect to rif_params, twice
+     (seeds 0 and 1): finite, p0, a and w non-zero, kernel E launched (in
+     the detached BVP solves) and kernel D not; each call's wall, fwd+bwd
+     samples/s, peak device memory and the launches; the central
+     difference of the loss along rif_params (eps 1e-3, common random
+     numbers, the gradient's solved BVP connections held) against the
+     gradient at test_inverse.py's tolerance. Kernel
+     E's calls in the first run are captured (calls 0, 4, 16 and 64 of
+     each lane count, and its busiest): every output equal to its plain
+     version on the same inputs, and E timed at the busiest;
+ 20. the spline RIF's voxel gradient: test_inverse.py's scene (a Gaussian
+     index bump, sphere SDF, point light, h 0.05, er_maxsteps 96, depth 4)
+     with a 32^3 grid at 64^2 sppc 2, twice: finite, non-zero, more than
+     0.3 of its mass on the interior voxels, no kernel launched; the same
+     measures as phase 19. Then at test_inverse.py's own size (12^3, 8^2,
+     sppc 4, seed 3) its directional finite-difference check, the
+     connections held as in phase 19;
+ 21. phase 19's configuration at 8^2 sppc 2, and phase 20's gradient at
+     test_inverse.py's size, on the card and on the CPU at the card's
+     solved BVP connections: the loss and each gradient within
+     ER_CARD_CPU_TOL.
 Prints one JSON line of per-kernel results (time, bound, plain version,
 library yardstick, launches on the main paths; for A also its launches on
 the loop road and its checks and times at the loop road's point counts,
 and its launches in a training step; for B, C and D also the device time
 and registers; for A' its clustered time and its checks and times at
-the training step's point counts), then the contract line
+the training step's point counts; for E its launches in an eikonal
+gradient, its checks and times at that gradient's calls, and the walls of
+phases 19 and 20), then the contract line
 {"ok": true, "device": {...}} last.
 """
 from __future__ import annotations
@@ -158,6 +184,17 @@ A_BWD_TOL = {"uniform": 1e-5, "clustered": 1e-4, "step": 1e-5}
 # its largest CPU magnitude: ulp-level exp/log differences and the atomics'
 # order (measured on an H100: at most 1.6e-6, no collision test flipped)
 GRAD_CARD_CPU_TOL = 1e-4
+# phases 17 and 18: the parameters the loop road reads (not `rif`, which
+# only the eikonal road reads)
+LOOP_FIELDS = ("sigma_a", "sigma_s", "density", "g")
+# phase 21: the eikonal gradients, card against CPU at 8x8 at the card's
+# solved BVP connections: the loss within ER_CARD_CPU_TOL[0] relative,
+# each gradient within ER_CARD_CPU_TOL[1] of its largest CPU magnitude, as
+# phase 18 holds the loop road (measured on an H100: the loss within
+# 4.95e-7, the gradients within 8.8e-7 radial and 4.6e-6 spline)
+ER_CARD_CPU_TOL = (1e-4, 1e-4)
+# phases 19 and 20: tests/test_inverse.py's finite-difference tolerance
+ER_FD_RTOL, ER_FD_ATOL = 0.5, 5e-3
 
 
 def _cuda_ms(fn, reps):
@@ -804,6 +841,7 @@ def main() -> int:
     _megatrack_phases(dev, card, results, build_log)
     _loop_phases(dev, card, results)
     _training_phases(dev, card, results)
+    _er_grad_phases(dev, card, results)
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -1341,7 +1379,7 @@ def _training_phases(dev, card, results):
                 leaf.grad = g
             opt.step()
             mags = {f: getattr(grads, f).abs().max().item()
-                    for f in diff_m.MediumParams._fields}
+                    for f in LOOP_FIELDS}
             steps.append(dict(wall=wall, peak=peak, launches=launches,
                               counts=counts[0], loss=loss.item()))
             print(f"training step {i}: {cfg.width}x{cfg.height} sppc {sppc} "
@@ -1394,7 +1432,7 @@ def _training_phases(dev, card, results):
                                           s_target, device="cpu")
     rel_loss = abs(loss_g.item() / loss_c.item() - 1)
     rel = {}
-    for f in diff_m.MediumParams._fields:
+    for f in LOOP_FIELDS:
         want = getattr(grad_c, f)
         rel[f] = ((getattr(grad_g, f).cpu() - want).abs().max()
                   / want.abs().max()).item()
@@ -1558,6 +1596,356 @@ def _er_bench_scene(presets, res, spp, max_steps):
         er_stepsize=1e-2, filter="box")
     return scene, replace(cfg, er_maxsteps=max_steps, bvp_restarts=8,
                           er_bvp_hscale=4.0)
+
+
+def _er_loss(scene, cfg, sppc, seed, dev, solves=None, **media):
+    """bench.py::bench_er_grad's loss: the mean of
+    volpath_er.li(differentiable=True)'s sink over res^2 x sppc lanes (lane
+    s npix + pixel is sample s of its pixel), with the media fields in
+    `media` (rif_params, rif_coeff) replaced. `solves`, a dict, holds
+    the solved BVP connections across calls (li's private hook): the first
+    call fills it, a later one at the same seed reuses them."""
+    from dataclasses import replace
+
+    import torch
+
+    from mitsubaer_tpu_torch.core import rng
+    from mitsubaer_tpu_torch.integrators import volpath_er
+    from mitsubaer_tpu_torch.models import sensor as sensor_m
+
+    scene = replace(scene, media=replace(scene.media, **media))
+    H, W = cfg.height, cfg.width
+    npix = H * W
+    pixel = torch.arange(npix, device=dev).repeat(sppc)
+    sample_index = torch.repeat_interleave(torch.arange(sppc, device=dev),
+                                           npix)
+    smp = rng.make_sampler(seed, pixel, sample_index)
+    jitter, smp = rng.next_2d(smp)
+    px = (pixel % W).to(torch.float32) + jitter[:, 0]
+    py = (pixel // W).to(torch.float32) + jitter[:, 1]
+    rays = sensor_m.sample_rays(scene.sensor, px, py, W, H)
+    volpath_er._held_solves = solves
+    try:
+        sink, _, _ = volpath_er.li(scene, cfg, rays.o, rays.d, smp,
+                                   differentiable=True)
+    finally:
+        volpath_er._held_solves = None
+    return sink.mean()
+
+
+def _er_grad_scene(res):
+    """bench.py::bench_er_grad's configuration at res^2 (spp 2)."""
+    from dataclasses import replace
+
+    from mitsubaer_tpu_torch.models import eikonal as ek
+    from mitsubaer_tpu_torch.scene import presets
+
+    scene, cfg = presets.refractive_sphere(
+        res=res, spp=2, max_depth=4, rif_kind=ek.RIF_RADIAL,
+        rif_params=(1.33, 0.1, 0.5, 0.0, 0.0, 0.0), er_stepsize=1e-2,
+        emitter="point", filter="box")
+    return scene, replace(cfg, er_maxsteps=192, bvp_restarts=8)
+
+
+def _spline_scene(res, n_grid):
+    """tests/test_inverse.py::spline_rif_sphere with an n_grid^3 grid
+    sampled from its Gaussian index bump over [-1.2, 1.2]^3."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from mitsubaer_tpu_torch.core import transform as tf
+    from mitsubaer_tpu_torch.models import eikonal as ek
+    from mitsubaer_tpu_torch.scene import types as T
+    from mitsubaer_tpu_torch.scene.build import SceneBuilder
+
+    zs = np.linspace(-1.2, 1.2, n_grid)
+    Z, Y, X = np.meshgrid(zs, zs, zs, indexing="ij")
+    rif = (1.33 + 0.15 * np.exp(-(X**2 + Y**2 + Z**2) / 0.36)).astype(
+        np.float32)
+    b = SceneBuilder()
+    med = b.add_medium(
+        kind=T.MED_REFRACTIVE, sigma_a=(0.02,) * 3, sigma_s=(0.4,) * 3,
+        rif_kind=ek.RIF_SPLINE, rif=rif, rif_aabb=((-1.2,) * 3, (1.2,) * 3),
+        sdf_kind=ek.SDF_SPHERE, sdf_params=(0.0, 0.0, 0.0, 1.0))
+    b.add_sphere([0, 0, 0], 1.0, bsdf=-1, interior=med)
+    b.add_emitter(T.EM_POINT, radiance=(40.0,) * 3, position=(2.0, 2.0, -2.0))
+    b.set_perspective_sensor(tf.look_at([0, 0, -3.5], [0, 0, 0], [0, 1, 0]),
+                             40)
+    cfg = replace(b.config, width=res, height=res, spp=1, max_depth=4,
+                  integrator="volpath_er", er_stepsize=0.05, er_maxsteps=96)
+    return b.build(), cfg
+
+
+def _er_grad_step(scene, cfg, sppc, seed, dev, field):
+    """(loss, gradient, wall s, peak device bytes, launches of D and E, the
+    solved connections) of one eikonal gradient: the loss built, then
+    torch.autograd.grad with respect to the media's `field` (rif_params or
+    rif_coeff). The counts are set to 0 just before and read just after."""
+    import torch
+
+    from mitsubaer_tpu_torch.models import ermarch
+
+    leaf = getattr(scene.media, field).detach().clone().requires_grad_()
+    solves = {}
+    ermarch.trace.launches = ermarch.sens_march.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    loss = _er_loss(scene, cfg, sppc, seed, dev, solves, **{field: leaf})
+    (grad,) = torch.autograd.grad(loss, leaf)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (loss.detach(), grad, wall, torch.cuda.max_memory_allocated(dev),
+            (ermarch.trace.launches, ermarch.sens_march.launches), solves)
+
+
+def _er_fd(scene, cfg, sppc, seed, dev, field, direction, step, what,
+           card, eps=1e-3):
+    """tests/test_inverse.py's check, at the connections that the gradient
+    `step` (an _er_grad_step at this seed) solved: the central difference
+    of the loss along `direction` (common random numbers, the BVP
+    directions, convergence and weights of `step` held) against the
+    gradient's directional derivative. With the connections solved anew
+    the difference is the Levenberg stop test's: its solutions sit just
+    inside bvp_tol2, so any change of the RIF flips some of them, and
+    their restart weights (up to 1 / rr_weight) swamp the transport (on
+    the card at 32^2: 0.70 against a derivative of 0.062, PERF.md). eps
+    is a tenth of test_inverse.py's 0.01: at 0.01 along rif_params at
+    32^2 the Fresnel and roulette decisions of a few of the 2,048 lanes
+    flip too (0.022 against 0.113 on the CPU; 0.108 at 1e-3)."""
+    import numpy as np
+    import torch
+
+    base = getattr(scene.media, field)
+    directional = (step[1] * direction).sum().item()
+    with torch.no_grad():
+        f = [_er_loss(scene, cfg, sppc, seed, dev, step[5],
+                      **{field: base + s * eps * direction}).item()
+             for s in (1, -1)]
+    fd = (f[0] - f[1]) / (2 * eps)
+    print(f"{what}: directional derivative {directional:.6e}, central "
+          f"difference at the solved connections {fd:.6e} (eps {eps}) "
+          f"[{card}]", flush=True)
+    if not (np.isfinite(directional) and np.isfinite(fd)):
+        raise AssertionError(f"{what}: non-finite derivative")
+    if not (np.sign(directional) == np.sign(fd) or abs(fd) < 1e-4):
+        raise AssertionError(f"{what}: the gradient and the finite "
+                             f"difference differ in sign")
+    if not abs(directional - fd) <= ER_FD_ATOL + ER_FD_RTOL * abs(fd):
+        raise AssertionError(f"{what}: the gradient and the finite "
+                             f"difference disagree")
+
+
+def _er_grad_phases(dev, card, results):
+    """Phases 19-21: the eikonal training path (volpath_er.li with
+    differentiable=True)."""
+    import numpy as np
+    import torch
+
+    from mitsubaer_tpu_torch.models import ermarch
+
+    # ---- phase 19: the eikonal gradient at full width ----
+    scene, cfg = _er_grad_scene(32)
+    scene = scene.to(dev)
+    sppc, lanes = 2, 32 * 32 * 2
+    sens_march, captured = ermarch.sens_march, {}
+
+    def capture(rif, sdf, p1, v, dpdv0, dvdv0, p2, h, max_steps, active):
+        out = sens_march(rif, sdf, p1, v, dpdv0, dvdv0, p2, h, max_steps,
+                         active)
+        # per lane count: [calls, calls 0, 4, 16 and 64, the call with the
+        # most active lanes]
+        seen = captured.setdefault(p1.shape[0], [0, [], None])
+        busy = int(active.sum())
+        if seen[0] in (0, 4, 16, 64) or seen[2] is None or busy > int(
+                seen[2][0][9].sum()):
+            call = ((rif, sdf) + tuple(
+                t.clone() for t in (p1, v, dpdv0, dvdv0, p2)) + (
+                h, max_steps, active.clone()), [t.clone() for t in out])
+            if seen[0] in (0, 4, 16, 64):
+                seen[1].append(call)
+            if seen[2] is None or busy > int(seen[2][0][9].sum()):
+                seen[2] = call
+        seen[0] += 1
+        return out
+
+    # the first call with kernel E's calls captured (the wrapper takes the
+    # launch counts while it stands in), the second one timed
+    capture.launches = 0
+    ermarch.sens_march = capture
+    try:
+        first = _er_grad_step(scene, cfg, sppc, 0, dev, "rif_params")
+    finally:
+        ermarch.sens_march = sens_march
+    step = _er_grad_step(scene, cfg, sppc, 1, dev, "rif_params")
+    loss, grad, wall, peak, launches, _ = step
+    g = grad.cpu()
+    print(f"eikonal gradient (bench_er_grad: radial RIF, 32x32 spp 2, "
+          f"{lanes} lanes, depth 4, h 1e-2, er_maxsteps 192, 8 BVP "
+          f"restarts): first call {first[2]:.3f} s, second {wall:.3f} s, "
+          f"{lanes / wall:.1f} fwd+bwd samples/s, peak device memory "
+          f"{peak / 2**30:.3f} GiB, launches of D and E {launches}, loss "
+          f"{loss.item():.6e}, d loss / d rif_params {g.tolist()} [{card}]",
+          flush=True)
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError("phase 19: a non-finite RIF gradient")
+    if not bool((g[:3] != 0).all()):
+        raise AssertionError("phase 19: a zero p0, a or w gradient")
+    if launches[1] == 0:
+        raise AssertionError("phase 19: kernel E never launched")
+    if launches[0] != 0:
+        raise AssertionError("phase 19: kernel D launched on the "
+                             "differentiable path")
+    _er_fd(scene, cfg, sppc, 1, dev, "rif_params", scene.media.rif_params,
+           step, "phase 19 along rif_params", card)
+    results["er_sens"]["launches_er_grad"] = launches[1]
+    results["er_sens"]["er_grad_shapes"] = _er_grad_kernel_e(captured, card)
+    results["er_sens"]["er_grad_step"] = dict(
+        first_s=first[2], wall_s=wall, samples_per_s=lanes / wall,
+        peak_gib=peak / 2**30)
+
+    # ---- phase 20: the spline RIF's voxel gradient ----
+    s_scene, s_cfg = _spline_scene(64, 32)
+    s_scene = s_scene.to(dev)
+    runs = [_er_grad_step(s_scene, s_cfg, 2, seed, dev, "rif_coeff")
+            for seed in (0, 1)]
+    loss, grad, wall, peak, launches, _ = runs[1]
+    gr = grad.cpu()
+    mass = gr.abs().sum().item()
+    interior = gr[3:-3, 3:-3, 3:-3].abs().sum().item()
+    print(f"spline RIF gradient (test_inverse's scene, 32^3 grid, 64x64 "
+          f"sppc 2, {64 * 64 * 2} lanes, depth 4, h 0.05, er_maxsteps 96): "
+          f"first call {runs[0][2]:.3f} s, second {wall:.3f} s, "
+          f"{64 * 64 * 2 / wall:.1f} fwd+bwd samples/s, peak device memory "
+          f"{peak / 2**30:.3f} GiB, launches of D and E {launches}, loss "
+          f"{loss.item():.6e}, max |grad| {gr.abs().max().item():.4e}, "
+          f"interior share {interior / max(mass, 1e-30):.4f} [{card}]",
+          flush=True)
+    if not bool(torch.isfinite(gr).all()) or mass == 0:
+        raise AssertionError("phase 20: the RIF voxel gradient is "
+                             "non-finite or zero")
+    if not interior > 0.3 * mass:
+        raise AssertionError("phase 20: the interior voxels carry too "
+                             "little of the gradient")
+    if launches != (0, 0):
+        raise AssertionError("phase 20: a spline march launched a kernel")
+    results["er_sens"]["spline_grad_step"] = dict(
+        first_s=runs[0][2], wall_s=wall, samples_per_s=64 * 64 * 2 / wall,
+        peak_gib=peak / 2**30)
+    # at tests/test_inverse.py's own size
+    j_scene, j_cfg = _spline_scene(8, 12)
+    j_scene = j_scene.to(dev)
+    step = _er_grad_step(j_scene, j_cfg, 4, 3, dev, "rif_coeff")
+    zs = np.linspace(-1, 1, 12)
+    Z, Y, X = np.meshgrid(zs, zs, zs, indexing="ij")
+    bump = torch.from_numpy(np.exp(-(X**2 + Y**2 + Z**2) / 0.5).astype(
+        np.float32)).to(dev)
+    _er_fd(j_scene, j_cfg, 4, 3, dev, "rif_coeff", bump, step,
+           "phase 20 along the smooth bump (12^3 grid, 8x8 sppc 4, seed 3)",
+           card)
+
+    # ---- phase 21: card against CPU (the spline at phase 20's own size,
+    # whose card gradient is in hand) ----
+    r_scene, r_cfg = _er_grad_scene(8)
+    radial = _er_grad_step(r_scene.to(dev), r_cfg, 2, 5, dev, "rif_params")
+    pairs = (
+        ("radial, 8x8 sppc 2", radial,
+         _er_grad_at(r_scene, r_cfg, 2, 5, "rif_params", radial[5])),
+        ("spline, 8x8 sppc 4", step,
+         _er_grad_at(j_scene, j_cfg, 4, 3, "rif_coeff", step[5])))
+    for name, (loss, grad, *_), cpu_out in pairs:
+        card_out = loss.item(), grad.cpu()
+        rel_loss = abs(card_out[0] / cpu_out[0] - 1)
+        scale = cpu_out[1].abs().max().item()
+        rel = (card_out[1] - cpu_out[1]).abs().max().item() / scale
+        print(f"card vs CPU eikonal gradient ({name}): loss rel diff "
+              f"{rel_loss:.2e}, gradient max |diff| / max |CPU| {rel:.3e} "
+              f"(max |CPU| {scale:.4e})", flush=True)
+        if not (rel_loss <= ER_CARD_CPU_TOL[0]
+                and rel <= ER_CARD_CPU_TOL[1]):
+            raise AssertionError(f"card and CPU eikonal gradients disagree "
+                                 f"({name})")
+
+
+def _er_grad_at(scene, cfg, sppc, seed, field, solves):
+    """(loss, gradient) of the eikonal loss on the CPU at the BVP
+    connections that a run on the card solved (`solves`): the
+    devices' Levenberg iterates differ in their last bits, so their
+    solutions' acceptance (the stop and re-find tests) and restart weights
+    could differ on a lane and move the loss by that lane's weighted
+    share; held, what is compared is the transport and its gradient."""
+    import dataclasses
+
+    import torch
+
+    held = {k: {"detached": dataclasses.replace(m["detached"], **{
+        f.name: getattr(m["detached"], f.name).cpu()
+        for f in dataclasses.fields(m["detached"])}),
+        "converged": m["converged"].cpu()} for k, m in solves.items()}
+    scene = scene.to("cpu")
+    leaf = getattr(scene.media, field).detach().clone().requires_grad_()
+    loss = _er_loss(scene, cfg, sppc, seed, "cpu", held, **{field: leaf})
+    (grad,) = torch.autograd.grad(loss, leaf)
+    return loss.item(), grad
+
+
+def _er_grad_kernel_e(captured, card):
+    """Kernel E at the calls phase 19's eikonal gradient made (calls 0, 4,
+    16 and 64 of each lane count, and the one with the most active lanes):
+    each output equal to the plain version on the same inputs, and E timed
+    at the busiest. Returns per lane count its calls in the step, the
+    calls checked, the busiest call's active lanes and steps, the largest
+    difference and the times of E, its bare launch and the plain version,
+    with the bound. These launches come after phase 19's counts were
+    read."""
+    import torch
+
+    from mitsubaer_tpu_torch.models import ermarch
+
+    if not captured:
+        raise AssertionError("phase 19 made no call of kernel E")
+    rows = []
+    for n in sorted(captured):
+        count, taken, busiest = captured[n]
+        taken = taken + [busiest]
+        err = 0.0
+        for args, got in taken:
+            want = ermarch.sens_march_plain(*args)
+            bad = [i for i, (a, b) in enumerate(zip(got, want))
+                   if not torch.equal(a, b)]
+            if bad:
+                raise AssertionError(f"kernel E differs from its plain "
+                                     f"version at {n} lanes in the eikonal "
+                                     f"gradient: outputs {bad}")
+            err = max(err, max((a.float() - b.float()).abs().max().item()
+                               for a, b in zip(got[:6], want[:6])))
+        args = busiest[0]
+        rif, sdf, h, max_steps = args[0], args[1], args[7], args[8]
+        e_in = list(args[2:7]) + [args[9]]
+        launch, outs = _e_bare(rif, sdf, e_in, h, max_steps)
+        launch()
+        torch.cuda.synchronize()
+        trips = outs[-1]
+        ms = _cuda_ms(lambda: ermarch.sens_march(*args), 20)
+        bare_ms = _cuda_ms(launch, 20)
+        plain_ms = _cuda_ms(lambda: ermarch.sens_march_plain(*args), 3)
+        bound = _bound(n * (109 + 113), int(trips.sum())
+                       * OPS_E_STEP[rif.kind])
+        print(f"kernel E in the eikonal gradient at {n} lanes: {count} "
+              f"calls, {len(taken)} checked, every output equal to the "
+              f"plain version (max abs err {err:.3e}); the busiest call "
+              f"({int(args[9].sum())} active lanes, {int(trips.max())} "
+              f"steps): {ms:.4f} ms through the wrapper, bare {bare_ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms "
+              f"({bound[1]}) [{card}]", flush=True)
+        rows.append(dict(n=n, calls=count, checked=len(taken),
+                         active=int(args[9].sum()), steps=int(trips.max()),
+                         max_abs_err=err, ms=ms, bare_ms=bare_ms,
+                         plain_ms=plain_ms, bound_ms=bound[0],
+                         bound_by=bound[1]))
+        del launch, outs
+    return rows
 
 
 if __name__ == "__main__":

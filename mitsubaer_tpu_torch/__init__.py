@@ -18,8 +18,9 @@ JAX render() does:
 The training path, `diff.render` (`render_diff`, `loss_and_grad`,
 `image_grad`), differentiates the loop engine with respect to the medium
 parameters (sigma_a, sigma_s, the density grid, the HG g) and runs on the
-card unless device="cpu" is passed; gradients of the eikonal road wait for
-ROADMAP Queue 1 step 8b.
+card unless device="cpu" is passed. The eikonal road's gradients, with
+respect to the RIF's parameters or its B-spline coefficient grid, come
+from `integrators.volpath_er.li(differentiable=True)`.
 Their hand-written CUDA kernels live in csrc/ and are built by kernels.py
 at first use; on CPU tensors each kernel's plain PyTorch version runs
 instead.

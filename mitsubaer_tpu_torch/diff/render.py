@@ -10,9 +10,17 @@ term. The bounce loop is `volpath.li(differentiable=True)`: each bounce
 under a checkpoint, the tracking loops capped at 64 tests.
 
 Gradients reach sigma_a, sigma_s (per medium), the heterogeneous density
-grid (through kernel A's backward, kernel A') and the HG g. The JAX
-package's `rif` (the B-spline refractive-index grid of the eikonal road)
-waits for ROADMAP Queue 1 step 8b, after the spline RIF (step 7).
+grid (through kernel A's backward, kernel A') and the HG g. `rif`, the
+B-spline refractive-index grid, is read by the eikonal road only.
+
+`render_diff` renders every config with `volpath.li`, as the JAX
+`render_diff` does: that `li` takes `simple` as an argument and never
+reads the config's integrator name, so a "volpath_simple" or "volpath_er"
+config gets the gradients of full `volpath` with MIS. The eikonal road's
+gradients come from `integrators.volpath_er.li(differentiable=True)`, to
+which a caller hands the parameters through the scene (bench.py's
+bench_er_grad and tests/test_inverse.py::render_er_diff build their losses
+so).
 
 `render_diff`, `loss_and_grad` and `image_grad` run on the CUDA card unless
 the caller passes device="cpu"; without a card they raise.
@@ -25,7 +33,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import not_ported
 from ..core import rng
 from ..integrators import volpath as volpath_m
 from ..integrators.render import _device
@@ -34,19 +41,20 @@ from ..scene.types import RenderConfig, Scene
 
 
 class MediumParams(NamedTuple):
-    """The differentiable parameter bundle. The JAX bundle's fifth field,
-    `rif`, waits for step 8b."""
+    """The differentiable parameter bundle."""
 
     sigma_a: torch.Tensor   # (NM, 3)
     sigma_s: torch.Tensor   # (NM, 3)
     density: torch.Tensor   # (nz, ny, nx) heterogeneous density grid
     g: torch.Tensor         # (NM,) HG asymmetry
+    rif: torch.Tensor       # (nz, ny, nx) refractive-index B-spline coeffs
 
 
 def get_params(scene: Scene) -> MediumParams:
     media = scene.media
     return MediumParams(sigma_a=media.sigma_a, sigma_s=media.sigma_s,
-                        density=media.density.data, g=media.phase.g)
+                        density=media.density.data, g=media.phase.g,
+                        rif=media.rif_coeff)
 
 
 def put_params(scene: Scene, p: MediumParams) -> Scene:
@@ -56,13 +64,14 @@ def put_params(scene: Scene, p: MediumParams) -> Scene:
     majorant = (torch.amax(p.density) * torch.amax(media.scale)).detach()
     media = replace(media, sigma_a=p.sigma_a, sigma_s=p.sigma_s,
                     density=replace(media.density, data=p.density),
-                    phase=replace(media.phase, g=p.g), majorant=majorant)
+                    phase=replace(media.phase, g=p.g), rif_coeff=p.rif,
+                    majorant=majorant)
     return replace(scene, media=media)
 
 
 def params_from_numpy(arrays: dict, device=None) -> MediumParams:
     """MediumParams from a dict of numpy arrays named as the JAX bundle's
-    fields (its `rif` is ignored), as float32 tensors on `device`."""
+    fields, as float32 tensors on `device`."""
     return MediumParams(*(
         torch.as_tensor(np.asarray(arrays[f], dtype=np.float32),
                         device=device) for f in MediumParams._fields))
@@ -73,12 +82,9 @@ def render_diff(scene: Scene, params: MediumParams, cfg: RenderConfig,
     """Differentiable forward render of one spp chunk: the (H, W, 3) mean
     radiance over its sppc samples a pixel (box filter), with the
     pixel and sample-index layout of render.py:73-94 (one jitter draw, no
-    aperture draw). `params` may live on another device: they are moved,
-    and gradients flow back to them."""
-    integ = (cfg.integrator if cfg.integrator.startswith("volpath")
-             else "volpath")
-    if integ == "volpath_er":
-        raise not_ported("gradients of the eikonal road (volpath_er)", 8)
+    aperture draw), through `volpath.li` whatever the config's integrator
+    (see the module's docstring). `params` may live on another device:
+    they are moved, and gradients flow back to them."""
     dev = _device(device)
     scene = put_params(scene.to(dev),
                        MediumParams(*(t.to(dev) for t in params)))
@@ -93,8 +99,7 @@ def render_diff(scene: Scene, params: MediumParams, cfg: RenderConfig,
     px = (pixel % W).to(torch.float32) + jitter[:, 0]
     py = (pixel // W).to(torch.float32) + jitter[:, 1]
     rays = sensor_m.sample_rays(scene.sensor, px, py, W, H)
-    sink, _, _ = volpath_m.li(scene, replace(cfg, integrator=integ), rays.o,
-                              rays.d, smp, simple=integ == "volpath_simple",
+    sink, _, _ = volpath_m.li(scene, cfg, rays.o, rays.d, smp,
                               differentiable=True)
     return sink.reshape(sppc, H, W, 3).mean(dim=0)
 

@@ -1,6 +1,6 @@
 """Refractive radiative transfer: volumetric path tracing with curved rays
 through a refractive-index field (port of
-mitsubaer_tpu/integrators/volpath_er.py, forward and steady-state).
+mitsubaer_tpu/integrators/volpath_er.py, steady-state).
 
 Camera paths travel straight outside the refractive body, refract into it
 through an h-dielectric boundary (Fresnel by the RIF at the hit point),
@@ -11,17 +11,24 @@ refract or reflect out. Radiance is compressed by (n_end / n_start)^2 along
 each curved segment, and failed connections are russian-rouletted, as in
 the reference (edge.cpp:91-92, heterogeneousrefractive.cpp:1146-1155).
 
-The bounce loop runs on the host, one `body` a bounce, until no lane is
-active: the JAX `li`'s while loop, with `iters` counted as it counts them
-(the BVP restart seed hashes it). The light image (`trace_er_particles`),
-transient sinks, `differentiable=True`, `er_f64` and `medium_strategies`
-are not ported (ROADMAP Queue 1 steps 7, 8 and 10).
+`li` runs the bounce loop on the host, one `body` a bounce, until no lane
+is active: the JAX `li`'s while loop, with `iters` counted as it counts
+them (the BVP restart seed hashes it). `li(differentiable=True)` is the JAX
+`li`'s differentiable mode: the curved marches and the final integration of
+each BVP solve stay attached to the RIF (its parameter tensor or spline
+coefficients) and to the medium's sigma_a, sigma_s and phase, so the sink
+carries their gradients; each bounce runs under a checkpoint, as JAX's
+checkpointed scan. The light image (`trace_er_particles`), transient
+sinks, `er_f64` and `medium_strategies` are not ported (ROADMAP Queue 1
+steps 7 and 10).
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import torch
+import torch.utils.checkpoint
 
 from .. import not_ported
 from ..core import rng
@@ -92,9 +99,15 @@ def max_iters(cfg: RenderConfig) -> int:
     return 2 * cfg.max_depth + 8
 
 
+# sampler dimensions a bounce draws, on every lane
+DRAWS_PER_BOUNCE = 16
+
+
 def body(scene: Scene, cfg: RenderConfig, s: State, rif: ek.RifField,
-         sdf: ek.SdfField) -> State:
-    """One bounce of every lane (volpath_er.py:131-452)."""
+         sdf: ek.SdfField, differentiable: bool = False,
+         solves: dict | None = None) -> State:
+    """One bounce of every lane (volpath_er.py:131-452). `solves` keeps the
+    differentiable BVP solve's connections by bounce (solve_bvp's memo)."""
     n = s.o.shape[0]
     dev = s.o.device
     eps = common.scene_epsilon(scene)
@@ -185,7 +198,8 @@ def body(scene: Scene, cfg: RenderConfig, s: State, rif: ek.RifField,
     march_dist = torch.where(want_scatter, t_samp, 1e6)
     n_start = ek.rif_value(rif, s.o)
     p_m, v_m, opt_m, geo_m, exited_m, _ = ek.trace_curved(
-        rif, sdf, s.o, s.v, march_dist, h, cfg.er_maxsteps, in_act)
+        rif, sdf, s.o, s.v, march_dist, h, cfg.er_maxsteps, in_act,
+        differentiable=differentiable)
     scattered = in_act & want_scatter & ~exited_m
     exited = in_act & (exited_m | ~want_scatter)
     # boundary refinement for exiting lanes
@@ -228,8 +242,10 @@ def body(scene: Scene, cfg: RenderConfig, s: State, rif: ek.RifField,
     bvp = ek.solve_bvp(
         rif, sdf, p_m, dsm.p, chord, h * cfg.er_bvp_hscale,
         max(int(cfg.er_maxsteps / cfg.er_bvp_hscale), 16), nee_in,
-        tol2=cfg.bvp_tol2, rr_weight=cfg.rr_weight, seed_bits=seed_bits,
-        max_restarts=cfg.bvp_restarts)
+        tol2=cfg.bvp_tol2, differentiable=differentiable,
+        rr_weight=cfg.rr_weight, seed_bits=seed_bits,
+        max_restarts=cfg.bvp_restarts,
+        memo=None if solves is None else solves.setdefault(s.iters, {}))
     conn_w = torch.where(bvp.converged, bvp.weight, 0.0)
     d_in_m = normalize(v_m)
     ph_val = phase_m.eval(media.phase, med_lanes, d_in_m, bvp.dir_to_target)
@@ -333,19 +349,60 @@ def body(scene: Scene, cfg: RenderConfig, s: State, rif: ek.RifField,
         iters=s.iters + 1, sampler=smp)
 
 
-def render_er_pass(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
-                   pass_idx: int):
-    """One spp chunk with the bounce loop driven from the host; returns
-    ((sppc * npix, 3) radiance, (sppc * npix, 2) jitter, bounces run)."""
+def _checkpointed(step, s: State) -> State:
+    """step(s) with its graph dropped after the forward and recomputed in
+    the backward (non-reentrant checkpoint). The sampler is a stateless
+    hash and `iters` rides in the state, so the recomputed bounce draws the
+    same numbers and seeds the same BVP restarts."""
+    return torch.utils.checkpoint.checkpoint(
+        step, s, use_reentrant=False, preserve_rng_state=False)
+
+
+# li(differentiable=True) keeps each bounce's solved BVP connections in a
+# fresh dict, so that the backward's recomputed bounce reuses them. While
+# this is a dict, every such call uses it instead: a call after the first at
+# the same seed then holds the first call's connections (their directions,
+# convergence and weights), as a finite difference at fixed connections
+# needs. Not part of li's interface.
+_held_solves: dict | None = None
+
+
+def li(scene: Scene, cfg: RenderConfig, o, d, sampler: rng.Sampler,
+       pixel=None, differentiable: bool = False):
+    """Radiance along the (N, 3) camera rays (o, d) (volpath_er.py:82-127).
+    `pixel` is accepted as in the JAX `li`, whose transient sinks read it;
+    the steady sink does not. `differentiable`: each bounce under a
+    checkpoint and the marches attached, so the sink carries gradients to
+    the RIF and the medium's coefficients; the backward's recomputed
+    bounce reuses the forward's solved BVP connections. JAX's
+    differentiable loop is a scan of exactly max_iters(cfg) trips; a trip
+    after the last lane stopped changes nothing but the sampler, so the
+    loop stops there and advances the sampler by the draws of the trips
+    not run. Returns the (N, 3) sink, the sampler and the bounces run."""
     check_supported(cfg)
     emitter_m.check_supported(scene)
-    rays, jitter, smp = common.camera_samples(scene, cfg, sppc, seed,
-                                              pass_idx)
     rif = ek.rif_from_media(scene.media)
     sdf = ek.sdf_from_media(scene.media)
-    state = new_state(rays.o, rays.d, smp)
-    for _ in range(max_iters(cfg)):
-        state = body(scene, cfg, state, rif, sdf)
-        if not bool(state.active.any()):
-            break
-    return state.sink, jitter, state.iters
+    solves = None
+    if differentiable:
+        solves = {} if _held_solves is None else _held_solves
+    step = functools.partial(body, scene, cfg, rif=rif, sdf=sdf,
+                             differentiable=differentiable, solves=solves)
+    s = new_state(o, d, sampler)
+    while s.iters < max_iters(cfg) and bool(s.active.any()):
+        s = _checkpointed(step, s) if differentiable else step(s)
+    smp = s.sampler
+    if differentiable:
+        smp = medium_m.skip_draws(
+            smp, DRAWS_PER_BOUNCE * (max_iters(cfg) - s.iters))
+    return s.sink, smp, s.iters
+
+
+def render_er_pass(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
+                   pass_idx: int):
+    """One spp chunk through `li`; returns ((sppc * npix, 3) radiance,
+    (sppc * npix, 2) jitter, bounces run)."""
+    rays, jitter, smp = common.camera_samples(scene, cfg, sppc, seed,
+                                              pass_idx)
+    sink, _, bounces = li(scene, cfg, rays.o, rays.d, smp)
+    return sink, jitter, bounces

@@ -10,27 +10,41 @@ velocity-Verlet step of size h is (er_step, heterogeneousrefractive.cpp:653)
 Curved NEE solves for the initial velocity that joins a medium vertex to a
 target point with a batched Levenberg-Marquardt iteration over the endpoint
 error, whose Jacobian comes from dp/dv0 and dv/dv0 carried along the ray
-(er_derivativestep, :798-814). The two march loops run in kernels D and E
-(models/ermarch.py); everything around them is plain PyTorch.
+(er_derivativestep, :798-814).
 
-Fields: the analytic RIFs constant / linear / radial-Gaussian and the
-analytic sphere / box SDFs. Their parameters live on the host as float32
-values, so the kernels take them by value. The acoustic RIF, the spline RIF
-and SDF, `differentiable=True` and float64 are not ported (ROADMAP Queue 1
-steps 7 and 8).
+Fields: the analytic RIFs constant / linear / radial-Gaussian, the
+analytic sphere / box SDFs, and the cubic B-spline RIF and SDF over a
+coefficient grid (core/spline.py). The acoustic RIF and float64 are not
+ported (ROADMAP Queue 1 step 7).
 
-Every sum is written out in the order of the kernels' CUDA source, so that
-kernel and plain version round alike.
+The two march loops run in kernels D and E (models/ermarch.py) where the
+JAX package runs its Pallas kernels (`_er_kernel_ok` and its lax.cond on
+the kind): in forward mode, with an analytic RIF of kind <= RIF_RADIAL and
+an analytic SDF. Everything else, the differentiable marches and every
+spline march, runs the kernels' plain versions (`ermarch.trace_plain`,
+`ermarch.sens_march_plain`), which are the JAX package's XLA loops in
+PyTorch. The route follows from the mode and the fields alone
+(`kernel_route`).
+
+`differentiable=True` keeps autograd attached through the marches: to the
+RIF's parameter tensor, which `rif_from_media` keeps where it requires
+grad, and to the spline coefficients. The analytic RIF is then computed
+from that tensor in the JAX package's order; without it, from float32 host
+values in the order of the kernels' CUDA source, so that kernel and plain
+version round alike. `solve_bvp(differentiable=True)` solves on detached
+fields and inputs (kernel E for the radial RIF on the card) and integrates
+once, attached, from the solution.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field, replace
+from typing import Optional
 
 import numpy as np
 import torch
 
 from .. import not_ported
-from ..core import warp
+from ..core import spline, warp
 from ..core.math import Frame, dot, length, normalize, safe_sqrt, sgn
 from ..core.rng import M32, _hash_u32, _u32_to_float
 from ..scene.types import Media
@@ -39,33 +53,44 @@ RIF_CONST = 0
 RIF_LINEAR = 1    # n = p0 + g . p                   params [p0, gx, gy, gz]
 RIF_RADIAL = 2    # n = p0 + a exp(-|p-c|^2 / w^2)   params [p0, a, w, cx, cy, cz]
 RIF_ACOUSTIC = 3
-RIF_SPLINE = 4
+RIF_SPLINE = 4    # cubic B-spline over the media's rif_coeff
 
 SDF_NONE = 0      # always outside
 SDF_SPHERE = 1    # params [cx, cy, cz, radius]
 SDF_BOX = 2       # params [cx, cy, cz, hx, hy, hz]
-SDF_SPLINE = 3
+SDF_SPLINE = 3    # cubic B-spline over the media's sdf_coeff
 
 
 def _f32(x) -> float:
     return float(np.float32(x))
 
 
+def _params8(params) -> tuple:
+    return tuple(_f32(x) for x in (tuple(params) + (0.0,) * 8)[:8])
+
+
+def _detached_grid(grid):
+    return None if grid is None else grid._replace(coeff=grid.coeff.detach())
+
+
 @dataclass(frozen=True)
 class RifField:
-    """An analytic RIF: kind and 8 float32 parameters, on the host."""
+    """A RIF: its kind and 8 parameters as float32 host values (kernels D
+    and E take them by value); `tensor`, the (8,) parameters they were read
+    from where a gradient is wanted; `grid`, the spline coefficients where
+    the media hold a grid (JAX: coeff.size > 1)."""
 
     kind: int
     params: tuple
+    tensor: Optional[torch.Tensor] = field(default=None, compare=False)
+    grid: Optional[spline.SplineGrid3D] = field(default=None, compare=False)
 
     def __post_init__(self):
-        if self.kind in (RIF_ACOUSTIC, RIF_SPLINE):
-            name = "acoustic" if self.kind == RIF_ACOUSTIC else "spline"
-            raise not_ported(f"the {name} RIF", 7)
-        if self.kind not in (RIF_CONST, RIF_LINEAR, RIF_RADIAL):
+        if self.kind == RIF_ACOUSTIC:
+            raise not_ported("the acoustic RIF", 7)
+        if self.kind not in (RIF_CONST, RIF_LINEAR, RIF_RADIAL, RIF_SPLINE):
             raise ValueError(f"unknown RIF kind {self.kind}")
-        object.__setattr__(self, "params", tuple(
-            _f32(x) for x in (tuple(self.params) + (0.0,) * 8)[:8]))
+        object.__setattr__(self, "params", _params8(self.params))
 
     def radial_constants(self):
         """(1/w^2, -2/w^2) with w^2 floored at 1e-12, in float32 as the
@@ -74,29 +99,52 @@ class RifField:
         w2 = np.maximum(w * w, np.float32(1e-12))
         return float(np.float32(1.0) / w2), float(np.float32(-2.0) / w2)
 
+    def detached(self) -> "RifField":
+        return replace(self, tensor=None, grid=_detached_grid(self.grid))
+
 
 @dataclass(frozen=True)
 class SdfField:
-    """An analytic SDF (negative inside): kind and 8 float32 parameters."""
+    """An SDF (negative inside): kind, 8 float32 parameters and, where the
+    media hold one, the spline grid."""
 
     kind: int
     params: tuple
+    grid: Optional[spline.SplineGrid3D] = field(default=None, compare=False)
 
     def __post_init__(self):
-        if self.kind == SDF_SPLINE:
-            raise not_ported("the spline SDF", 7)
-        if self.kind not in (SDF_NONE, SDF_SPHERE, SDF_BOX):
+        if self.kind not in (SDF_NONE, SDF_SPHERE, SDF_BOX, SDF_SPLINE):
             raise ValueError(f"unknown SDF kind {self.kind}")
-        object.__setattr__(self, "params", tuple(
-            _f32(x) for x in (tuple(self.params) + (0.0,) * 8)[:8]))
+        object.__setattr__(self, "params", _params8(self.params))
+
+    def detached(self) -> "SdfField":
+        return replace(self, grid=_detached_grid(self.grid))
+
+
+def _grid(coeff, lo, hi):
+    return spline.SplineGrid3D(coeff, lo, hi) if coeff.numel() > 1 else None
 
 
 def rif_from_media(media: Media) -> RifField:
-    return RifField(int(media.rif_kind), tuple(media.rif_params.tolist()))
+    prm = media.rif_params
+    return RifField(int(media.rif_kind), tuple(prm.detach().tolist()),
+                    prm if prm.requires_grad else None,
+                    _grid(media.rif_coeff, media.rif_min, media.rif_max))
 
 
 def sdf_from_media(media: Media) -> SdfField:
-    return SdfField(int(media.sdf_kind), tuple(media.sdf_params.tolist()))
+    return SdfField(int(media.sdf_kind), tuple(media.sdf_params.tolist()),
+                    _grid(media.sdf_coeff, media.sdf_min, media.sdf_max))
+
+
+def kernel_route(rif: RifField, sdf: SdfField, differentiable: bool) -> bool:
+    """Whether the marches run in kernels D and E (the JAX package's
+    `_er_kernel_ok` with its lax.cond on kind <= RIF_RADIAL, eikonal.py:
+    344-376): forward mode, an analytic RIF of kind <= RIF_RADIAL and an
+    analytic SDF (no grid in the media). Elsewhere their plain versions
+    march."""
+    return (not differentiable and rif.grid is None and sdf.grid is None
+            and rif.kind <= RIF_RADIAL)
 
 
 # ---------------------------------------------------------------------------
@@ -104,6 +152,13 @@ def sdf_from_media(media: Media) -> SdfField:
 # ---------------------------------------------------------------------------
 def _rif(f: RifField, p, need_hess: bool):
     """(value (N,), gradient (N, 3), Hessian (N, 3, 3) or None)."""
+    if f.kind == RIF_SPLINE and f.grid is not None:
+        if need_hess:
+            return spline.value_gradient_hessian(f.grid, p)
+        v, g = spline.value_gradient(f.grid, p)
+        return v, g, None
+    if f.tensor is not None:
+        return _rif_attached(f.kind, f.tensor, p, need_hess)
     x, y, z = p[..., 0], p[..., 1], p[..., 2]
     q = f.params
     zeros = torch.zeros_like(x)
@@ -125,12 +180,33 @@ def _rif(f: RifField, p, need_hess: bool):
     if f.kind == RIF_LINEAR:
         val = q[0] + x * q[1] + y * q[2] + z * q[3]
         g = torch.stack([zeros + q[1], zeros + q[2], zeros + q[3]], -1)
-    else:
+    else:   # constant, and the spline kind without a grid (as in JAX)
         val = zeros + q[0]
         g = torch.zeros_like(p)
     hess = torch.zeros(p.shape + (3,), dtype=p.dtype,
                        device=p.device) if need_hess else None
     return val, g, hess
+
+
+def _rif_attached(kind: int, prm, p, need_hess: bool):
+    """The analytic RIF from its (8,) parameter tensor, in the JAX
+    package's order (_rif_analytic, eikonal.py:153-236)."""
+    zero33 = p.new_zeros(p.shape + (3,)) if need_hess else None
+    if kind == RIF_RADIAL:
+        w2 = torch.clamp_min(prm[2] * prm[2], 1e-12)
+        dp = p - prm[3:6]
+        e = prm[1] * torch.exp(-dot(dp, dp) / w2)
+        g = (-2.0 / w2) * e.unsqueeze(-1) * dp
+        hess = None
+        if need_hess:
+            eye = torch.eye(3, dtype=p.dtype, device=p.device)
+            hess = (-2.0 / w2) * (e[..., None, None] * eye
+                                  + dp.unsqueeze(-1) * g.unsqueeze(-2))
+        return prm[0] + e, g, hess
+    if kind == RIF_LINEAR:
+        return prm[0] + dot(p, prm[1:4].expand(p.shape)), \
+            prm[1:4].expand(p.shape), zero33
+    return prm[0].expand(p.shape[:-1]), torch.zeros_like(p), zero33
 
 
 def rif_value(f: RifField, p):
@@ -147,9 +223,12 @@ def rif_value_grad_hess(f: RifField, p):
 
 
 def sdf_value(f: SdfField, p):
-    """Signed distance, negative inside; SDF_NONE is 1 (outside)."""
+    """Signed distance, negative inside; SDF_NONE (and a spline kind
+    without a grid) is 1, outside."""
     q = f.params
-    if f.kind == SDF_NONE:
+    if f.kind == SDF_SPLINE and f.grid is not None:
+        return spline.value(f.grid, p)
+    if f.kind in (SDF_NONE, SDF_SPLINE):
         return torch.ones_like(p[..., 0])
     d = (p[..., 0] - q[0], p[..., 1] - q[1], p[..., 2] - q[2])
     if f.kind == SDF_SPHERE:
@@ -165,6 +244,8 @@ def sdf_value(f: SdfField, p):
 
 
 def sdf_gradient(f: SdfField, p):
+    if f.kind == SDF_SPLINE and f.grid is not None:
+        return spline.value_gradient(f.grid, p)[1]
     q = f.params
     dp = p - torch.tensor(q[:3], dtype=p.dtype, device=p.device)
     if f.kind == SDF_SPHERE:
@@ -247,12 +328,17 @@ def er_derivative_step(f: RifField, p, v, dpdv0, dvdv0, h):
 def trace_curved(rif: RifField, sdf: SdfField, p, v, distance, h,
                  max_steps: int, active, differentiable: bool = False):
     """March curved rays `distance` of arc length, stopping at the medium
-    boundary (trace(), :671-691); kernel D on the card. Returns
-    (p, v, optical_len, dist_marched, exited, steps)."""
-    if differentiable:
-        raise not_ported("differentiable=True", 8)
+    boundary (trace(), :671-691): kernel D on the kernel route, else its
+    plain PyTorch loop, the JAX package's XLA march (_trace_curved_xla,
+    :379-414), attached in differentiable mode. JAX's differentiable form
+    is a scan of exactly max_steps self-masking trips; the march draws no
+    random numbers, so stopping once no lane runs gives the same values.
+    Returns (p, v, optical_len, dist_marched, exited, steps)."""
     from . import ermarch
-    return ermarch.trace(rif, sdf, p, v, distance, h, max_steps, active)
+    if kernel_route(rif, sdf, differentiable):
+        return ermarch.trace(rif, sdf, p, v, distance, h, max_steps, active)
+    return ermarch.trace_plain(rif, sdf, p, v, distance, h, max_steps,
+                               active)
 
 
 def refine_boundary(rif: RifField, sdf: SdfField, p, v, h, n_bisect: int = 10):
@@ -289,38 +375,72 @@ def boundary_velocity(v, N, n_in, n_out):
 
 def integrate_with_sensitivities(rif: RifField, sdf: SdfField, p1, v0, p2,
                                  h, max_steps: int, active,
-                                 differentiable: bool = False):
+                                 differentiable: bool = False,
+                                 jacobian: bool = True):
     """computefdfBDPT (:816-939): march from p1 with initial velocity v0
     until the ray passes the plane through p2 or leaves the shape (kernel E
-    on the card), then the endpoint error and its Jacobian w.r.t. v0.
-    Lanes that leave refract and run on straight to the point closest to p2.
-    Returns (err, J, exited, opt, geo_inside, geo_total, v_end)."""
-    if differentiable:
-        raise not_ported("differentiable=True", 8)
-    from . import ermarch
+    on the kernel route, else its plain PyTorch loop, the JAX package's
+    _march_xla, :506-537, attached in differentiable mode), then the
+    endpoint error and its Jacobian w.r.t. v0. Lanes that leave refract
+    and run on straight to the point closest to p2. Returns (err, J,
+    exited, opt, geo_inside, geo_total, v_end).
 
+    jacobian=False is for callers that drop J (the final measurement of
+    solve_bvp): J is None, and off the kernel route the march carries no
+    sensitivities (sens_march_plain with dpdv0 None). The other outputs do
+    not read them, so they are the same; the JAX package leaves that work
+    to XLA's dead-code elimination."""
     n = p1.shape[0]
-    eye = torch.eye(3, dtype=p1.dtype, device=p1.device).expand(n, 3, 3)
+    on_kernel = kernel_route(rif, sdf, differentiable)
     # scale v0 to |v| = n(p1), carrying the projection's Jacobian (:846-851)
     r0 = rif_value(rif, p1)
     nv = length(v0)
     nvc = torch.clamp_min(nv, 1e-12)
-    dvdv0 = (r0 / nvc ** 3)[..., None, None] * (
-        (nv ** 2)[..., None, None] * eye - _outer(v0, v0))
     v = v0 / nvc.unsqueeze(-1) * r0.unsqueeze(-1)
-    dpdv0 = torch.zeros((n, 3, 3), dtype=p1.dtype, device=p1.device)
-    p, v, dpdv0, dvdv0, opt, marched, exited, _ = ermarch.sens_march(
+    dpdv0 = dvdv0 = None
+    if jacobian or on_kernel:
+        eye = torch.eye(3, dtype=p1.dtype, device=p1.device).expand(n, 3, 3)
+        dvdv0 = (r0 / nvc ** 3)[..., None, None] * (
+            (nv ** 2)[..., None, None] * eye - _outer(v0, v0))
+        dpdv0 = torch.zeros((n, 3, 3), dtype=p1.dtype, device=p1.device)
+    from . import ermarch
+    march = ermarch.sens_march if on_kernel else ermarch.sens_march_plain
+    p, v, dpdv0, dvdv0, opt, marched, exited, _ = march(
         rif, sdf, p1, v, dpdv0, dvdv0, p2, h, max_steps, active)
 
-    # exited lanes: dt_b/dv0 from the implicit boundary condition (:920-927)
+    # exited lanes: refract and run on straight to the point closest to p2
     N_b = normalize(sdf_gradient(sdf, p))
     nb = rif_value(rif, p)
+    v_refr, tir = boundary_velocity(v, N_b, nb, torch.ones_like(nb))
+    extra_t = -dot(v_refr, p - p2) / torch.clamp_min(dot(v_refr, v_refr),
+                                                    1e-12)
+    p_ext = p + extra_t.unsqueeze(-1) * v_refr
+    # interior lanes: the closest point of approach to p2 along the ray
+    if jacobian:
+        n_end, dvdt_in = rif_value_grad(rif, p)
+    else:
+        n_end = rif_value(rif, p)
+    dpdt_in = v / n_end.unsqueeze(-1)
+    ex = exited.unsqueeze(-1)
+    v_eff = torch.where(ex, v_refr, v)
+    tstar_in = -dot(p - p2, dpdt_in) / torch.clamp_min(
+        dot(dpdt_in, dpdt_in), 1e-12)
+    p_in = p + tstar_in.unsqueeze(-1) * dpdt_in
+    opt = torch.where(exited, opt + extra_t, opt + tstar_in * n_end)
+    # the arc inside the medium (absorption) and the whole connection
+    # (inverse-square falloff) are kept apart
+    geo_inside = torch.where(exited, marched, marched + tstar_in)
+    geo_total = torch.where(exited, marched + extra_t, marched + tstar_in)
+    err = torch.where(ex, p_ext, p_in) - p2
+    if not jacobian:
+        return err, None, exited, opt, geo_inside, geo_total, v_eff
+
+    # exited lanes: dt_b/dv0 from the implicit boundary condition (:920-927)
     dpdt_b = v / nb.unsqueeze(-1)
     nd = dot(N_b, dpdt_b)
     denom = torch.where(torch.abs(nd) > 1e-9, nd, 1e9)
     dtbdv0 = -_vm(N_b, dpdv0) / denom.unsqueeze(-1)
     _, g_b = rif_value_grad(rif, p)
-    v_refr, tir = boundary_velocity(v, N_b, nb, torch.ones_like(nb))
     # refraction Jacobian (boundaryVelocityDerivative, :1057-1074)
     dotp = dot(v, N_b)
     r = 1.0 / torch.clamp_min(nb, 1e-9) ** 2 - 1.0
@@ -332,34 +452,18 @@ def integrate_with_sensitivities(rif: RifField, sdf: SdfField, p1, v0, p2,
         / sq.unsqueeze(-1)), inner)
     refl_J = _mm(eye - 2.0 * NN, inner)
     dvdv0_b = torch.where(tir[..., None, None], refl_J, refr_J)
-    extra_t = -dot(v_refr, p - p2) / torch.clamp_min(dot(v_refr, v_refr),
-                                                    1e-12)
-    p_ext = p + extra_t.unsqueeze(-1) * v_refr
     dpdv0_b = (dpdv0 + _outer(dpdt_b - v_refr, dtbdv0)
                + extra_t[..., None, None] * dvdv0_b)
-
-    # interior lanes: change of variables to the closest point of approach
-    # to p2 along the ray (:924-938)
-    n_end, dvdt_in = rif_value_grad(rif, p)
-    dpdt_in = v / n_end.unsqueeze(-1)
-    ex, exm = exited.unsqueeze(-1), exited[..., None, None]
+    # the change of variables to the closest point moves the endpoint
+    # along dp/dt (:924-938)
+    exm = exited[..., None, None]
     dpdt = torch.where(ex, v_refr, dpdt_in)
     dvdt = torch.where(ex, 0.0, dvdt_in)
-    v_eff = torch.where(ex, v_refr, v)
     dpdv0_eff = torch.where(exm, dpdv0_b, dpdv0)
     dvdv0_eff = torch.where(exm, dvdv0_b, dvdv0)
     num = _vm(v_eff, dpdv0_eff) + _vm(p - p2, dvdv0_eff)
     den = dot(v_eff, dpdt) + dot(p - p2, dvdt)
     dtstar = -num / torch.where(torch.abs(den) > 1e-9, den, 1e9).unsqueeze(-1)
-    tstar_in = -dot(p - p2, dpdt_in) / torch.clamp_min(
-        dot(dpdt_in, dpdt_in), 1e-12)
-    p_in = p + tstar_in.unsqueeze(-1) * dpdt_in
-    opt = torch.where(exited, opt + extra_t, opt + tstar_in * n_end)
-    # the arc inside the medium (absorption) and the whole connection
-    # (inverse-square falloff) are kept apart
-    geo_inside = torch.where(exited, marched, marched + tstar_in)
-    geo_total = torch.where(exited, marched + extra_t, marched + tstar_in)
-    err = torch.where(ex, p_ext, p_in) - p2
     J = dpdv0_eff + _outer(dpdt, dtstar)
     return err, J, exited, opt, geo_inside, geo_total, v_eff
 
@@ -454,7 +558,8 @@ def solve_bvp(rif: RifField, sdf: SdfField, p1, p2, init_dir, h,
               max_steps: int, active, tol2: float = 1e-6,
               newton_iters: int = 12, differentiable: bool = False,
               rr_weight: float = 1e-2, seed_bits=None,
-              max_restarts: int = 0, dir_match_tol2: float = 1e-4):
+              max_restarts: int = 0, dir_match_tol2: float = 1e-4,
+              memo: Optional[dict] = None):
     """Solve the curved-connection BVP for the initial velocity p1 -> p2.
 
     With max_restarts == 0 (or no seed_bits): one solve from `init_dir`
@@ -465,9 +570,41 @@ def solve_bvp(rif: RifField, sdf: SdfField, p1, p2, init_dir, h,
     counts once an independent restart re-finds it; and the weight is
     multiplied by the Booth multiplicity estimate. Rounds 0 and 1 run as one
     batch of 2N lanes, the rounds after that only for the lanes still
-    looping."""
+    looping.
+
+    differentiable=True (eikonal.py:748-778): the whole solve runs on
+    detached fields and inputs, without autograd, and one attached
+    integration from p1 at the solved direction gives the transport
+    quantities. The solved direction itself is not differentiated: by
+    Fermat's principle the optical length is stationary in it. `memo`, a
+    dict, keeps the solved connections (the detached solve and the
+    converged flags) and reuses them where they are there: a checkpointed
+    bounce's recompute need not solve again."""
     if differentiable:
-        raise not_ported("differentiable=True", 8)
+        res = None if memo is None else memo.get("detached")
+        if res is None:
+            with torch.no_grad():
+                res = solve_bvp(
+                    rif.detached(), sdf.detached(), p1.detach(), p2.detach(),
+                    init_dir.detach(), h, max_steps, active, tol2=tol2,
+                    newton_iters=newton_iters, rr_weight=rr_weight,
+                    seed_bits=seed_bits, max_restarts=max_restarts,
+                    dir_match_tol2=dir_match_tol2)
+            if memo is not None:
+                memo["detached"] = res
+        r0 = rif_value(rif, p1)
+        err, _, _, opt, geo_in, geo_tot, v_end = integrate_with_sensitivities(
+            rif, sdf, p1, res.dir_to_target * r0.unsqueeze(-1), p2, h,
+            max_steps, active, differentiable=True, jacobian=False)
+        err = err.detach()
+        converged = None if memo is None else memo.get("converged")
+        if converged is None:
+            converged = active & (dot(err, err) < tol2) & res.converged
+            if memo is not None:
+                memo["converged"] = converged
+        return replace(res, converged=converged, opt_len=opt,
+                       geo_inside=geo_in, geo_total=geo_tot,
+                       rev_dir=-normalize(v_end))
     n = p1.shape[0]
     r0 = rif_value(rif, p1)
     weight = torch.ones((n,), dtype=torch.float32, device=p1.device)
@@ -541,7 +678,8 @@ def solve_bvp(rif: RifField, sdf: SdfField, p1, p2, init_dir, h,
 
     # the final measurement at the accepted direction (:941-1030)
     err, _, _, opt, geo_in, geo_tot, v_end = integrate_with_sensitivities(
-        rif, sdf, p1, d_final * r0.unsqueeze(-1), p2, h, max_steps, active)
+        rif, sdf, p1, d_final * r0.unsqueeze(-1), p2, h, max_steps, active,
+        jacobian=False)
     converged = conv_final & (dot(err, err) < tol2)
     return BVPResult(dir_to_target=d_final, converged=converged,
                      weight=weight, opt_len=opt, geo_inside=geo_in,

@@ -17,7 +17,10 @@ longest lane took, which is the trip count of the XLA loop. (The JAX kernel
 reports the count of its first block; see ROADMAP Queue 3.)
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches its kernel and counts the launch; on anything else it raises.
+launches its kernel and counts the launch; on anything else it raises. The
+plain versions are also the marches of every call off the kernels' route
+(eikonal.kernel_route: the differentiable marches, attached to the RIF, and
+every spline march), on either device.
 """
 from __future__ import annotations
 
@@ -69,7 +72,11 @@ def trace_plain(rif, sdf, p, v, distance, h, max_steps: int, active):
 def sens_march_plain(rif, sdf, p1, v, dpdv0, dvdv0, p2, h, max_steps: int,
                      active):
     """Plain PyTorch version of kernel E, step by step. Returns
-    (p, v, dpdv0, dvdv0, opt, marched, crossed, steps)."""
+    (p, v, dpdv0, dvdv0, opt, marched, crossed, steps). With dpdv0 None it
+    carries no sensitivities (er_step moves p and v as er_derivative_step
+    does, and gives the step's h n(p) with them) and returns None for
+    both: the march of a caller that drops the Jacobian, which kernel E
+    does not serve."""
     n = p1.shape[0]
     hb = ek._lanes(h, n, p1)
     p, dp, dv = p1, dpdv0, dvdv0
@@ -79,16 +86,20 @@ def sens_march_plain(rif, sdf, p1, v, dpdv0, dvdv0, p2, h, max_steps: int,
     crossed = torch.zeros_like(active)
     it = 0
     while it < max_steps and bool(running.any()):
-        pn, vn, dpn, dvn = ek.er_derivative_step(rif, p, v, dp, dv, hb)
+        if dp is None:
+            pn, vn, dopt = ek.er_step(rif, p, v, hb)
+        else:
+            pn, vn, dpn, dvn = ek.er_derivative_step(rif, p, v, dp, dv, hb)
+            dopt = hb * ek.rif_value(rif, p)
         out = ~ek.inside_shape(sdf, pn)
         stop = out | (_side(pn, vn, p2) != _side(p, v, p2))
         take = running & ~stop
-        n_here = ek.rif_value(rif, p)
         p = torch.where(take.unsqueeze(-1), pn, p)
         v = torch.where(take.unsqueeze(-1), vn, v)
-        dp = torch.where(take[..., None, None], dpn, dp)
-        dv = torch.where(take[..., None, None], dvn, dv)
-        opt = torch.where(take, opt + hb * n_here, opt)
+        if dp is not None:
+            dp = torch.where(take[..., None, None], dpn, dp)
+            dv = torch.where(take[..., None, None], dvn, dv)
+        opt = torch.where(take, opt + dopt, opt)
         marched = torch.where(take, marched + hb, marched)
         crossed = crossed | (running & out)
         running = running & ~stop

@@ -2,8 +2,8 @@
 
 Accumulates shapes, BSDFs, media and emitters in numpy and freezes them into
 tensors at `build()`. The ported slices need triangle meshes, analytic
-spheres, diffuse BSDFs, homogeneous, heterogeneous and analytic refractive
-media, point and collimated emitters and a perspective sensor; scenes this
+spheres, diffuse BSDFs, homogeneous, heterogeneous and refractive media
+(analytic or B-spline RIF and SDF, the spline samples prefiltered here), point and collimated emitters and a perspective sensor; scenes this
 small need no BVH.
 """
 from __future__ import annotations
@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .. import not_ported
+from ..core import spline
 from . import types as T
 
 
@@ -43,11 +44,16 @@ class _Medium:
     scale: float = 1.0
     density: Optional[np.ndarray] = None   # (nz, ny, nx)
     density_aabb: Optional[tuple] = None
-    # refractive: analytic RIF and SDF (models/eikonal.py RIF_* / SDF_*)
+    # refractive: RIF and SDF (models/eikonal.py RIF_* / SDF_*), analytic
+    # from their params or B-spline grids of (nz, ny, nx) samples
     rif_kind: int = 0
     rif_params: tuple = (1.0,)
+    rif: Optional[np.ndarray] = None
+    rif_aabb: Optional[tuple] = None
     sdf_kind: int = 0
     sdf_params: tuple = ()
+    sdf: Optional[np.ndarray] = None
+    sdf_aabb: Optional[tuple] = None
 
 
 def _t(a, dtype):
@@ -214,6 +220,9 @@ class SceneBuilder:
                              torch.ones(3))
         majorant = 0.0
         rif_kind, rif_params, sdf_kind, sdf_params = 0, (1.0,), 0, ()
+        # the spline grids; (1, 1, 1) ones over the unit box where absent
+        grids = {k: (np.ones((1, 1, 1), np.float32), (0.0,) * 3, (1.0,) * 3)
+                 for k in ("rif", "sdf")}
         for m in media:
             if m.kind == T.MED_HETEROGENEOUS and m.density is not None:
                 lo, hi = m.density_aabb
@@ -223,6 +232,12 @@ class SceneBuilder:
             if m.kind == T.MED_REFRACTIVE:
                 rif_kind, rif_params = m.rif_kind, m.rif_params
                 sdf_kind, sdf_params = m.sdf_kind, m.sdf_params
+                for k in grids:
+                    if getattr(m, k) is not None:
+                        lo, hi = getattr(m, k + "_aabb")
+                        grids[k] = (spline.prefilter(getattr(m, k)), lo, hi)
+        (rif_coeff, rif_min, rif_max), (sdf_coeff, sdf_min, sdf_max) = (
+            grids["rif"], grids["sdf"])
         return T.Media(
             kind=_t([m.kind for m in media], np.int32),
             sigma_a=_t(sigma_a, np.float32), sigma_s=_t(sigma_s, np.float32),
@@ -234,5 +249,9 @@ class SceneBuilder:
             majorant=_t(majorant, np.float32),
             rif_kind=_t(rif_kind, np.int32),
             rif_params=_t(_pad8(rif_params), np.float32),
+            rif_coeff=_t(rif_coeff, np.float32),
+            rif_min=_t(rif_min, np.float32), rif_max=_t(rif_max, np.float32),
             sdf_kind=_t(sdf_kind, np.int32),
-            sdf_params=_t(_pad8(sdf_params), np.float32))
+            sdf_params=_t(_pad8(sdf_params), np.float32),
+            sdf_coeff=_t(sdf_coeff, np.float32),
+            sdf_min=_t(sdf_min, np.float32), sdf_max=_t(sdf_max, np.float32))

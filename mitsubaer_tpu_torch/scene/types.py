@@ -124,8 +124,15 @@ class Media(_Tensors):
     majorant: torch.Tensor  # () max density * scale
     rif_kind: torch.Tensor    # () int32, models/eikonal.py RIF_*
     rif_params: torch.Tensor  # (8,) analytic RIF parameters
+    rif_coeff: torch.Tensor   # (nz, ny, nx) B-spline coefficients of the
+    #   RIF; (1, 1, 1) ones where the RIF is analytic
+    rif_min: torch.Tensor     # (3,) the spline grid's box
+    rif_max: torch.Tensor     # (3,)
     sdf_kind: torch.Tensor    # () int32, models/eikonal.py SDF_*
     sdf_params: torch.Tensor  # (8,) analytic SDF parameters
+    sdf_coeff: torch.Tensor   # (nz, ny, nx) B-spline coefficients of the SDF
+    sdf_min: torch.Tensor
+    sdf_max: torch.Tensor
 
 
 @dataclass(frozen=True)

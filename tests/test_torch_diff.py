@@ -41,6 +41,7 @@ from mitsubaer_tpu.scene import presets as jpresets
 from mitsubaer_tpu.scene import types as JT
 from mitsubaer_tpu_torch.core import transform as tf
 from mitsubaer_tpu_torch.diff import render as tdiff
+from mitsubaer_tpu_torch.integrators import volpath as tvp
 from mitsubaer_tpu_torch.scene import build as tbuild
 from mitsubaer_tpu_torch.scene import presets as tpresets
 from mitsubaer_tpu_torch.scene import types as T
@@ -83,7 +84,8 @@ CASES = {
 
 def _seeded_params(jparams, seed):
     """The JAX bundle's fields scaled by seeded factors (per channel for
-    sigma, per voxel for the density) and a seeded g, as numpy arrays."""
+    sigma, per voxel for the density), a seeded g and the scene's `rif`,
+    as numpy arrays."""
     r = np.random.default_rng(seed)
     sa, ss, dens = (np.asarray(jparams.sigma_a), np.asarray(jparams.sigma_s),
                     np.asarray(jparams.density))
@@ -91,7 +93,8 @@ def _seeded_params(jparams, seed):
         sigma_a=sa * r.uniform(0.5, 1.5, sa.shape),
         sigma_s=ss * r.uniform(0.5, 1.5, ss.shape),
         density=dens * r.uniform(0.5, 1.5, dens.shape),
-        g=r.uniform(0.2, 0.6, np.asarray(jparams.g).shape)).items()}
+        g=r.uniform(0.2, 0.6, np.asarray(jparams.g).shape),
+        rif=np.asarray(jparams.rif)).items()}
 
 
 @functools.partial(jax.jit, static_argnames=("cfg", "sppc"))
@@ -108,8 +111,7 @@ def _run(name):
     (js, jc), (ts, tc), pass_idx = CASES[name]()
     arrays = _seeded_params(jdiff.get_params(js), 11)
     jparams = jdiff.MediumParams(
-        **{k: jnp.asarray(v) for k, v in arrays.items()},
-        rif=jdiff.get_params(js).rif)
+        **{k: jnp.asarray(v) for k, v in arrays.items()})
     target = np.random.default_rng(12).uniform(
         0.0, 0.1, (jc.height, jc.width, 3)).astype(np.float32)
     (loss_j, img_j), grad_j = _jax_loss_and_grad(
@@ -164,9 +166,12 @@ def test_gradient_matches_jax(run, name, field):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_jax_rif_gradient_is_zero(run, name):
-    """The loop engine never reads the RIF grid, so leaving `rif` to step
-    8b loses nothing on this road."""
-    assert not np.asarray(run(name)["grad_j"].rif).any()
+    """The loop engine never reads the RIF grid: JAX's `rif` gradient and
+    the port's are zero on this road."""
+    r = run(name)
+    assert not np.asarray(r["grad_j"].rif).any()
+    assert r["grad_t"].rif.shape == np.asarray(r["grad_j"].rif).shape
+    assert not r["grad_t"].rif.any()
 
 
 def test_image_grad_matches_jax(run):
@@ -198,9 +203,55 @@ def test_render_diff_runs_on_the_card_unless_cpu(monkeypatch):
     assert img.shape == (8, 8, 3) and img.device.type == "cpu"
 
 
+def _render_diff_as(integrator, preset):
+    """render_diff of a small scene of `preset` with the config's
+    integrator set to `integrator`, at the scene's parameters."""
+    scene, cfg = preset()
+    cfg = dataclasses.replace(cfg, integrator=integrator)
+    return tdiff.render_diff(scene, tdiff.get_params(scene), cfg, 2, 5, 0,
+                             device="cpu")
+
+
 def test_eikonal_road_gradients_wait_for_step_8b():
-    scene, cfg = tpresets.refractive_sphere(res=4, spp=1, max_depth=2,
-                                            rif_kind=1, rif_params=(1.3, 0.1))
-    with pytest.raises(NotImplementedError, match="step 8"):
-        tdiff.render_diff(scene, tdiff.get_params(scene), cfg, 1, 0, 0,
-                          device="cpu")
+    """render_diff on a volpath_er config renders what it renders with
+    "volpath", as the JAX render_diff does: its volpath.li never reads the
+    integrator's name. The eikonal road's gradients come from
+    volpath_er.li(differentiable=True) instead (tests/test_torch_er_grad_li.py)."""
+    def preset():
+        return tpresets.refractive_sphere(res=6, spp=1, max_depth=3,
+                                          rif_kind=1, rif_params=(1.3, 0.1),
+                                          filter="box")
+
+    er = _render_diff_as("volpath_er", preset)
+    assert er.shape == (6, 6, 3) and er.sum() > 0
+    torch.testing.assert_close(er, _render_diff_as("volpath", preset),
+                               rtol=0, atol=0)
+
+
+def _env_lit_box():
+    """The HG box of _hg_box with a constant environment beside its point
+    light: where emitters are hit or sampled with a pdf, MIS weights them,
+    so volpath_simple's estimator differs from volpath's."""
+    b = tbuild.SceneBuilder()
+    med = b.add_medium(kind=T.MED_HOMOGENEOUS, sigma_a=(0.2,) * 3,
+                       sigma_s=(0.8,) * 3, phase_kind=T.PH_HG, g=0.3)
+    b.add_cube(to_world=np.eye(4, dtype=np.float32), bsdf=-1, interior=med)
+    b.add_emitter(T.EM_POINT, radiance=(20.0,) * 3, position=(0, 0.5, -3))
+    b.add_emitter(T.EM_CONSTANT, radiance=(0.5,) * 3)
+    b.set_perspective_sensor(tf.look_at([0, 0, -4], [0, 0, 0], [0, 1, 0]), 30)
+    cfg = dataclasses.replace(b.config, width=6, height=6, spp=1,
+                              max_depth=4)
+    return b.build(), cfg
+
+
+def test_render_diff_on_volpath_simple_renders_volpath(monkeypatch):
+    """render_diff on a volpath_simple config gives full volpath's image
+    (with MIS), as the JAX render_diff does; on this scene volpath_simple's
+    own estimator (li with simple=True) gives another."""
+    simple = _render_diff_as("volpath_simple", _env_lit_box)
+    full = _render_diff_as("volpath", _env_lit_box)
+    assert full.sum() > 0
+    torch.testing.assert_close(simple, full, rtol=0, atol=0)
+    monkeypatch.setattr(tvp, "li", functools.partial(tvp.li, simple=True))
+    assert not torch.equal(_render_diff_as("volpath_simple", _env_lit_box),
+                           full)

@@ -211,15 +211,30 @@ def test_solve_bvp_matches(max_restarts):
 
 
 def test_fields_not_ported_raise():
+    """The acoustic RIF still raises; the spline SDF and the
+    differentiable march, ported since, run (their values are held against
+    JAX in tests/test_torch_spline.py and tests/test_torch_er_grad.py)."""
     with pytest.raises(NotImplementedError, match="acoustic RIF.*step 7"):
         tek.RifField(tek.RIF_ACOUSTIC, (1.33, 0.03, 6.0, 0.0))
-    with pytest.raises(NotImplementedError, match="spline SDF.*step 7"):
-        tek.SdfField(tek.SDF_SPLINE, ())
+    zs = torch.linspace(-1.5, 1.5, 6)
+    Z, Y, X = torch.meshgrid(zs, zs, zs, indexing="ij")
+    from mitsubaer_tpu_torch.core import spline as tspline
+    ball = tspline.SplineGrid3D(
+        torch.from_numpy(tspline.prefilter(
+            (torch.sqrt(X * X + Y * Y + Z * Z) - 1.0).numpy())),
+        torch.full((3,), -1.5), torch.full((3,), 1.5))
+    sdf = tek.SdfField(tek.SDF_SPLINE, (), grid=ball)
+    p = torch.tensor([[0.0, 0.0, 0.0], [0.0, 0.0, 1.4]])
+    assert tek.inside_shape(sdf, p).tolist() == [True, False]
     _, _, tr, ts = _fields()
     p = torch.zeros((4, 3))
-    with pytest.raises(NotImplementedError, match="step 8"):
-        tek.trace_curved(tr, ts, p, p + 1, 1.0, 0.01, 8,
-                         torch.ones(4, dtype=torch.bool), differentiable=True)
+    prm = torch.tensor(tr.params).requires_grad_()
+    attached = tek.RifField(tr.kind, tr.params, tensor=prm)
+    out = tek.trace_curved(attached, ts, p, p + 1, 1.0, 0.01, 8,
+                           torch.ones(4, dtype=torch.bool),
+                           differentiable=True)
+    (g,) = torch.autograd.grad(out[2].sum(), prm)
+    assert bool(torch.isfinite(g).all()) and g[0] > 0
 
 
 def test_march_wrappers_reject_other_devices():

@@ -289,7 +289,8 @@ def test_checkpointed_li_gives_the_uncheckpointed_gradients(monkeypatch):
     for f in tdiff.MediumParams._fields:
         torch.testing.assert_close(getattr(grad_c, f), getattr(grad_u, f),
                                    rtol=0, atol=0)
-        assert getattr(grad_c, f).abs().max() > 0, f
+        # the loop engine reads every field but the eikonal road's rif
+        assert (getattr(grad_c, f).abs().max() > 0) == (f != "rif"), f
 
 
 @pytest.fixture
