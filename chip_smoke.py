@@ -64,12 +64,19 @@ Phases (any failure raises and the script exits non-zero):
      scene (sppc 8) against render_boxwalk at the same seed:
      pixel-by-pixel median ratio within 0.95-1.05;
  16. kernel A' (the grid gradient of kernel A's lookups) against its plain
-     version at 2^20 points on the 64^3 grid, the points spread uniformly
-     and in a dense cluster, within A_BWD_TOL of the largest voxel (float
-     atomics add in a varying order), and both against float64 sums;
-     gradcheck of TrilinearLookup in
-     float64 on the CPU; its time (uniform and clustered), the plain
-     version's, the bound and grid_sample's backward;
+     version on A_BWD_CASES: 2^20 points on the 64^3 grid spread uniformly
+     and in a dense cluster, and the adversarial sets (one cell, cell and
+     AABB faces, outside, zero and NaN output gradients, the grids
+     (1, 5, 6), (5, 1, 1) and (1, 1, 1), N of 0, 1, 31, 33, 257 and
+     200,000, a warp alternating between two cells), each within
+     A_BWD_TOL of the largest voxel (float atomics add in a varying order)
+     with the same NaN voxels, and within A_BWD_TOL["float64"] of the
+     float64 sums of the same terms (the plain version's distance from
+     them printed beside); gradcheck of TrilinearLookup in float64 on the
+     CPU;
+     at the spread and clustered points its time through the wrapper and
+     as a bare launch, the plain version's, grid_sample's backward and the
+     bound;
  17. the training path at full width: render_diff of the 512^2 beam scene
      (sppc 4, depth 12, density 64^3, beam NEE) at sigma_s x 1.5 as the
      target, then 3 Adam steps (lr 5e-2) of loss_and_grad from the
@@ -78,9 +85,11 @@ Phases (any failure raises and the script exits non-zero):
      built from the detached grid; each step's wall, peak device memory,
      launches of A and A', bounces and Woodcock iterations, and how far
      sigma_s moved. One more step with kernel A''s calls captured (calls
-     0, 4, 16, 64, 256 of each point count): each result within
-     A_BWD_TOL["step"] of its largest voxel from the plain version on the
-     same points and output gradients, and A' timed at each count. Then
+     0, 4, 16, 64, 256 of each point count, and its busiest): each result
+     within A_BWD_TOL["step"] of its largest voxel from the plain version
+     on the same points and output gradients and within
+     A_BWD_TOL["float64"] of the float64 sums; A' timed at each count's
+     first call, through the wrapper and bare. Then
      tests/test_inverse.py's sigma_s recovery on the card, 3 steps:
      sigma_s must move toward its target;
  18. loss_and_grad at 16^2, density 16^3, depth 4, sppc 4 on the card and
@@ -114,8 +123,8 @@ Prints one JSON line of per-kernel results (time, bound, plain version,
 library yardstick, launches on the main paths; for A also its launches on
 the loop road and its checks and times at the loop road's point counts,
 and its launches in a training step; for B, C and D also the device time
-and registers; for A' its clustered time and its checks and times at
-the training step's point counts; for E its launches in an eikonal
+and registers; for A' its bare-launch and clustered times and its checks
+and times at the training step's point counts; for E its launches in an eikonal
 gradient, its checks and times at that gradient's calls, and the walls of
 phases 19 and 20), then the contract line
 {"ok": true, "device": {...}} last.
@@ -168,7 +177,7 @@ OPS_E_STEP = {1: 63 + 3 * 62, 2: 95 + 3 * 62}
 # exponential step, the voxel position, the inside test and clip, three
 # stochastic corners, the brick index and load, and the weight update
 OPS_C_TAP = 160
-# kernel A' per point, from trilinear_backward_kernel: kernel A's cell
+# kernel A' per point that adds, from trilinear_backward_kernel: kernel A's cell
 # arithmetic (20 an axis: conversions, the spacing, the position, the
 # inside tests, clamps, floor and fraction), the zero test, the upper corner
 # indices 6, the weight products with their one-minus terms 21, the
@@ -176,10 +185,15 @@ OPS_C_TAP = 160
 OPS_A_BWD_POINT = 120
 # phases 16 and 17: kernel A' against its plain version, max |diff| over the
 # largest voxel. Both sum in float32 in a varying order (atomics,
-# index_add_): the spread points' voxels take ~32 terms each, the cluster's
-# 27 voxels ~300,000; a training step's calls spread as the uniform points
-# (measured on an H100: at most 2.1e-8)
-A_BWD_TOL = {"uniform": 1e-5, "clustered": 1e-4, "step": 1e-5}
+# index_add_): the spread points' voxels take ~32 terms each; the clustered
+# sets' voxels thousands (one cell, two alternating cells, the grids of 1 to
+# 30 voxels) to ~300,000 (the cluster's 27); a training step's calls spread
+# as the uniform points (measured on an H100: at most 2.1e-8). On the
+# clustered sets the plain version's own sums lie up to 7.3e-6 from the
+# float64 sums of the same terms (the kernel's at most 5.9e-7; on an H100),
+# so the kernel is also held within "float64" of those sums on every set.
+A_BWD_TOL = {"uniform": 1e-5, "clustered": 1e-4, "step": 1e-5,
+             "float64": 1e-5}
 # phase 18: card against CPU, each gradient field's largest difference over
 # its largest CPU magnitude: ulp-level exp/log differences and the atomics'
 # order (measured on an H100: at most 1.6e-6, no collision test flipped)
@@ -296,6 +310,20 @@ def _bound(nbytes, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _a_bwd_bound(shape, grad_out):
+    """Kernel A''s bound on one call's data: each output gradient read (4
+    B), the position of each point whose gradient is not zero (12 B: a
+    point with a zero gradient adds nothing, and only a non-zero one needs
+    its position to tell whether it lies inside), the grid written once,
+    and OPS_A_BWD_POINT for each point with a non-zero gradient."""
+    import torch
+
+    adding = int(torch.count_nonzero(grad_out))            # NaN adds too
+    voxels = shape[0] * shape[1] * shape[2]
+    return _bound(4 * grad_out.shape[0] + 12 * adding + 4 * voxels,
+                  adding * OPS_A_BWD_POINT)
+
+
 def _kernel_row(name, source, replaces, err, ms, plain_ms, bound, library_ms):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
                 launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
@@ -328,6 +356,153 @@ def _a_bare(grid, pts, out):
             int(grid.cells.dtype == torch.bfloat16), kernels.stream(pts))
     fn = kernels.library().mk_trilinear_lookup
     return lambda: fn(*args)
+
+
+def _a_bwd_bare(shape, aabb6, p, grad_out, grad):
+    """One bare launch of kernel A' into `grad`: the C call alone, with its
+    arguments formed once (no checks, no allocation, not counted)."""
+    from mitsubaer_tpu_torch import kernels
+
+    nz, ny, nx = shape
+    args = (p.data_ptr(), grad_out.data_ptr(), aabb6.data_ptr(),
+            grad.data_ptr(), p.shape[0], nx, ny, nz, kernels.stream(p))
+    fn = kernels.library().mk_trilinear_lookup_backward
+    return lambda: fn(*args)
+
+
+# kernel A''s sets: the 2^20 spread and clustered points of phase 16, then
+# the adversarial ones (tests/test_torch_medium_grad.py runs each too)
+A_BWD_CASES = ("uniform", "clustered", "one_cell", "faces", "outside",
+               "zero_and_nan", "grid_1x5x6", "grid_5x1x1", "grid_1x1x1",
+               "n0", "n1", "n31", "n33", "n257", "n200000", "alternating")
+
+
+def _a_bwd_faces(r, n, shape):
+    """n points on the cells' faces of a grid of `shape` over [-1, 1]^3,
+    drawn from the numpy generator r: each coordinate on a voxel plane (on
+    a one-voxel axis the AABB's lower face, the only place inside there), a
+    third of them with one axis free."""
+    import numpy as np
+
+    res = np.asarray(shape[::-1])                    # (x, y, z)
+    p = -1.0 + r.integers(0, res, (n, 3)) * (2.0 / np.maximum(res - 1, 1))
+    free = r.integers(0, 3, n // 3)
+    p[np.arange(n // 3), free] = r.uniform(-1.0, 1.0, n // 3)
+    return p
+
+
+def _a_bwd_case(name, dev):
+    """(shape, aabb6, p, grad_out, A_BWD_TOL key) of kernel A''s set `name`
+    on the [-1, 1]^3 AABB, made with numpy from a seed of the name:
+    uniform / clustered: phase 16's 2^20 points spread over the 64^3 grid
+    or in a ball across 8 cells (27 voxels); one_cell: 4,096 points in one
+    cell; faces: points on the cells' faces (a third with one axis free)
+    and on the AABB's; outside: half of them just or far outside the AABB;
+    zero_and_nan: 30% of the output gradients 0 and 20 NaN; grid_*: the
+    flat and one-voxel grids, most points on the lower face of each
+    one-voxel axis (the only place inside there); nK: K spread points;
+    alternating: a warp's lanes alternate between two adjacent cells."""
+    import numpy as np
+    import torch
+
+    if name not in A_BWD_CASES:
+        raise ValueError(f"no set of kernel A' named {name!r}")
+    aabb6 = torch.tensor([-1.0, -1.0, -1.0, 1.0, 1.0, 1.0], device=dev)
+
+    def tensors(shape, p, g, tol):
+        return (shape, aabb6, torch.from_numpy(p.astype(np.float32)).to(dev),
+                torch.from_numpy(g.astype(np.float32)).to(dev), tol)
+
+    if name in ("uniform", "clustered"):
+        n = 1 << 20
+        r = np.random.default_rng(16)
+        g = r.normal(size=n)
+        p = r.uniform(-1.0, 1.0, (n, 3))
+        if name == "clustered":
+            p = np.asarray([0.1, -0.2, 0.3]) + r.uniform(-0.02, 0.02, (n, 3))
+        return tensors((64, 64, 64), p, g, name)
+    r = np.random.default_rng(sum(ord(c) * 31 ** i
+                                  for i, c in enumerate(name)) % 2 ** 32)
+    shape, n, tol = (64, 64, 64), 200_000, "uniform"
+    if name.startswith("grid_"):
+        shape = tuple(int(k) for k in name[5:].split("x"))
+        tol = "clustered"           # 1 to 30 voxels: ~3,000-80,000 terms each
+    elif name[0] == "n":
+        n = int(name[1:])
+    h = 2.0 / 63
+    p = r.uniform(-1.2, 1.2, (n, 3))                 # in and around
+    k = n // 5
+    if name == "one_cell":
+        n = 4096
+        p = -1.0 + (np.asarray([40, 25, 33]) + r.uniform(0, 1, (n, 3))) * h
+        tol = "clustered"
+    elif name == "faces":
+        p = _a_bwd_faces(r, n, shape)
+        p[:k, r.integers(0, 3)] = r.choice([-1.0, 1.0], k)
+    elif name == "alternating":
+        lane = np.arange(n)[:, None]
+        p = -1.0 + (np.asarray([20, 30, 40]) + (lane % 2) * [1, 0, 0]
+                    + r.uniform(0, 1, (n, 3))) * h
+        tol = "clustered"
+    else:
+        p[:k, r.integers(0, 3)] = r.choice([-1.0, 1.0], k)   # on the faces
+        p[k:2 * k] = r.choice([-1.0, 1.0], (k, 3))            # corners
+    if name == "outside":
+        axis = r.integers(0, 3, n // 2)
+        p[np.arange(n // 2), axis] = r.choice([-1.0, 1.0], n // 2) * (
+            1.0 + r.choice([1e-6, 1e-3, 0.5], n // 2))
+    if name[0] == "n" and n:
+        p[0] = r.uniform(-0.9, 0.9, 3)               # one point inside
+    for a, res in enumerate(shape[::-1]):            # (x, y, z)
+        if res == 1:
+            p[r.uniform(size=n) < 0.7, a] = -1.0
+    g = r.normal(size=n)
+    if name == "zero_and_nan":
+        g[r.uniform(size=n) < 0.3] = 0.0
+        g[r.choice(n, 20, replace=False)] = np.nan
+    return tensors(shape, p, g, tol)
+
+
+def _a_bwd_rel64(results, exact):
+    """max |x - exact| / max |exact| of each of `results` over the voxels
+    where the float64 sums `exact` are finite (0 where those are all 0)."""
+    fin = exact.isfinite()
+    exact = exact[fin]
+    scale = exact.abs().max().item() if exact.numel() else 0.0
+    if scale == 0.0:
+        return [0.0] * len(results)
+    return [((x[fin].double() - exact).abs().max() / scale).item()
+            for x in results]
+
+
+def _a_bwd_check(got, want, tol, what, exact=None):
+    """max |got - want| / max |want| over the voxels where want is finite;
+    raises if it exceeds tol, if the NaN voxels differ, or if got is not
+    zero where want is zero everywhere. Given the float64 sums `exact` of
+    the same terms, also raises if got lies further than
+    A_BWD_TOL["float64"] from them (_a_bwd_rel64). Returns the ratio and
+    got's and want's _a_bwd_rel64 (None without `exact`)."""
+    rel64 = None if exact is None else _a_bwd_rel64((got, want), exact)
+    if rel64 is not None and not rel64[0] <= A_BWD_TOL["float64"]:
+        raise AssertionError(f"kernel A' ({what}) differs from the float64 "
+                             f"sums: max |diff| / max |grad| {rel64[0]}")
+    nan = want.isnan()
+    if not (got.shape == want.shape and (got.isnan() == nan).all()):
+        raise AssertionError(f"kernel A' ({what}): the NaN voxels differ "
+                             f"from the plain version's")
+    got, want = got[~nan], want[~nan]
+    scale = want.abs().max().item() if want.numel() else 0.0
+    err = (got - want).abs().max().item() if want.numel() else 0.0
+    if scale == 0.0:
+        if err != 0.0:
+            raise AssertionError(f"kernel A' ({what}): {err} where the plain "
+                                 f"version is zero")
+        return 0.0, rel64
+    if not err <= tol * scale:
+        raise AssertionError(f"kernel A' ({what}) differs from its plain "
+                             f"version: max |diff| / max |grad| "
+                             f"{err / scale}")
+    return err / scale, rel64
 
 
 def _e_bare(rif, sdf, e_in, h, max_steps):
@@ -1266,65 +1441,71 @@ def _training_phases(dev, card, results):
                                         density_res=64, max_depth=12)
     scene = scene.to(dev)
     grid = medium.DensityGrid(scene.media)
-    shape, aabb6 = tuple(grid.grid.shape), grid.aabb6
-    n = 1 << 20
-    r = np.random.default_rng(16)
-    grad_out = torch.from_numpy(r.normal(size=n).astype(np.float32)).to(dev)
-    clouds = {
-        "uniform": r.uniform(-1.0, 1.0, (n, 3)),
-        "clustered": np.asarray([0.1, -0.2, 0.3]) + r.uniform(
-            -0.02, 0.02, (n, 3)),
-    }
-    ms, err = {}, 0.0
-    for name, pts in clouds.items():
-        p = torch.from_numpy(pts.astype(np.float32)).to(dev)
+    err, t = 0.0, {}
+    for name in A_BWD_CASES:
+        shape, aabb6, p, grad_out, tol = _a_bwd_case(name, dev)
         got = medium.trilinear_lookup_backward(shape, aabb6, p, grad_out)
         want = medium.trilinear_lookup_backward_plain(shape, aabb6, p,
                                                       grad_out)
         # the same float32 weights, summed in float64
-        exact = medium.trilinear_lookup_backward_plain(
-            shape, aabb6, p, grad_out.double())
+        exact = medium.trilinear_lookup_backward_plain(shape, aabb6, p,
+                                                       grad_out.double())
         torch.cuda.synchronize()
-        scale = want.abs().max().item()
-        rel = (got - want).abs().max().item() / scale
-        rel64 = [((x.double() - exact).abs().max() / exact.abs().max()).item()
-                 for x in (got, want)]
-        print(f"kernel A' ({name}, N=2^20, 64^3): max |diff| / max |grad| "
-              f"{rel:.3e} (max |grad| {scale:.4e}); against the float64 "
-              f"sums: kernel {rel64[0]:.3e}, plain {rel64[1]:.3e}; "
-              f"{int((want != 0).sum())} voxels touched", flush=True)
-        if not rel <= A_BWD_TOL[name]:
-            raise AssertionError(f"kernel A' differs from its plain version "
-                                 f"({name}): {rel}")
-        err = max(err, (got - want).abs().max().item())
-        ms[name] = _cuda_ms(lambda q=p: medium.trilinear_lookup_backward(
-            shape, aabb6, q, grad_out), 50)
-        if name == "uniform":
-            plain_ms = _cuda_ms(
-                lambda q=p: medium.trilinear_lookup_backward_plain(
-                    shape, aabb6, q, grad_out), 10)
-            # yardstick: grid_sample's backward to the volume (trilinear,
-            # align_corners=True: the voxel centres on the AABB, as A)
-            vol = grid.grid[None, None].clone().requires_grad_()
-            lo, hi = aabb6[:3], aabb6[3:]
-            coords = ((p - lo) / (hi - lo) * 2.0 - 1.0).reshape(1, 1, 1, n, 3)
-            out = torch.nn.functional.grid_sample(
-                vol, coords, mode="bilinear", padding_mode="zeros",
-                align_corners=True)
-            g_view = grad_out.reshape(out.shape)
-            lib_ms = _cuda_ms(lambda: torch.autograd.grad(
-                out, vol, g_view, retain_graph=True), 50)
-            del out, vol, coords
-    bound = _bound(n * 16 + 2 * grid.grid.numel() * 4, n * OPS_A_BWD_POINT)
-    print(f"kernel A' at N=2^20 on 64^3: uniform {ms['uniform']:.4f} ms, "
-          f"clustered {ms['clustered']:.4f} ms (zeroing included), plain "
-          f"{plain_ms:.4f} ms, grid_sample backward {lib_ms:.4f} ms, bound "
-          f"{bound[0]:.4f} ms ({bound[1]}) [{card}]", flush=True)
+        rel, rel64 = _a_bwd_check(got, want, A_BWD_TOL[tol], name, exact)
+        fin = want.isfinite()
+        if fin.any():
+            err = max(err, (got - want)[fin].abs().max().item())
+        print(f"kernel A' ({name}, N={p.shape[0]}, {shape}): max |diff| / "
+              f"max |grad| {rel:.3e} (tolerance {A_BWD_TOL[tol]:.0e}); "
+              f"against the float64 sums: kernel {rel64[0]:.3e} (tolerance "
+              f"{A_BWD_TOL['float64']:.0e}), plain {rel64[1]:.3e}; "
+              f"{int((want != 0).sum())} voxels non-zero, "
+              f"{int(want.isnan().sum())} NaN", flush=True)
+        if name not in ("uniform", "clustered"):
+            continue
+        n = p.shape[0]
+        t[name] = dict(
+            bound=_a_bwd_bound(shape, grad_out),
+            ms=_cuda_ms(lambda: medium.trilinear_lookup_backward(
+                shape, aabb6, p, grad_out), 50),
+            bare_ms=_cuda_ms(_a_bwd_bare(shape, aabb6, p, grad_out,
+                                         torch.zeros(shape, device=dev)), 50),
+            plain_ms=_cuda_ms(lambda: medium.trilinear_lookup_backward_plain(
+                shape, aabb6, p, grad_out), 10))
+        # yardstick: grid_sample's backward to the volume (trilinear,
+        # align_corners=True: the voxel centres on the AABB, as A)
+        vol = grid.grid[None, None].clone().requires_grad_()
+        lo, hi = aabb6[:3], aabb6[3:]
+        coords = ((p - lo) / (hi - lo) * 2.0 - 1.0).reshape(1, 1, 1, n, 3)
+        out = torch.nn.functional.grid_sample(
+            vol, coords, mode="bilinear", padding_mode="zeros",
+            align_corners=True)
+        g_view = grad_out.reshape(out.shape)
+        t[name]["library_ms"] = _cuda_ms(lambda: torch.autograd.grad(
+            out, vol, g_view, retain_graph=True), 50)
+        del out, vol, coords
+        print(f"kernel A' ({name}): through the wrapper "
+              f"{t[name]['ms']:.4f} ms (zeroing included), bare launch "
+              f"{t[name]['bare_ms']:.4f} ms, plain {t[name]['plain_ms']:.4f} "
+              f"ms, grid_sample backward {t[name]['library_ms']:.4f} ms "
+              f"[{card}]", flush=True)
+    u, c = t["uniform"], t["clustered"]
+    bound = u["bound"]
+    print(f"kernel A' at N=2^20 on 64^3: uniform {u['ms']:.4f} ms, "
+          f"clustered {c['ms']:.4f} ms ({c['ms'] / u['ms']:.2f}x uniform), "
+          f"bound {bound[0]:.4f} ms ({bound[1]}; uniform at "
+          f"{u['ms'] / bound[0]:.1f}x it, clustered at "
+          f"{c['ms'] / c['bound'][0]:.1f}x its {c['bound'][0]:.4f} ms) "
+          f"[{card}]", flush=True)
     results["trilinear_lookup_backward"] = _kernel_row(
         "trilinear_lookup_backward", "mitsubaer_tpu_torch/csrc/trilinear.cu",
-        "mitsubaer_tpu/models/medium.py:206", err, ms["uniform"], plain_ms,
-        bound, lib_ms)
-    results["trilinear_lookup_backward"]["ms_clustered"] = ms["clustered"]
+        "mitsubaer_tpu/models/medium.py:206", err, u["ms"], u["plain_ms"],
+        bound, u["library_ms"])
+    results["trilinear_lookup_backward"].update(
+        bare_ms=u["bare_ms"], ms_clustered=c["ms"],
+        bare_ms_clustered=c["bare_ms"], plain_ms_clustered=c["plain_ms"],
+        library_ms_clustered=c["library_ms"],
+        bound_ms_clustered=c["bound"][0], sets_checked=len(A_BWD_CASES))
     g64 = torch.rand((4, 5, 6), dtype=torch.float64, requires_grad=True)
     p64 = torch.rand((64, 3), dtype=torch.float64) * 2.4 - 1.2
     a64 = torch.tensor([-1.0, -1.0, -1.0, 1.0, 1.0, 1.0], dtype=torch.float64)
@@ -1445,16 +1626,16 @@ def _training_phases(dev, card, results):
         raise AssertionError(f"card and CPU gradients disagree: {rel}")
 
 
-def _train_backward(scene, leaves, cfg, sppc, seed, target, dev, card):
-    """Kernel A' at the point counts the training step gives it: one more
-    loss_and_grad of phase 17 with TrilinearLookup.backward wrapped, which
-    captures calls 0, 4, 16, 64 and 256 of each point count with their
-    points, output gradients and grid gradient. Each captured result must
-    lie within A_BWD_TOL["step"] of its largest voxel from the plain
-    version on the same inputs (a result that is zero there must be zero).
-    Returns per point count its calls in the step, the calls checked, the
-    largest error, and the times of A' and of the plain version with the
-    bound. These launches come after phase 17's counts were read."""
+# the calls of each point count that phase 17 captures from a training step
+A_BWD_STEP_CALLS = (0, 4, 16, 64, 256)
+
+
+def _capture_a_bwd(scene, leaves, cfg, sppc, seed, it, target, dev):
+    """One loss_and_grad of phase 17 with TrilinearLookup.backward wrapped:
+    per point count, [its calls, the calls in A_BWD_STEP_CALLS with their
+    shape, AABB, points, output gradients and grid gradient, each call's
+    count of non-zero output gradients, the call with the most of them].
+    The step must give A' its lanes' and twice its lanes' points."""
     import torch
 
     from mitsubaer_tpu_torch.diff import render as diff_m
@@ -1468,16 +1649,20 @@ def _train_backward(scene, leaves, cfg, sppc, seed, target, dev, card):
         aabb6, p = ctx.saved_tensors
         out = backward.__func__(types.SimpleNamespace(
             saved_tensors=(aabb6, p), shape=ctx.shape), grad_out)
-        seen = calls.setdefault(p.shape[0], [0, []])
-        if seen[0] in (0, 4, 16, 64, 256):
-            seen[1].append((ctx.shape, aabb6, p.clone(), grad_out.clone(),
-                            out[0].clone()))
+        seen = calls.setdefault(p.shape[0], [0, [], [], None])
+        nonzero = int(torch.count_nonzero(grad_out))
+        call = (ctx.shape, aabb6, p.clone(), grad_out.clone(), out[0].clone())
+        if seen[0] in A_BWD_STEP_CALLS:
+            seen[1].append(call)
+        if seen[3] is None or nonzero > max(seen[2]):
+            seen[3] = call
         seen[0] += 1
+        seen[2].append(nonzero)
         return out
 
     fn.backward = staticmethod(capture)
     try:
-        diff_m.loss_and_grad(scene, leaves, cfg, sppc, seed, 3, target,
+        diff_m.loss_and_grad(scene, leaves, cfg, sppc, seed, it, target,
                              device=dev)
     finally:
         fn.backward = backward
@@ -1485,49 +1670,65 @@ def _train_backward(scene, leaves, cfg, sppc, seed, target, dev, card):
     if lanes not in calls or 2 * lanes not in calls:
         raise AssertionError(f"the training step's backward took no {lanes} "
                              f"or {2 * lanes} points: {sorted(calls)}")
+    return calls
+
+
+def _train_backward(scene, leaves, cfg, sppc, seed, target, dev, card):
+    """Kernel A' at the point counts the training step gives it: one more
+    loss_and_grad of phase 17 with TrilinearLookup.backward wrapped, which
+    captures calls 0, 4, 16, 64 and 256 of each point count, and the call
+    with the most non-zero output gradients, with their points, output
+    gradients and grid gradient. Each captured result must lie within
+    A_BWD_TOL["step"] of its largest voxel from the plain version on the
+    same inputs (a result that is zero there must be zero) and within
+    A_BWD_TOL["float64"] of the float64 sums of its terms. Returns per
+    point count its calls in the step, the calls checked, the largest
+    error, the time of A' (through the wrapper and bare) at the first call
+    with its bound, and the plain version's time. These launches come after
+    phase 17's counts were read."""
+    import torch
+
+    from mitsubaer_tpu_torch.models import medium
+
+    calls = _capture_a_bwd(scene, leaves, cfg, sppc, seed, 3, target, dev)
     rows = []
     for n in sorted(calls):
-        count, taken = calls[n]
+        count, taken, nonzero, busiest = calls[n]
         worst, worst64 = 0.0, [0.0, 0.0]
-        for shape, aabb6, p, g_out, got in taken:
-            want = medium.trilinear_lookup_backward_plain(shape, aabb6, p,
-                                                          g_out)
-            exact = medium.trilinear_lookup_backward_plain(
-                shape, aabb6, p, g_out.double())
-            scale = want.abs().max().item()
-            err = (got - want).abs().max().item()
-            if scale == 0.0:
-                if err != 0.0:
-                    raise AssertionError(f"kernel A' at {n} points in the "
-                                         f"training step: {err} where the "
-                                         f"plain version is zero")
-                continue
-            worst = max(worst, err / scale)
-            for k, x in enumerate((got, want)):
-                worst64[k] = max(worst64[k], (
-                    (x.double() - exact).abs().max()
-                    / exact.abs().max()).item())
-            if not err <= A_BWD_TOL["step"] * scale:
-                raise AssertionError(f"kernel A' differs from its plain "
-                                     f"version at {n} points in the training "
-                                     f"step: max |diff| / max |grad| "
-                                     f"{err / scale}")
+        for shape, aabb6, p, g_out, got in taken + [busiest]:
+            rel, rel64 = _a_bwd_check(
+                got, medium.trilinear_lookup_backward_plain(
+                    shape, aabb6, p, g_out), A_BWD_TOL["step"],
+                f"{n} points in the training step",
+                medium.trilinear_lookup_backward_plain(shape, aabb6, p,
+                                                       g_out.double()))
+            worst = max(worst, rel)
+            worst64 = [max(a, b) for a, b in zip(worst64, rel64)]
         shape, aabb6, p, g_out, _ = taken[0]
         ms = _cuda_ms(lambda: medium.trilinear_lookup_backward(
             shape, aabb6, p, g_out), 20)
+        bare_ms = _cuda_ms(_a_bwd_bare(shape, aabb6, p, g_out, torch.zeros(
+            shape, device=p.device)), 20)
         plain_ms = _cuda_ms(lambda: medium.trilinear_lookup_backward_plain(
             shape, aabb6, p, g_out), 10)
-        voxels = shape[0] * shape[1] * shape[2]
-        bound = _bound(n * 16 + 2 * voxels * 4, n * OPS_A_BWD_POINT)
+        bound = _a_bwd_bound(shape, g_out)
         print(f"kernel A' in the training step at {n} points: {count} calls, "
-              f"{len(taken)} captured, max |diff| / max |grad| against the "
-              f"plain version {worst:.3e} (against the float64 sums: kernel "
-              f"{worst64[0]:.3e}, plain {worst64[1]:.3e}); {ms:.4f} ms "
-              f"through the wrapper, plain {plain_ms:.4f} ms, bound "
-              f"{bound[0]:.4f} ms ({bound[1]}) [{card}]", flush=True)
-        rows.append(dict(n=n, calls=count, checked=len(taken),
-                         max_rel_err=worst, ms=ms, plain_ms=plain_ms,
-                         bound_ms=bound[0], bound_by=bound[1]))
+              f"{len(taken)} captured and the busiest, max |diff| / max "
+              f"|grad| against the plain version {worst:.3e} (against the "
+              f"float64 sums: kernel {worst64[0]:.3e}, plain "
+              f"{worst64[1]:.3e}); non-zero output gradients a call: mean "
+              f"{sum(nonzero) / count:.1f}, max {max(nonzero)}, "
+              f"{sum(k > 0 for k in nonzero)} calls with any; the first "
+              f"call ({nonzero[0]} non-zero) {ms:.4f} ms through the "
+              f"wrapper, bare launch {bare_ms:.4f} ms, plain {plain_ms:.4f} "
+              f"ms, bound {bound[0]:.4f} ms ({bound[1]}) [{card}]",
+              flush=True)
+        rows.append(dict(n=n, calls=count, checked=len(taken) + 1,
+                         max_rel_err=worst, ms=ms, bare_ms=bare_ms,
+                         plain_ms=plain_ms, bound_ms=bound[0],
+                         bound_by=bound[1], nonzero_first=nonzero[0],
+                         nonzero_mean=sum(nonzero) / count,
+                         nonzero_max=max(nonzero)))
     return rows
 
 

@@ -172,9 +172,10 @@ def trilinear_lookup_backward_plain(shape, aabb6, p, grad_out):
 def trilinear_lookup_backward(shape, aabb6, p, grad_out):
     """Kernel A' (csrc/trilinear.cu, `mk_trilinear_lookup_backward`): the
     grid gradient of kernel A's lookups, as trilinear_lookup_backward_plain
-    computes it, for CUDA tensors; the plain version for CPU ones. The
-    kernel adds with float atomics, so the sums' order, and their last
-    bits, vary from run to run."""
+    computes it, for CUDA tensors; the plain version for CPU ones. The C
+    entry zeroes the grid on the stream and the kernel adds with float
+    atomics, so the sums' order, and their last bits, vary from run to
+    run."""
     if p.is_cpu:
         return trilinear_lookup_backward_plain(shape, aabb6, p, grad_out)
     if not p.is_cuda:
@@ -192,9 +193,9 @@ def trilinear_lookup_backward(shape, aabb6, p, grad_out):
         raise ValueError("trilinear_lookup_backward: expected p (N, 3) and "
                          "grad_out (N,)")
     nz, ny, nx = shape
-    grad = torch.zeros((nz, ny, nx), dtype=torch.float32, device=p.device)
     if n == 0:
-        return grad
+        return torch.zeros((nz, ny, nx), dtype=torch.float32, device=p.device)
+    grad = torch.empty((nz, ny, nx), dtype=torch.float32, device=p.device)
     with kernels.on_device(p):
         rc = kernels.library().mk_trilinear_lookup_backward(
             p.data_ptr(), grad_out.data_ptr(), aabb6.data_ptr(),

@@ -1,7 +1,7 @@
-"""Kernels A, B, C, D and E of this tree against those of an earlier tree, on
-one NVIDIA GPU, each driven through its own tree's Python wrappers.
+"""Kernels A, A', B, C, D and E of this tree against those of an earlier
+tree, on one NVIDIA GPU, each driven through its own tree's Python wrappers.
 
-    python3 scripts/compare_kernels_torch.py --old DIR [--kernels ABCDE]
+    python3 scripts/compare_kernels_torch.py --old DIR [--kernels "AA'BCDE"]
         [--out FILE]
 
 DIR is the root of an unpacked earlier tree of this repository holding at
@@ -9,28 +9,37 @@ least its `mitsubaer_tpu_torch/` package (for example `git archive <commit>
 mitsubaer_tpu_torch | tar -x -C DIR`). Each tree runs in a process of its
 own, in turns old, new, new, old; each imports its own package, which builds
 its own kernels, and is called only through the wrappers both trees have
-(`DensityGrid(...).lookup`, `boxwalk.walk`, `megatrack.run`,
-`ermarch.trace`, `ermarch.sens_march`), so the comparison does not depend on
-either tree's C interface (D's per-lane trip counts, which no wrapper
-returns, come through each tree's own interface). DIR may also be a copy of
-this tree with a launch constant changed, to time a variant of a kernel
-against the kernel as it stands; --kernels limits the run to the kernels
-named (default all five).
+(`DensityGrid(...).lookup`, `medium.trilinear_lookup_backward`,
+`boxwalk.walk`, `megatrack.run`, `ermarch.trace`, `ermarch.sens_march`), so
+the comparison does not depend on either tree's C interface (D's per-lane
+trip counts, which no wrapper returns, come through each tree's own
+interface; A''s bare launch through the C entry both trees share). DIR may
+also be a copy of this tree with a launch constant changed, to time a
+variant of a kernel against the kernel as it stands; --kernels limits the
+run to the kernels named (default all six).
 
 Each process, on chip_smoke.py's inputs (A: 10^6 points in and around the
-64^3 grid, f32 and bf16-rounded; B: the 512^2 bounded volume's pass, sppc 8,
+64^3 grid, f32 and bf16-rounded; A': phase 16's 2^20 spread and clustered
+points and calls 0, 4, 16, 64, 256 and the busiest of each point count of
+phase 17's training step, captured in the process from its own tree's
+loss_and_grad; B: the 512^2 bounded volume's pass, sppc 8,
 depth 12; C: the first three tracking calls of the 512^2 point-lit render's
 first pass, captured in the process from its own tree's render_wavefront;
 D: 18,432 lanes of the eikonal bench's linear RIF and of a radial one, h
 1e-2, at most 256 steps; E: 36,864 lanes of the same two RIFs, h 4e-2, at
 most 64 steps):
-  * checks the wrapper's result against its tree's plain version (exact);
-  * times the wrapper with CUDA events (50 calls for A, 5 for B, 20 for C,
-    D and E, after a warm-up), and its host time a call;
+  * checks the wrapper's result against its tree's plain version (exact;
+    A' within chip_smoke.A_BWD_TOL);
+  * times the wrapper with CUDA events (50 calls for A and A', 5 for B, 20
+    for C, D and E, after a warm-up), and its host time a call;
   * traces the same calls with torch.profiler and reports, a call, the
     device time of the tree's kernel (found by name) and of all the device
     work the wrapper made, and how many launches and copies that was.
-For A it does the same for torch's grid_sample on the same points. For D
+For A it does the same for torch's grid_sample on the same points. For A'
+it also reports the bare launch's time, the wrapper's launches a call, its
+bound on the call's data (chip_smoke._a_bwd_bound), how the points fall on
+the grid (_a_bwd_stats), each point count's calls in the step with their
+non-zero output gradients, and registers and SASS counts. For D
 it also reports the chain floor (the device time of one launch holding only
 the lane with the most trips), the kernel-D calls of chip_smoke.py's
 phase-7 eikonal render (96^2, spp 2, captured from the tree's own render:
@@ -50,7 +59,8 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-KERNEL_NAMES = {"A": "trilinear_kernel", "B": "boxwalk_kernel",
+KERNEL_NAMES = {"A": "trilinear_kernel", "A'": "trilinear_backward_kernel",
+                "B": "boxwalk_kernel",
                 "C": "megatrack_kernel", "D": "er_trace_kernel",
                 "E": "er_sens_kernel", "grid_sample": "grid_sampler"}
 
@@ -88,12 +98,20 @@ def worker(tree: Path, which: str) -> dict:
     cs = _smoke()
     dev = torch.device("cuda", 0)
     res = {"tree": str(tree), "package": mitsubaer_tpu_torch.__file__}
-    for name, measure in (("A", _kernel_a), ("B", _kernel_b),
-                          ("C", _kernel_c), ("D", _kernel_d),
-                          ("E", _kernel_e)):
-        if name in which:
+    for name, measure in (("A", _kernel_a), ("A'", _kernel_a_bwd),
+                          ("B", _kernel_b), ("C", _kernel_c),
+                          ("D", _kernel_d), ("E", _kernel_e)):
+        if name in _kernels(which):
             measure(cs, dev, res)
     return res
+
+
+def _kernels(which):
+    """The kernels named in a --kernels string such as "A'BD"."""
+    names = re.findall(r"A'|[A-E]", which)
+    if "".join(names) != which:
+        raise ValueError(f"--kernels takes A, A', B, C, D and E: {which!r}")
+    return names
 
 
 def _kernel_a(cs, dev, res):
@@ -123,6 +141,115 @@ def _kernel_a(cs, dev, res):
         cs, "grid_sample", lambda: torch.nn.functional.grid_sample(
             vol, coords, mode="bilinear", padding_mode="zeros",
             align_corners=True), 50)
+
+
+def _kernel_a_bwd(cs, dev, res):
+    """A' on phase 16's 2^20 spread and clustered points and on calls 0, 4,
+    16, 64 and 256 of each point count that the tree's own training step
+    gives it, and on its call with the most non-zero output gradients (phase
+    17's step: 512^2 beam volume, sppc 4, seed 7, the target at
+    sigma_s x 1.5): checked against the plain version, timed through the
+    wrapper and as a bare C launch, the launches a call counted, and how
+    the points fall on the grid."""
+    import torch
+
+    from mitsubaer_tpu_torch.diff import render as diff_m
+    from mitsubaer_tpu_torch.models import medium
+    from mitsubaer_tpu_torch.scene import presets
+
+    sets = {name: cs._a_bwd_case(name, dev) for name in ("uniform",
+                                                         "clustered")}
+    scene, cfg = presets.volumetric_box(res=512, spp=4, heterogeneous=True,
+                                        density_res=64, max_depth=12)
+    scene = scene.to(dev)
+    params = diff_m.get_params(scene)
+    with torch.no_grad():
+        target = diff_m.render_diff(
+            scene, params._replace(sigma_s=params.sigma_s * 1.5), cfg, 4,
+            123, 0, device=dev)
+    leaves = diff_m.MediumParams(*(t.detach().clone().requires_grad_()
+                                   for t in params))
+    calls = cs._capture_a_bwd(scene, leaves, cfg, 4, 7, 0, target, dev)
+    for n, (count, taken, nonzero, busiest) in sorted(calls.items()):
+        for k, call in zip(cs.A_BWD_STEP_CALLS, taken):
+            sets[f"step{n}_call{k}"] = call[:4] + ("step",)
+        sets[f"step{n}_busiest"] = busiest[:4] + ("step",)
+        res[f"A'_step{n}"] = {"calls": count, "nonzero_mean": sum(nonzero)
+                              / count, "nonzero_max": max(nonzero)}
+    fn = medium.trilinear_lookup_backward
+    for label, (shape, aabb6, p, g, tol) in sets.items():
+        want = medium.trilinear_lookup_backward_plain(shape, aabb6, p, g)
+        before = fn.launches
+        got = fn(shape, aabb6, p, g)
+        launches = fn.launches - before
+        rel, _ = cs._a_bwd_check(got, want, cs.A_BWD_TOL[tol], label)
+        m = _measure(cs, "A'", lambda: fn(shape, aabb6, p, g), 50)
+        m["bare_ms"] = cs._cuda_ms(cs._a_bwd_bare(
+            shape, aabb6, p, g, torch.zeros(shape, device=dev)), 50)
+        bound = cs._a_bwd_bound(shape, g)
+        m.update(launches_a_call=launches, max_rel_err=rel,
+                 bound_ms=bound[0], bound_by=bound[1],
+                 points=_a_bwd_stats(shape, aabb6, p, g))
+        res[f"A'_{label}"] = m
+    res["A'_sass"] = _sass(KERNEL_NAMES["A'"])
+
+
+def _a_bwd_stats(shape, aabb6, p, grad_out):
+    """How kernel A''s points fall on the grid: the shares outside the AABB
+    and with a zero output gradient; over the points that add (inside,
+    gradient non-zero): the distinct cells a warp of 32 consecutive points
+    holds, the extent (x, y, z) and volume of the box of the corner voxels
+    of 256 and of 1,024 consecutive points, and the voxels touched."""
+    import torch
+
+    from mitsubaer_tpu_torch.models import medium
+
+    nz, ny, nx = shape
+    n = p.shape[0]
+    inside, cell, _ = medium._cell_weights(shape, aabb6, p)
+    adds = inside & (grad_out != 0)
+    cx, cy = max(nx - 1, 1), max(ny - 1, 1)
+    key = torch.where(adds, (cell[:, 2] * cy + cell[:, 1]) * cx + cell[:, 0],
+                      -1)
+
+    def rows(x, size, fill):
+        pad = -x.shape[0] % size
+        x = torch.cat([x, x.new_full((pad,) + x.shape[1:], fill)])
+        return x.reshape((-1, size) + x.shape[1:])
+
+    w = rows(key, 32, -1).sort(dim=1).values
+    live = w[:, -1] >= 0
+    distinct = ((w[:, 1:] != w[:, :-1]) & (w[:, :-1] >= 0)).sum(1) + live
+    top = torch.tensor([nx - 1, ny - 1, nz - 1], device=p.device)
+    out = dict(n=n, outside=1.0 - inside.float().mean().item(),
+               g_zero=(grad_out == 0).float().mean().item(),
+               adds=adds.float().mean().item(),
+               cells_per_warp=distinct[live].float().mean().item()
+               if live.any() else 0.0,
+               adding_lanes_per_warp=(w >= 0).sum(1)[live].float().mean()
+               .item() if live.any() else 0.0)
+    for size in (256, 1024):
+        lo = rows(torch.where(adds[:, None], cell, 1 << 30), size,
+                  1 << 30).amin(1)
+        hi = rows(torch.where(adds[:, None], torch.minimum(cell + 1, top),
+                              -1), size, -1).amax(1)
+        ext = (hi - lo + 1)[hi[:, 0] >= 0]
+        if not ext.numel():
+            continue
+        vol = ext.prod(1).double()
+        q = torch.quantile(vol, torch.tensor([0.5, 0.99], dtype=torch.float64,
+                                             device=p.device)).tolist()
+        out[f"box{size}"] = dict(
+            blocks=int(ext.shape[0]),
+            extent_p50=ext.double().median(0).values.tolist(),
+            volume_mean=vol.mean().item(), volume_p50=q[0], volume_p99=q[1],
+            volume_le_4096=(vol <= 4096).double().mean().item())
+    corners = [((cell[adds, 2] + dz).clamp_max(nz - 1) * ny
+                + (cell[adds, 1] + dy).clamp_max(ny - 1)) * nx
+               + (cell[adds, 0] + dx).clamp_max(nx - 1)
+               for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)]
+    out["voxels_touched"] = int(torch.unique(torch.cat(corners)).numel())
+    return out
 
 
 def _kernel_b(cs, dev, res):
@@ -186,7 +313,9 @@ def _sass(kernel):
     """Each compiled function of `kernel` in the tree's library, by its
     mangled name: registers (ptxas' report in the build log) and SASS
     instruction counts (`cuobjdump -sass`): all, and FCHK (the IEEE
-    division's range check), MUFU, CALL, BRA and the local-memory LDL/STL."""
+    division's range check), MUFU, CALL, BRA, the local-memory LDL/STL, the
+    global reductions and atomics REDG/ATOMG, the shared atomics ATOMS, and
+    MATCH and SHFL."""
     from mitsubaer_tpu_torch import kernels
 
     lib = kernels.library_path()
@@ -210,7 +339,8 @@ def _sass(kernel):
         ops = _OPCODE.findall(block)
         out[name] = {"registers": regs.get(name), "instructions": len(ops),
                      **{op: ops.count(op) for op in (
-                         "FCHK", "MUFU", "CALL", "BRA", "LDL", "STL")}}
+                         "FCHK", "MUFU", "CALL", "BRA", "LDL", "STL", "REDG",
+                         "ATOMG", "ATOMS", "MATCH", "SHFL")}}
     return out
 
 
@@ -333,8 +463,9 @@ def _image_diffs(runs, card):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--old", type=Path)
-    ap.add_argument("--kernels", default="ABCDE",
-                    help="the kernels to measure, of A, B, C, D and E")
+    ap.add_argument("--kernels", default="AA'BCDE",
+                    help="the kernels to measure, of A, A', B, C, D and E "
+                         "(for example \"A'B\")")
     ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
     ap.add_argument("--out", type=Path,
                     default=ROOT / "build" / "compare" / "compare_kernels.json")
@@ -344,6 +475,7 @@ def main() -> int:
         return 0
     if args.old is None:
         ap.error("--old DIR is required")
+    _kernels(args.kernels)
 
     import torch
 

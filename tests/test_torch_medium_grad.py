@@ -9,12 +9,14 @@ and on a GPU machine (no jax needed for them) run as
     python -m pytest --noconftest tests/test_torch_medium_grad.py -m cuda
 """
 import dataclasses
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
 import torch
 import torch.utils.checkpoint
 
+import chip_smoke
 from mitsubaer_tpu_torch.core import rng as trng
 from mitsubaer_tpu_torch.core.math import take_rows
 from mitsubaer_tpu_torch.diff import render as tdiff
@@ -68,6 +70,43 @@ def test_backward_plain_equals_autograd_of_forward_plain(shape):
     assert got.shape == shape and grid.grad.abs().max() > 0
     torch.testing.assert_close(got, grid.grad, rtol=0,
                                atol=1e-6 * grid.grad.abs().max().item())
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_backward_plain_matches_jax_vjp(shape):
+    """Kernel A''s function against JAX's: the plain backward against
+    jax.vjp of DensityBricks.lookup(fused=False) with respect to the
+    density grid, on points in, outside and on the boundary of the AABB,
+    clustered and on the cells' faces, with a seventh of the output
+    gradients zero. JAX forms each term as g ((wz wy) wx), the port as
+    ((g wz) wy) wx, and the two sum in other orders (measured: within
+    4.3e-7 of the largest voxel)."""
+    import jax
+    import jax.numpy as jnp
+
+    from mitsubaer_tpu.models import medium as jmedium
+
+    faces = chip_smoke._a_bwd_faces(np.random.default_rng(33), 1000, shape)
+    p = torch.cat([_points(3000, 31), _clustered(1000, 32),
+                   torch.from_numpy(faces.astype(np.float32))])
+    g = np.random.default_rng(34).normal(size=p.shape[0]).astype(np.float32)
+    g[::7] = 0.0
+    brick_map = jnp.asarray(jmedium.build_brick_map(*shape))
+    lo, hi = jnp.full(3, -1.0), jnp.full(3, 1.0)
+
+    def lookup(density):
+        media = SimpleNamespace(brick_map=brick_map, density=SimpleNamespace(
+            data=density, aabb_min=lo, aabb_max=hi))
+        return jmedium.DensityBricks(media).lookup(jnp.asarray(p.numpy()),
+                                                   fused=False)
+
+    _, vjp = jax.vjp(lookup, jnp.asarray(_grid(shape, 35).numpy()))
+    want = np.asarray(vjp(jnp.asarray(g))[0])
+    got = tmedium.trilinear_lookup_backward_plain(shape, AABB6, p,
+                                                  torch.from_numpy(g))
+    scale = np.abs(want).max()
+    assert got.shape == shape and scale > 0
+    assert np.abs(got.numpy() - want).max() <= 1e-6 * scale
 
 
 def test_backward_plain_skips_points_outside_the_aabb():
@@ -301,25 +340,30 @@ def cuda():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("points", ["uniform", "clustered"])
+@pytest.mark.parametrize("points", chip_smoke.A_BWD_CASES)
 def test_backward_kernel_matches_plain_on_cuda(cuda, points):
-    """Kernel A' against its plain version on the 64^3 grid. Float atomics
-    add in a varying order: within 1e-5 of the largest voxel for spread
-    points (~24 terms a voxel), 1e-4 for the cluster, whose few voxels sum
-    ~60,000 terms each in float32 in either order."""
-    n = 200_000
-    p = (_points(n, 11) if points == "uniform" else _clustered(n, 11)).to(cuda)
-    g = torch.from_numpy(np.random.default_rng(12).normal(
-        size=n).astype(np.float32)).to(cuda)
-    aabb6 = AABB6.to(cuda)
+    """Kernel A' against its plain version. Float atomics add in a varying
+    order: within chip_smoke.A_BWD_TOL of the largest voxel, 1e-5 for
+    spread points (~32 terms a voxel), 1e-4 for the clustered sets, whose
+    few voxels sum up to ~300,000 terms each in float32 in either order;
+    a NaN output gradient makes the same voxels NaN in both, and the kernel
+    lies within 1e-5 of the float64 sums of the same terms. The sets are
+    chip_smoke.py's (its phase 16 runs each too): spread and clustered 2^20
+    points, one cell, cell and AABB faces, outside, zero and NaN output
+    gradients, flat and one-voxel grids, N of 0 to 200,000, a warp
+    alternating between two cells."""
+    shape, aabb6, p, g, tol = chip_smoke._a_bwd_case(points, cuda)
     before = tmedium.trilinear_lookup_backward.launches
-    got = tmedium.trilinear_lookup_backward((64, 64, 64), aabb6, p, g)
-    assert tmedium.trilinear_lookup_backward.launches == before + 1
-    want = tmedium.trilinear_lookup_backward_plain((64, 64, 64), aabb6, p, g)
+    got = tmedium.trilinear_lookup_backward(shape, aabb6, p, g)
+    assert tmedium.trilinear_lookup_backward.launches == \
+        before + (p.shape[0] > 0)
+    want = tmedium.trilinear_lookup_backward_plain(shape, aabb6, p, g)
+    exact = tmedium.trilinear_lookup_backward_plain(shape, aabb6, p,
+                                                    g.double())
     torch.cuda.synchronize()
-    scale = want.abs().max().item()
-    tol = 1e-5 if points == "uniform" else 1e-4
-    assert scale > 0 and (got - want).abs().max().item() <= tol * scale
+    chip_smoke._a_bwd_check(got, want, chip_smoke.A_BWD_TOL[tol], points,
+                            exact)
+    assert (want != 0).any() == (p.shape[0] > 0)
 
 
 @pytest.mark.cuda
