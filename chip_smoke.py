@@ -118,7 +118,29 @@ Phases (any failure raises and the script exits non-zero):
  21. phase 19's configuration at 8^2 sppc 2, and phase 20's gradient at
      test_inverse.py's size, on the card and on the CPU at the card's
      solved BVP connections: the loss and each gradient within
-     ER_CARD_CPU_TOL.
+     ER_CARD_CPU_TOL;
+ 22. the homogeneous distance-sampling strategies in the refractive
+     medium: phase 7's render with sigma_s (0.2, 0.4, 0.8) under
+     STRAT_MAXIMUM, then STRAT_MANUAL (density 0.5); kernels D and E must
+     launch; each render's wall; then each at 16^2 spp 4 on the card and
+     on the CPU, by phase 8's rule;
+ 23. the light image (volpath_er.render_er_light_image) at 96^2, 8 passes
+     of 9,216 particles, through the strong radial lens of
+     tests/test_volpath_er.py (a 0.5, 4 BVP restarts): D and E must
+     launch; their first and busiest calls captured, each output equal to
+     the plain version's on the same inputs, timed at the busiest; the
+     wall, launches and film sum. Then at 24^2 (a 0) on the card and on
+     the CPU pass by pass: the connections both devices splat within rtol
+     1e-3, at most LIGHT_MAX_FLIPPED on one only;
+ 24. the acoustic RIF (mode 2): one plain kernel-E march at the bench's
+     36,864 lanes, then phase 7's render with it at depth ACOUSTIC_DEPTH
+     through the plain loops (no kernel may launch): the wall;
+ 25. er_f64: one float64 plain kernel-E march at 36,864 lanes, then phase
+     7's render in float64 at depth F64_DEPTH through the plain loops (no
+     kernel may launch): the wall and the image's difference from the
+     float32 render (phase 7's, or one at that depth).
+With `--phases a-b[,c-d]` only those phase groups run (3-8, 9-12, 13-15,
+16-18, 19-21, 22-25; 1 and 2 always), for iterating on the card.
 Prints one JSON line of per-kernel results (time, bound, plain version,
 library yardstick, launches on the main paths; for A also its launches on
 the loop road and its checks and times at the loop road's point counts,
@@ -126,7 +148,8 @@ and its launches in a training step; for B, C and D also the device time
 and registers; for A' its bare-launch and clustered times and its checks
 and times at the training step's point counts; for E its launches in an eikonal
 gradient, its checks and times at that gradient's calls, and the walls of
-phases 19 and 20), then the contract line
+phases 19 and 20; for D and E their launches, checks and times in the
+light image, and the walls of phases 22-25), then the contract line
 {"ok": true, "device": {...}} last.
 """
 from __future__ import annotations
@@ -618,12 +641,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     from mitsubaer_tpu_torch import kernels
-    from mitsubaer_tpu_torch.integrators import boxwalk
-    from mitsubaer_tpu_torch.integrators import render as render_m
-    from mitsubaer_tpu_torch.models import eikonal as ek
-    from mitsubaer_tpu_torch.models import ermarch
-    from mitsubaer_tpu_torch.models import medium
-    from mitsubaer_tpu_torch.scene import presets
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -649,6 +666,57 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 print("  ptxas:   ", line.strip())
     results = {}
+
+    phases = _phase_range(sys.argv[1:])
+    er_img = None
+    if phases & set(range(3, 9)):
+        er_img = _core_phases(dev, card, results, build_log)
+    if phases & set(range(9, 13)):
+        _megatrack_phases(dev, card, results, build_log)
+    if phases & set(range(13, 16)):
+        _loop_phases(dev, card, results)
+    if phases & set(range(16, 19)):
+        _training_phases(dev, card, results)
+    if phases & set(range(19, 22)):
+        _er_grad_phases(dev, card, results)
+    if phases & set(range(22, 26)):
+        _er_rest_phases(dev, card, results, er_img)
+
+    print(json.dumps({"kernels": list(results.values())}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _phase_range(argv):
+    """The phases to run: all with no argument (as the check runs the
+    script), else those of `--phases a-b[,c-d...]`; phases 1 and 2 always
+    run, and a phase group runs whole where any of its phases is asked
+    for."""
+    if not argv:
+        return set(range(1, 26))
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit("usage: chip_smoke.py [--phases a-b[,c-d...]]")
+    phases = set()
+    for part in argv[1].split(","):
+        a, _, b = part.partition("-")
+        phases |= set(range(int(a), int(b or a) + 1))
+    return phases
+
+
+def _core_phases(dev, card, results, build_log):
+    """Phases 3-8: kernels A, B, D and E against their plain versions, the
+    bounded-volume and eikonal paths at full width and small, card against
+    CPU. Returns phase 7's eikonal image."""
+    import torch
+
+    from mitsubaer_tpu_torch.integrators import boxwalk
+    from mitsubaer_tpu_torch.integrators import render as render_m
+    from mitsubaer_tpu_torch.models import eikonal as ek
+    from mitsubaer_tpu_torch.models import ermarch
+    from mitsubaer_tpu_torch.models import medium
+    from mitsubaer_tpu_torch.scene import presets
 
     # ---- phase 3: kernel A against its plain version ----
     scene, cfg = presets.volumetric_box(res=512, spp=32, heterogeneous=True,
@@ -959,12 +1027,13 @@ def main() -> int:
     stats = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    img, d_calls = _trace_calls(lambda: render_m.render(
+    er_img, d_calls = _trace_calls(lambda: render_m.render(
         er_scene, er_cfg, seed=1, device=dev, stats=stats))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"er_trace": ermarch.trace.launches,
                 "er_sens": ermarch.sens_march.launches}
+    img = er_img
     mean = img.mean().item()
     print(f"eikonal path: 96x96 spp 2 depth 6, bounces "
           f"{[p_[0] for p_ in stats['passes']]}, wall {wall:.3f} s, "
@@ -1013,16 +1082,7 @@ def main() -> int:
     if not (0.98 <= ratio <= 1.02 and mean_rel <= 0.02):
         raise AssertionError("card and CPU eikonal renders disagree")
 
-    _megatrack_phases(dev, card, results, build_log)
-    _loop_phases(dev, card, results)
-    _training_phases(dev, card, results)
-    _er_grad_phases(dev, card, results)
-
-    print(json.dumps({"kernels": list(results.values())}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return er_img
 
 
 def _mega_synthetic(n):
@@ -1951,29 +2011,10 @@ def _er_grad_phases(dev, card, results):
     scene = scene.to(dev)
     sppc, lanes = 2, 32 * 32 * 2
     sens_march, captured = ermarch.sens_march, {}
-
-    def capture(rif, sdf, p1, v, dpdv0, dvdv0, p2, h, max_steps, active):
-        out = sens_march(rif, sdf, p1, v, dpdv0, dvdv0, p2, h, max_steps,
-                         active)
-        # per lane count: [calls, calls 0, 4, 16 and 64, the call with the
-        # most active lanes]
-        seen = captured.setdefault(p1.shape[0], [0, [], None])
-        busy = int(active.sum())
-        if seen[0] in (0, 4, 16, 64) or seen[2] is None or busy > int(
-                seen[2][0][9].sum()):
-            call = ((rif, sdf) + tuple(
-                t.clone() for t in (p1, v, dpdv0, dvdv0, p2)) + (
-                h, max_steps, active.clone()), [t.clone() for t in out])
-            if seen[0] in (0, 4, 16, 64):
-                seen[1].append(call)
-            if seen[2] is None or busy > int(seen[2][0][9].sum()):
-                seen[2] = call
-        seen[0] += 1
-        return out
+    capture = _capture_calls(sens_march, captured, (0, 4, 16, 64))
 
     # the first call with kernel E's calls captured (the wrapper takes the
     # launch counts while it stands in), the second one timed
-    capture.launches = 0
     ermarch.sens_march = capture
     try:
         first = _er_grad_step(scene, cfg, sppc, 0, dev, "rif_params")
@@ -2001,7 +2042,8 @@ def _er_grad_phases(dev, card, results):
     _er_fd(scene, cfg, sppc, 1, dev, "rif_params", scene.media.rif_params,
            step, "phase 19 along rif_params", card)
     results["er_sens"]["launches_er_grad"] = launches[1]
-    results["er_sens"]["er_grad_shapes"] = _er_grad_kernel_e(captured, card)
+    results["er_sens"]["er_grad_shapes"] = _check_e_calls(
+        captured, card, "the eikonal gradient")
     results["er_sens"]["er_grad_step"] = dict(
         first_s=first[2], wall_s=wall, samples_per_s=lanes / wall,
         peak_gib=peak / 2**30)
@@ -2091,21 +2133,101 @@ def _er_grad_at(scene, cfg, sppc, seed, field, solves):
     return loss.item(), grad
 
 
-def _er_grad_kernel_e(captured, card):
-    """Kernel E at the calls phase 19's eikonal gradient made (calls 0, 4,
-    16 and 64 of each lane count, and the one with the most active lanes):
-    each output equal to the plain version on the same inputs, and E timed
-    at the busiest. Returns per lane count its calls in the step, the
-    calls checked, the busiest call's active lanes and steps, the largest
-    difference and the times of E, its bare launch and the plain version,
-    with the bound. These launches come after phase 19's counts were
-    read."""
+def _capture_calls(fn, captured, picks):
+    """A stand-in for the march wrapper fn (ermarch.trace or sens_march)
+    that calls it and keeps, per lane count in `captured`, [calls, the
+    calls numbered in `picks` (their arguments and outputs cloned), the
+    call with the most active lanes]. The wrapper counts its launches on
+    the stand-in while it stands in (its `launches` attribute)."""
+    import torch
+
+    def capture(*args):
+        out = fn(*args)
+        seen = captured.setdefault(args[2].shape[0], [0, [], None])
+        busy = int(args[-1].sum())
+        if seen[0] in picks or seen[2] is None or busy > int(
+                seen[2][0][-1].sum()):
+            call = (tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                          for a in args), [t.clone() for t in out])
+            if seen[0] in picks:
+                seen[1].append(call)
+            if seen[2] is None or busy > int(seen[2][0][-1].sum()):
+                seen[2] = call
+        seen[0] += 1
+        return out
+
+    capture.launches = 0
+    return capture
+
+
+def _check_d_calls(captured, card, where):
+    """Kernel D at the captured calls of `where` (_capture_calls): each
+    output equal to trace_plain on the same inputs, and D timed at the
+    busiest through its wrapper and bare, with the plain version and the
+    bound. Returns a row per lane count, as _check_e_calls does."""
     import torch
 
     from mitsubaer_tpu_torch.models import ermarch
 
     if not captured:
-        raise AssertionError("phase 19 made no call of kernel E")
+        raise AssertionError(f"{where} made no call of kernel D")
+    rows = []
+    for n in sorted(captured):
+        count, taken, busiest = captured[n]
+        taken = taken + [busiest]
+        err = 0.0
+        for args, got in taken:
+            want = ermarch.trace_plain(*args)
+            bad = [i for i, (a, b) in enumerate(zip(got, want))
+                   if not torch.equal(a, b)]
+            if bad:
+                raise AssertionError(f"kernel D differs from its plain "
+                                     f"version at {n} lanes in {where}: "
+                                     f"outputs {bad}")
+            err = max(err, max((a.float() - b.float()).abs().max().item()
+                               for a, b in zip(got[:4], want[:4])))
+        args = busiest[0]
+        rif, sdf, h, max_steps = args[0], args[1], args[5], args[6]
+        launch, outs = _d_bare(rif, sdf, (args[2], args[3], args[4],
+                                          args[7]), h, max_steps)
+        launch()
+        torch.cuda.synchronize()
+        trips = outs[-1]
+        ms = _cuda_ms(lambda: ermarch.trace(*args), 20)
+        bare_ms = _cuda_ms(launch, 20)
+        plain_ms = _cuda_ms(lambda: ermarch.trace_plain(*args), 3)
+        bound = _bound(n * 70 + 8, int(trips.sum()) * OPS_D_STEP[rif.kind])
+        print(f"kernel D in {where} at {n} lanes: {count} calls, "
+              f"{len(taken)} checked, every output equal to the plain "
+              f"version (max abs err {err:.3e}); the busiest call "
+              f"({int(args[7].sum())} active lanes, {int(trips.max())} "
+              f"trips): {ms:.4f} ms through the wrapper, bare {bare_ms:.4f} "
+              f"ms, plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms "
+              f"({bound[1]}) [{card}]", flush=True)
+        rows.append(dict(n=n, calls=count, checked=len(taken),
+                         active=int(args[7].sum()), steps=int(trips.max()),
+                         max_abs_err=err, ms=ms, bare_ms=bare_ms,
+                         plain_ms=plain_ms, bound_ms=bound[0],
+                         bound_by=bound[1]))
+        del launch, outs
+    return rows
+
+
+def _check_e_calls(captured, card, where):
+    """Kernel E at the captured calls of `where` (_capture_calls; phase
+    19's eikonal gradient: calls 0, 4, 16 and 64 of each lane count, and
+    the one with the most active lanes): each output equal to the plain
+    version on the same inputs, and E timed at the busiest. Returns per
+    lane count its calls, the calls checked, the busiest call's active
+    lanes and steps, the largest difference and the times of E, its bare
+    launch and the plain version, with the bound. These launches come
+    after the counts of `where` were read."""
+    import torch
+
+    from mitsubaer_tpu_torch.models import ermarch
+
+    if not captured:
+        raise AssertionError(f"{where} made no call of kernel E")
     rows = []
     for n in sorted(captured):
         count, taken, busiest = captured[n]
@@ -2117,8 +2239,8 @@ def _er_grad_kernel_e(captured, card):
                    if not torch.equal(a, b)]
             if bad:
                 raise AssertionError(f"kernel E differs from its plain "
-                                     f"version at {n} lanes in the eikonal "
-                                     f"gradient: outputs {bad}")
+                                     f"version at {n} lanes in {where}: "
+                                     f"outputs {bad}")
             err = max(err, max((a.float() - b.float()).abs().max().item()
                                for a, b in zip(got[:6], want[:6])))
         args = busiest[0]
@@ -2133,7 +2255,7 @@ def _er_grad_kernel_e(captured, card):
         plain_ms = _cuda_ms(lambda: ermarch.sens_march_plain(*args), 3)
         bound = _bound(n * (109 + 113), int(trips.sum())
                        * OPS_E_STEP[rif.kind])
-        print(f"kernel E in the eikonal gradient at {n} lanes: {count} "
+        print(f"kernel E in {where} at {n} lanes: {count} "
               f"calls, {len(taken)} checked, every output equal to the "
               f"plain version (max abs err {err:.3e}); the busiest call "
               f"({int(args[9].sum())} active lanes, {int(trips.max())} "
@@ -2147,6 +2269,268 @@ def _er_grad_kernel_e(captured, card):
                          bound_by=bound[1]))
         del launch, outs
     return rows
+
+
+# phases 24 and 25 march the plain loops, launch-bound on the card: their
+# renders' depth (bench_er_forward's is 6), cut where the script's time
+# needs it. On an H100 the acoustic render took 1.9 s at depth 2 and
+# 215.6 s at depth 4 (one plain acoustic E march at 36,864 lanes 0.49-0.73
+# s, ~5x the linear one's); the float64 render 32.0-45.4 s at depth 6
+ACOUSTIC_DEPTH = 3
+F64_DEPTH = 6
+# phase 23: the light image, card against CPU at 24^2 pass by pass: pixels
+# lit on one device only (connections whose Levenberg stop test the two
+# devices' ulps decided differently) over LIGHT_PASSES passes
+LIGHT_PASSES, LIGHT_MAX_FLIPPED = 6, 2
+
+
+def _light_scene(presets, res, a):
+    """tests/test_volpath_er.py::TestSensorSideConnections's scene at
+    res^2: the refractive sphere with a point light and a radial RIF of
+    strength a (w 0.5), h 0.02, er_maxsteps 256, 4 BVP restarts, depth 4."""
+    from dataclasses import replace
+
+    scene, cfg = presets.refractive_sphere(
+        res=res, spp=1, max_depth=4, rif_kind=2,
+        rif_params=(1.33, a, 0.5, 0.0, 0.0, 0.0), er_stepsize=0.02,
+        emitter="point", filter="box")
+    return scene, replace(cfg, er_maxsteps=256, bvp_restarts=4)
+
+
+def _er_variant(presets, res, spp, max_steps, strategy=None, **kw):
+    """_er_bench_scene with refractive_sphere's keywords `kw` and, where
+    given, the medium's distance-sampling strategy (manual density 0.5)."""
+    import dataclasses
+
+    import torch
+
+    scene, cfg = presets.refractive_sphere(
+        res=res, spp=spp, max_depth=kw.pop("max_depth", 6),
+        rif_kind=kw.pop("rif_kind", 1),
+        rif_params=kw.pop("rif_params", (1.3, 0.15)), er_stepsize=1e-2,
+        filter="box", **kw)
+    cfg = dataclasses.replace(cfg, er_maxsteps=max_steps, bvp_restarts=8,
+                              er_bvp_hscale=4.0)
+    if strategy is not None:
+        media = dataclasses.replace(
+            scene.media, strategy=torch.full_like(scene.media.strategy,
+                                                  strategy),
+            manual_density=torch.full_like(scene.media.manual_density, 0.5))
+        scene = dataclasses.replace(scene, media=media)
+        cfg = dataclasses.replace(cfg, medium_strategies=True)
+    return scene, cfg
+
+
+def _er_render(scene, cfg, dev, seed=1):
+    """(image, wall s, launches of D and E) of one eikonal render on the
+    card, the counts set to 0 just before and read just after."""
+    import torch
+
+    from mitsubaer_tpu_torch.integrators import render as render_m
+    from mitsubaer_tpu_torch.models import ermarch
+
+    ermarch.trace.launches = ermarch.sens_march.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = render_m.render(scene, cfg, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = (ermarch.trace.launches, ermarch.sens_march.launches)
+    if (tuple(img.shape) != (cfg.height, cfg.width, 3)
+            or not bool(torch.isfinite(img).all()) or not img.mean() > 0):
+        raise AssertionError("an eikonal render gave a non-finite, black "
+                             "or misshapen image")
+    return img, wall, launches
+
+
+def _card_vs_cpu(img_g, img_c, what, rel=0.02):
+    """Phase 8's rule: the median pixel ratio over the CPU image's lit
+    pixels within 1 +- rel and the means within rel."""
+    lum_g, lum_c = img_g.mean(-1), img_c.mean(-1)
+    sel = lum_c > 0
+    ratio = (lum_g[sel] / lum_c[sel]).median().item()
+    mean_rel = abs(img_g.mean().item() / img_c.mean().item() - 1)
+    print(f"card vs CPU {what}: median pixel ratio {ratio:.6f}, mean rel "
+          f"diff {mean_rel:.2e}", flush=True)
+    if not (1 - rel <= ratio <= 1 + rel and mean_rel <= rel):
+        raise AssertionError(f"card and CPU disagree: {what}")
+    return ratio, mean_rel
+
+
+def _plain_e_ms(rif, sdf, e_in, dtype):
+    """One plain kernel-E march (sens_march_plain) on the card at e_in's
+    lanes, in `dtype`: h 4e-2, 64 steps, as phase 6 times it."""
+    import torch
+
+    from mitsubaer_tpu_torch.models import ermarch
+
+    args = [t.to(dtype) if t.is_floating_point() else t for t in e_in]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ermarch.sens_march_plain(rif, sdf, *args[:5], 4e-2, 64, args[5])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _er_rest_phases(dev, card, results, er_img):
+    """Phases 22-25: the eikonal road's strategies, light image, acoustic
+    RIF and float64 core."""
+    import dataclasses
+
+    import torch
+
+    from mitsubaer_tpu_torch.integrators import render as render_m
+    from mitsubaer_tpu_torch.integrators import volpath_er as er_m
+    from mitsubaer_tpu_torch.models import eikonal as ek
+    from mitsubaer_tpu_torch.models import ermarch
+    from mitsubaer_tpu_torch.scene import presets
+    from mitsubaer_tpu_torch.scene import types as T
+
+    sphere = ek.SdfField(ek.SDF_SPHERE, (0.0, 0.0, 0.0, 1.0))
+    # D's and E's rows (phase 6's), or bare ones where phases 3-8 did not
+    # run (--phases)
+    d_row = results.setdefault("er_trace", {})
+    e_row = results.setdefault("er_sens", {})
+
+    # ---- phase 22: the homogeneous strategies in the refractive medium,
+    # at bench_er_forward's width with a chromatic sigma_s ----
+    sigma_s = (0.2, 0.4, 0.8)
+    rows = {}
+    for name, strat in (("maximum", T.STRAT_MAXIMUM),
+                        ("manual", T.STRAT_MANUAL)):
+        scene, cfg = _er_variant(presets, 96, 2, 256, strat, sigma_s=sigma_s)
+        img, wall, launches = _er_render(scene, cfg, dev)
+        print(f"eikonal path, strategy {name} (96x96 spp 2 depth 6, sigma_s "
+              f"{sigma_s}): wall {wall:.3f} s, "
+              f"{96 * 96 * 2 / wall / 1e6:.6f} Msamples/s, mean "
+              f"{img.mean().item():.6f}, launches of D and E {launches} "
+              f"[{card}]", flush=True)
+        if min(launches) < 1:
+            raise AssertionError(f"phase 22 ({name}) skipped a kernel: "
+                                 f"{launches}")
+        # the single-solve BVP here: with restarts, a connection whose
+        # stop or re-find test the devices' ulps decide differently moves
+        # a 16^2 image's mean by up to ~25% (float32 against float64 on
+        # the CPU: 5-15%); single-solve, 0.5%
+        s_scene, s_cfg = _er_variant(presets, 16, 4, 128, strat,
+                                     sigma_s=sigma_s)
+        s_cfg = dataclasses.replace(s_cfg, bvp_restarts=0)
+        img_g = _er_render(s_scene, s_cfg, dev, seed=3)[0].cpu()
+        img_c = render_m.render(s_scene, s_cfg, seed=3, device="cpu")
+        ratio = _card_vs_cpu(img_g, img_c, f"eikonal render, strategy "
+                             f"{name}, 16x16 spp 4")
+        rows[name] = dict(wall_s=wall, launches=launches,
+                          mean=img.mean().item(), card_vs_cpu=ratio)
+    d_row["strategies"] = rows
+
+    # ---- phase 23: the light image at full width (96^2, 8 passes of
+    # 9,216 particles) through the strong lens, its kernel calls captured
+    # and held exact; then card against CPU at 24^2 ----
+    scene, cfg = _light_scene(presets, 96, 0.5)
+    trace, sens_march = ermarch.trace, ermarch.sens_march
+    d_calls, e_calls = {}, {}
+    ermarch.trace = _capture_calls(trace, d_calls, (0,))
+    ermarch.sens_march = _capture_calls(sens_march, e_calls, (0,))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        film = er_m.render_er_light_image(scene, cfg, seed=0, n_passes=8,
+                                          device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = (ermarch.trace.launches, ermarch.sens_march.launches)
+    finally:
+        ermarch.trace, ermarch.sens_march = trace, sens_march
+    total = film.sum().item()
+    lit = int((film.sum(-1) > 0).sum())
+    print(f"light image (96x96, 8 passes, {8 * 96 * 96} particles, radial "
+          f"RIF a 0.5): wall {wall:.3f} s, film sum {total:.6f}, {lit} lit "
+          f"pixels, launches of D and E {launches} [{card}]", flush=True)
+    if not bool(torch.isfinite(film).all()) or not total > 0:
+        raise AssertionError("the light image is non-finite or black")
+    if min(launches) < 1:
+        raise AssertionError(f"the light image skipped a kernel: "
+                             f"{launches}")
+    d_row["light_image"] = dict(
+        wall_s=wall, launches=launches[0], film_sum=total,
+        calls=_check_d_calls(d_calls, card, "the light image"))
+    e_row["light_image"] = dict(
+        launches=launches[1],
+        calls=_check_e_calls(e_calls, card, "the light image"))
+    del d_calls, e_calls
+    s_scene, s_cfg = _light_scene(presets, 24, 0.0)
+    g_scene, c_scene = s_scene.to(dev), s_scene.to("cpu")
+    both = flipped = 0
+    worst = 0.0
+    for i in range(LIGHT_PASSES):
+        fg = er_m.trace_er_particles(g_scene, s_cfg, 576, 0, i).cpu()
+        fc = er_m.trace_er_particles(c_scene, s_cfg, 576, 0, i)
+        lg, lc = fg.sum(-1) > 0, fc.sum(-1) > 0
+        both += int((lg & lc).sum())
+        flipped += int((lg ^ lc).sum())
+        if bool((lg & lc).any()):
+            worst = max(worst, ((fg - fc).abs() / fc.abs().clamp_min(1e-30))
+                        [lg & lc].max().item())
+    print(f"card vs CPU light image (24x24, {LIGHT_PASSES} passes of 576, "
+          f"a 0): {both} connections on both devices, largest relative "
+          f"difference {worst:.3e}, {flipped} on one only", flush=True)
+    if both < 6 or worst > 1e-3 or flipped > LIGHT_MAX_FLIPPED:
+        raise AssertionError("card and CPU light images disagree")
+
+    # ---- phase 24: the acoustic RIF (mode 2) through the plain loops ----
+    acoustic = (1.3333, 0.03, 6.0, 2.0)
+    _, e_in = _er_inputs(ek.RifField(ek.RIF_ACOUSTIC, acoustic), 0, 36_864,
+                         13, dev)
+    plain_ac = _plain_e_ms(ek.RifField(ek.RIF_ACOUSTIC, acoustic), sphere,
+                           e_in, torch.float32)
+    scene, cfg = _er_variant(presets, 96, 2, 256, rif_kind=ek.RIF_ACOUSTIC,
+                             rif_params=acoustic, max_depth=ACOUSTIC_DEPTH)
+    img, wall, launches = _er_render(scene, cfg, dev)
+    print(f"acoustic RIF (mode 2, kr 6): one plain kernel-E march at 36864 "
+          f"lanes {plain_ac:.1f} ms; eikonal render 96x96 spp 2 depth "
+          f"{ACOUSTIC_DEPTH}: wall {wall:.3f} s, mean "
+          f"{img.mean().item():.6f}, launches of D and E {launches} "
+          f"[{card}]", flush=True)
+    if launches != (0, 0):
+        raise AssertionError("the acoustic RIF reached a kernel")
+    e_row["acoustic"] = dict(
+        plain_ms=plain_ac, wall_s=wall, depth=ACOUSTIC_DEPTH,
+        mean=img.mean().item())
+
+    # ---- phase 25: er_f64 through the plain loops, against phase 7's
+    # float32 render ----
+    linear = ek.RifField(ek.RIF_LINEAR, (1.3, 0.15))
+    _, e_in = _er_inputs(linear, 0, 36_864, 11, dev)
+    plain64 = _plain_e_ms(linear, sphere, e_in, torch.float64)
+    scene, cfg = _er_variant(presets, 96, 2, 256, max_depth=F64_DEPTH)
+    img64, wall, launches = _er_render(
+        scene, dataclasses.replace(cfg, er_f64=True), dev)
+    if er_img is None or F64_DEPTH != 6:
+        er_img = _er_render(scene, cfg, dev)[0]
+    diff = (img64 - er_img).abs()
+    print(f"er_f64: one plain float64 kernel-E march at 36864 lanes "
+          f"{plain64:.1f} ms; eikonal render 96x96 spp 2 depth {F64_DEPTH}: "
+          f"wall {wall:.3f} s, mean {img64.mean().item():.6f} (float32 "
+          f"{er_img.mean().item():.6f}), max |f64 - f32| "
+          f"{diff.max().item():.4e}, mean |f64 - f32| "
+          f"{diff.mean().item():.4e}, launches of D and E {launches} "
+          f"[{card}]", flush=True)
+    if launches != (0, 0):
+        raise AssertionError("a float64 march reached a kernel")
+    # recorded, not held: float64 paths take other branches than float32
+    # ones where a decision sits within the float32 ulps (the BVP's stop
+    # and re-find tests with restarts), and float64 accepts more
+    # connections (at 16^2 spp 4 on the CPU its mean is 5-15% higher)
+    lum64, lum32 = img64.mean(-1), er_img.mean(-1)
+    sel = lum32 > 0
+    ratio = (lum64[sel] / lum32[sel]).median().item()
+    mean_rel = img64.mean().item() / er_img.mean().item() - 1
+    print(f"er_f64 against float32: median pixel ratio {ratio:.6f}, mean "
+          f"rel diff {mean_rel:.3e}", flush=True)
+    e_row["f64"] = dict(
+        plain_ms=plain64, wall_s=wall, depth=F64_DEPTH,
+        max_abs_diff_f32=diff.max().item(), median_ratio_f32=ratio,
+        mean_rel_f32=mean_rel)
 
 
 if __name__ == "__main__":

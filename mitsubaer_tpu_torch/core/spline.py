@@ -128,7 +128,8 @@ def _derivatives(grid: SplineGrid3D, p, order: int):
     b-th of the y weights and the c-th of the z weights, in grid units.
     Three batched products form every combination at once."""
     idx, t, inv_h = _grid_coords(grid, p)
-    c = _gather_neighborhood(grid, idx)
+    # float32 coefficients promote to the points' dtype, as in JAX
+    c = _gather_neighborhood(grid, idx).to(t.dtype)
     w = torch.stack([f(t) for f in (_bspline_w, _bspline_dw,
                                     _bspline_d2w)[:order + 1]],
                     dim=-1)                                # (..., 3, 4, K)

@@ -34,8 +34,8 @@ import numpy as np
 import torch
 
 from ..core import rng
+from ..integrators import common
 from ..integrators import volpath as volpath_m
-from ..integrators.render import _device
 from ..models import sensor as sensor_m
 from ..scene.types import RenderConfig, Scene
 
@@ -85,7 +85,7 @@ def render_diff(scene: Scene, params: MediumParams, cfg: RenderConfig,
     aperture draw), through `volpath.li` whatever the config's integrator
     (see the module's docstring). `params` may live on another device:
     they are moved, and gradients flow back to them."""
-    dev = _device(device)
+    dev = common.render_device(device)
     scene = put_params(scene.to(dev),
                        MediumParams(*(t.to(dev) for t in params)))
     H, W = cfg.height, cfg.width

@@ -1,6 +1,6 @@
 """Shared integrator helpers (port of mitsubaer_tpu/integrators/common.py):
-the steady-state contribution sink, Russian roulette, the ray epsilon, and
-the camera prologue of a render pass.
+the render device, the steady-state contribution sink, Russian roulette,
+the ray epsilon, and the camera prologue of a render pass.
 Transient, bounce and CW-ToF sinks are not ported (ROADMAP Queue 1 step 10).
 """
 from __future__ import annotations
@@ -10,6 +10,16 @@ import torch
 from ..core import rng
 from ..models import sensor as sensor_m
 from ..scene.types import RenderConfig
+
+
+def render_device(device) -> torch.device:
+    """The device to render on: the CUDA card unless `device` names
+    another. Never falls back to the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device; pass device='cpu' to "
+                           "run the plain PyTorch versions on the CPU")
+    return device
 
 
 def new_sink(n: int, device=None) -> torch.Tensor:

@@ -50,6 +50,7 @@ _NOT_PORTED = {
     "dipole": 12, "photonmapper": 12, "ppm": 12, "sppm": 12, "bre": 12,
     "irrcache": 12,
 }
+_PORTED = ("volpath", "volpath_simple", "volpath_er")
 
 
 def _use_wavefront(cfg: RenderConfig) -> bool:
@@ -152,14 +153,7 @@ def beam_splat_pass(scene: Scene, splat, cfg: RenderConfig, n_samples: int,
     return splat
 
 
-def _device(device) -> torch.device:
-    """The device to render on: the CUDA card unless `device` names
-    another. Never falls back to the CPU."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device; pass device='cpu' to "
-                           "run the plain PyTorch versions on the CPU")
-    return device
+_device = common.render_device     # the roads' device rule
 
 
 def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
@@ -173,9 +167,11 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
     class and the wavefront engine on any other; "volpath" with another
     filter or engine="loop", and "volpath_simple" unless
     engine="wavefront", take the loop engine.
-    The others raise NotImplementedError naming their ROADMAP Queue 1
-    step: the surface integrators (step 9), the transient sinks (step 10)
-    and the other integrators (step 12).
+    The JAX package's other integrators raise NotImplementedError naming
+    their ROADMAP Queue 1 step: the surface integrators (step 9), the
+    transient sinks (step 10) and the other integrators (step 12). A name
+    the JAX package does not know raises ValueError, as its
+    get_integrator does.
 
     If `stats` is a dict it receives, per pass, "passes" ([segments, taps,
     iters, unfinished] on the boxwalk and wavefront roads, [bounces,
@@ -188,8 +184,10 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
     if cfg.integrator in _NOT_PORTED:
         raise not_ported(f"integrator {cfg.integrator!r}",
                           _NOT_PORTED[cfg.integrator])
+    if cfg.integrator not in _PORTED:
+        raise ValueError(f"unknown integrator {cfg.integrator}")
     if cfg.integrator == "volpath_er":
-        er_m.check_supported(cfg)
+        er_m.check_supported(scene, cfg)
         return _render_film(scene.to(_device(device)), cfg, seed, stats,
                             "er_s", _er_pass)
     if not _use_wavefront(cfg):

@@ -22,9 +22,9 @@ and each bounce run under `torch.utils.checkpoint` (the counterpart of
 JAX's checkpointed scan), so the stored graph is one bounce's. The RNG is
 a stateless hash, so a recomputed bounce draws the same numbers and its
 host-synced trip counts come out the same. Transient and CW-ToF sinks
-(step 10), `medium_strategies` (step 7) and direct sampling of area, spot
-and directional emitters (step 9) raise `not_ported` with their ROADMAP
-Queue 1 step.
+(step 10), phase kinds other than isotropic and HG, and direct sampling
+of area, spot and directional emitters (step 9) raise `not_ported` with
+their ROADMAP Queue 1 step.
 """
 from __future__ import annotations
 
@@ -216,8 +216,7 @@ def check_supported(scene: Scene, cfg: RenderConfig) -> None:
     """Raise for what the loop engine does not port yet."""
     if cfg.n_frames != 1 or cfg.modulation != "none":
         raise not_ported("transient and CW-ToF sinks", 10)
-    if cfg.medium_strategies:
-        raise not_ported("cfg.medium_strategies", 7)
+    phase_m.check_supported(scene.media.phase)
     if rng.mode_of(cfg.sampler) != rng.INDEPENDENT:
         raise not_ported(f"the {cfg.sampler!r} sampler", 1)
     kinds = set(scene.emitters.kind.tolist())
@@ -303,8 +302,10 @@ def body(scene: Scene, cfg: RenderConfig, s: State, tabs: PassTables,
                                               sampling_weight=True)
     u_hom, smp = rng.next_1d(smp)
     uc_hom, smp = rng.next_1d(smp)
+    strat = (medium_m.params_strategy(media, s.medium)
+             if cfg.medium_strategies else (None, None))
     hs, ht, hw, h_logp = medium_m.sample_distance_homogeneous(
-        sa, ss, sw, t_far, u_hom, uc_hom)
+        sa, ss, sw, t_far, u_hom, uc_hom, *strat)
     het = in_medium & (kind == MED_HETEROGENEOUS)
     ws, wt, ww, _, smp, wood_iters, w_logp = medium_m.sample_distance_woodcock(
         media, sa, ss, scale, s.o, s.d, t_far, smp, het, bricks=bricks,

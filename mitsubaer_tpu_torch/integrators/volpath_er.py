@@ -18,14 +18,23 @@ them (the BVP restart seed hashes it). `li(differentiable=True)` is the JAX
 each BVP solve stay attached to the RIF (its parameter tensor or spline
 coefficients) and to the medium's sigma_a, sigma_s and phase, so the sink
 carries their gradients; each bounce runs under a checkpoint, as JAX's
-checkpointed scan. The light image (`trace_er_particles`), transient
-sinks, `er_f64` and `medium_strategies` are not ported (ROADMAP Queue 1
-steps 7 and 10).
+checkpointed scan.
+
+`cfg.medium_strategies` samples the refractive medium's straight distance
+with its homogeneous strategy and re-weights it at the curved arc length
+with that strategy's pdfs. `cfg.er_f64` runs the eikonal core (the march,
+the boundary refinement and the BVP solve) in float64 through the plain
+loops, and casts its results back to the float32 path state once an event,
+where the JAX package does. The light image (`render_er_light_image`,
+`trace_er_particles`) traces light particles from a point or collimated
+emitter through the medium and joins every scatter vertex to the camera by
+the sensor-side BVP. Transient sinks are not ported (ROADMAP Queue 1 step
+10).
 """
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, fields, replace
 
 import torch
 import torch.utils.checkpoint
@@ -40,9 +49,10 @@ from ..models import eikonal as ek
 from ..models import emitter as emitter_m
 from ..models import medium as medium_m
 from ..models import phase as phase_m
+from ..models import sensor as sensor_m
 from ..scene import intersect as isect
 from ..scene.types import EM_CONSTANT, MED_REFRACTIVE, RenderConfig, Scene
-from . import common
+from . import common, ptracer
 
 
 @dataclass(frozen=True)
@@ -63,13 +73,12 @@ class State:
     sampler: rng.Sampler
 
 
-def check_supported(cfg: RenderConfig) -> None:
-    if cfg.er_f64:
-        raise not_ported("er_f64 (the float64 eikonal core)", 7)
-    if cfg.medium_strategies:
-        raise not_ported("cfg.medium_strategies", 7)
+def check_supported(scene: Scene, cfg: RenderConfig) -> None:
+    """Raise for what the eikonal road does not port yet."""
     if cfg.n_frames != 1 or cfg.modulation != "none":
         raise not_ported("transient and CW-ToF sinks", 10)
+    phase_m.check_supported(scene.media.phase)
+    emitter_m.check_supported(scene)
 
 
 def _refractive_params(scene: Scene):
@@ -97,6 +106,23 @@ def new_state(o, d, sampler) -> State:
 
 def max_iters(cfg: RenderConfig) -> int:
     return 2 * cfg.max_depth + 8
+
+
+def _strategy(scene: Scene, cfg: RenderConfig, med_idx, n: int):
+    """(strategy, manual density) of the refractive medium on n lanes
+    where cfg.medium_strategies, else (None, None): the balance
+    strategy."""
+    if not cfg.medium_strategies:
+        return None, None
+    return medium_m.params_strategy(scene.media, med_idx.expand(n))
+
+
+def _to_f32(bvp: ek.BVPResult) -> ek.BVPResult:
+    """The BVP result's floating fields as float32 (after an er_f64
+    solve)."""
+    return replace(bvp, **{f.name: getattr(bvp, f.name).to(torch.float32)
+                           for f in fields(bvp)
+                           if getattr(bvp, f.name).is_floating_point()})
 
 
 # sampler dimensions a bounce draws, on every lane
@@ -192,14 +218,18 @@ def body(scene: Scene, cfg: RenderConfig, s: State, rif: ek.RifField,
     in_act = s.active & s.inside
     u_d, smp = rng.next_1d(smp)
     uc_d, smp = rng.next_1d(smp)
+    strat = _strategy(scene, cfg, med_idx, n)
     want_scatter, t_samp, _, _ = medium_m.sample_distance_homogeneous(
         sigma_a.expand(n, 3), sigma_s.expand(n, 3), samp_w.expand(n),
-        torch.full((n,), 1e7, device=dev), u_d, uc_d)
+        torch.full((n,), 1e7, device=dev), u_d, uc_d, *strat)
     march_dist = torch.where(want_scatter, t_samp, 1e6)
     n_start = ek.rif_value(rif, s.o)
+    # er_f64: the march, the refinement and the BVP in float64, cast back
+    # to the float32 path state once an event (volpath_er.py:238-260)
+    erf = torch.float64 if cfg.er_f64 else torch.float32
     p_m, v_m, opt_m, geo_m, exited_m, _ = ek.trace_curved(
-        rif, sdf, s.o, s.v, march_dist, h, cfg.er_maxsteps, in_act,
-        differentiable=differentiable)
+        rif, sdf, s.o.to(erf), s.v.to(erf), march_dist.to(erf), h,
+        cfg.er_maxsteps, in_act, differentiable=differentiable)
     scattered = in_act & want_scatter & ~exited_m
     exited = in_act & (exited_m | ~want_scatter)
     # boundary refinement for exiting lanes
@@ -209,13 +239,15 @@ def body(scene: Scene, cfg: RenderConfig, s: State, rif: ek.RifField,
     v_m = torch.where(ex, v_b, v_m)
     opt_m = torch.where(exited, opt_m + opt_b, opt_m)
     geo_m = torch.where(exited, geo_m + adv_b, geo_m)
+    p_m, v_m, opt_m, geo_m = (t.to(torch.float32)
+                              for t in (p_m, v_m, opt_m, geo_m))
 
     n_end = ek.rif_value(rif, p_m)
     ref_ratio_sq = (n_end / torch.clamp_min(n_start, 1e-6)) ** 2
     tr_seg = torch.exp(-sigma_t * geo_m.unsqueeze(-1))
     # the strategy pdfs re-evaluated at the CURVED arc length
     pdf_succ, pdf_fail = medium_m.homog_strategy_pdfs(sigma_t.expand(n, 3),
-                                                      geo_m)
+                                                      geo_m, *strat)
     w_sc = sigma_s * tr_seg / torch.clamp_min(pdf_succ * samp_w,
                                               1e-12).unsqueeze(-1)
     w_ex = tr_seg / torch.clamp_min(samp_w * pdf_fail + (1.0 - samp_w),
@@ -240,12 +272,15 @@ def body(scene: Scene, cfg: RenderConfig, s: State, rif: ek.RifField,
         (smp.lane + mul32(smp.index, 0x9E3779B9) + mul32(smp.seed, 0xC2B2AE35)
          + ((s.iters * 0x85EBCA6B) & M32)) & M32)
     bvp = ek.solve_bvp(
-        rif, sdf, p_m, dsm.p, chord, h * cfg.er_bvp_hscale,
+        rif, sdf, p_m.to(erf), dsm.p.to(erf), chord.to(erf),
+        h * cfg.er_bvp_hscale,
         max(int(cfg.er_maxsteps / cfg.er_bvp_hscale), 16), nee_in,
         tol2=cfg.bvp_tol2, differentiable=differentiable,
         rr_weight=cfg.rr_weight, seed_bits=seed_bits,
         max_restarts=cfg.bvp_restarts,
         memo=None if solves is None else solves.setdefault(s.iters, {}))
+    if cfg.er_f64:
+        bvp = _to_f32(bvp)
     conn_w = torch.where(bvp.converged, bvp.weight, 0.0)
     d_in_m = normalize(v_m)
     ph_val = phase_m.eval(media.phase, med_lanes, d_in_m, bvp.dir_to_target)
@@ -379,8 +414,7 @@ def li(scene: Scene, cfg: RenderConfig, o, d, sampler: rng.Sampler,
     after the last lane stopped changes nothing but the sampler, so the
     loop stops there and advances the sampler by the draws of the trips
     not run. Returns the (N, 3) sink, the sampler and the bounces run."""
-    check_supported(cfg)
-    emitter_m.check_supported(scene)
+    check_supported(scene, cfg)
     rif = ek.rif_from_media(scene.media)
     sdf = ek.sdf_from_media(scene.media)
     solves = None
@@ -406,3 +440,158 @@ def render_er_pass(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
                                               pass_idx)
     sink, _, bounces = li(scene, cfg, rays.o, rays.d, smp)
     return sink, jitter, bounces
+
+
+# ---------------------------------------------------------------------------
+# the light image: sensor-side curved connections (makeSensorDirectConnections,
+# heterogeneousrefractive.cpp:960-992; volpath_er.py:498-694)
+# ---------------------------------------------------------------------------
+def trace_er_particles(scene: Scene, cfg: RenderConfig, n_particles: int,
+                       seed: int, pass_idx: int):
+    """One wavefront of n_particles light particles through the refractive
+    medium (volpath_er.py:523-676); returns the (H * W, 3) splat sum (the
+    light image is it over the particles traced). A particle flies straight
+    to the medium's boundary, refracts in (or reflects off and ends),
+    marches curved (kernel D), and at every scatter vertex solves the BVP
+    to the camera (kernel E in the Levenberg solve), whose arrival
+    direction picks the pixel it splats; a particle that leaves the medium
+    ends. JAX runs all 2 max_depth + 6 trips; a trip after the last
+    particle ended splats nothing, so the loop stops there. The splat adds
+    with index_add_, in a varying order on CUDA."""
+    phase_m.check_supported(scene.media.phase)
+    H, W = cfg.height, cfg.width
+    n = n_particles
+    dev = scene.aabb_min.device
+    eps = common.scene_epsilon(scene)
+    rif = ek.rif_from_media(scene.media)
+    sdf = ek.sdf_from_media(scene.media)
+    _, sigma_a, sigma_s, samp_w, med_idx = _refractive_params(scene)
+    sigma_t = sigma_a + sigma_s
+    h = cfg.er_stepsize
+    media = scene.media
+    med_lanes = med_idx.expand(n)
+    cam_p = scene.sensor.to_world[:3, 3].expand(n, 3)
+    ones = torch.ones((n,), device=dev)
+    strat = _strategy(scene, cfg, med_idx, n)
+
+    lane = torch.arange(n, dtype=torch.int64, device=dev)
+    smp = rng.make_sampler(seed ^ 0xE51, lane, pass_idx)
+    o, v, tp, _, smp, _, _ = ptracer.sample_emitter_ray(scene, smp)
+    film = torch.zeros((H * W, 3), dtype=torch.float32, device=dev)
+    inside = torch.zeros((n,), dtype=torch.bool, device=dev)
+    active = torch.any(tp > 0, dim=-1)
+    # the BVP's restart stream: the same on every trip, as in JAX
+    seed_bits = rng._hash_u32((lane + mul32(smp.index, 0x9E3779B9)) & M32)
+    for _ in range(2 * cfg.max_depth + 6):
+        if not bool(active.any()):
+            break
+        # ---- outside: straight flight to the refractive boundary ----
+        d_out = normalize(v)
+        hit = isect.intersect(scene.geo, o, d_out, eps.expand(n),
+                              torch.full((n,), isect.INF, device=dev))
+        sh = scene.shapes
+        sid = torch.clamp(hit.shape_id, 0, sh.bsdf.shape[0] - 1)
+        ok_s = hit.shape_id >= 0
+        m_in = torch.where(ok_s, sh.interior[sid], -1)
+        out_act = active & ~inside
+        entering = out_act & hit.valid & ok_s & (m_in == med_idx)
+        dead_out = out_act & ~entering
+        n_at = ek.rif_value(rif, hit.p)
+        cos_i = dot(-d_out, hit.ng)
+        F, _ = fresnel_dielectric(cos_i, n_at)
+        u_f, smp = rng.next_1d(smp)
+        refl = u_f < F
+        N_in = torch.where((cos_i > 0).unsqueeze(-1), hit.ng, -hit.ng)
+        v_refr, _ = ek.boundary_velocity(d_out, N_in, ones, n_at)
+
+        # ---- inside: curved free flight ----
+        in_act = active & inside
+        u_d, smp = rng.next_1d(smp)
+        uc_d, smp = rng.next_1d(smp)
+        hs, t_samp, _, _ = medium_m.sample_distance_homogeneous(
+            sigma_a.expand(n, 3), sigma_s.expand(n, 3), samp_w.expand(n),
+            torch.full((n,), 1e7, device=dev), u_d, uc_d, *strat)
+        march = torch.where(hs, t_samp, 1e6)
+        p_m, v_m, _, geo_m, exited_m, _ = ek.trace_curved(
+            rif, sdf, o, v, march, h, cfg.er_maxsteps, in_act)
+        scattered = in_act & hs & ~exited_m
+        exited = in_act & (exited_m | ~hs)
+        p_b, v_b, _, adv_b = ek.refine_boundary(rif, sdf, p_m, v_m, h)
+        ex = exited.unsqueeze(-1)
+        p_m = torch.where(ex, p_b, p_m)
+        v_m = torch.where(ex, v_b, v_m)
+        geo_m = torch.where(exited, geo_m + adv_b, geo_m)
+        tr_seg = torch.exp(-sigma_t * geo_m.unsqueeze(-1))
+        pdf_succ, pdf_fail = medium_m.homog_strategy_pdfs(
+            sigma_t.expand(n, 3), geo_m, *strat)
+        w_sc = sigma_s * tr_seg / torch.clamp_min(pdf_succ * samp_w,
+                                                  1e-12).unsqueeze(-1)
+        w_ex = tr_seg / torch.clamp_min(samp_w * pdf_fail + (1.0 - samp_w),
+                                        1e-12).unsqueeze(-1)
+        tp_in = tp * torch.where(scattered.unsqueeze(-1), w_sc,
+                                 torch.where(ex, w_ex, 1.0))
+
+        # ---- sensor-side curved connection from scatter vertices ----
+        chord = normalize(cam_p - p_m)
+        bvp = ek.solve_bvp(
+            rif, sdf, p_m, cam_p, chord, h * cfg.er_bvp_hscale,
+            max(int(cfg.er_maxsteps / cfg.er_bvp_hscale), 16), scattered,
+            tol2=cfg.bvp_tol2, rr_weight=cfg.rr_weight, seed_bits=seed_bits,
+            max_restarts=cfg.bvp_restarts)
+        d_in_m = normalize(v_m)
+        ph_val = phase_m.eval(media.phase, med_lanes, d_in_m,
+                              bvp.dir_to_target)
+        tr_conn = torch.exp(-sigma_t * bvp.geo_inside.unsqueeze(-1))
+        # radiance compression from the medium out to n = 1
+        ref_ratio = (1.0 / torch.clamp_min(ek.rif_value(rif, p_m),
+                                           1e-6)) ** 2
+        # the pixel that looks back along the connection's last segment
+        fs = sensor_m.project(scene.sensor, cam_p + bvp.rev_dir, W, H)
+        ok_c = scattered & bvp.converged & fs.valid
+        val = tp_in * ph_val.unsqueeze(-1) * tr_conn * (
+            ref_ratio * bvp.weight * fs.inv_pixel_omega
+            / torch.clamp_min(bvp.geo_total ** 2, 1e-9)).unsqueeze(-1)
+        ok_c = ok_c & torch.all(torch.isfinite(val), dim=-1)
+        val = torch.where(ok_c.unsqueeze(-1), val, 0.0)
+        px = torch.clamp(torch.nan_to_num(fs.px).to(torch.int64), 0, W - 1)
+        py = torch.clamp(torch.nan_to_num(fs.py).to(torch.int64), 0, H - 1)
+        film.index_add_(0, py * W + px, val)
+
+        # ---- phase sampling to go on inside ----
+        u2p, smp = rng.next_2d(smp)
+        ps = phase_m.sample(media.phase, med_lanes, d_in_m, u2p)
+        v_scat = ps.wo * ek.rif_value(rif, p_m).unsqueeze(-1)
+
+        # ---- merge: enter, scatter; reflected and leaving particles end
+        enter = (entering & ~refl).unsqueeze(-1)
+        new_o = torch.where(enter, hit.p - hit.ng * (eps * 0.5)
+                            + normalize(v_refr) * eps, o)
+        new_v = torch.where(enter, v_refr, v)
+        inside = inside | (entering & ~refl)
+        sc = scattered.unsqueeze(-1)
+        new_o = torch.where(sc, p_m, new_o)
+        new_v = torch.where(sc, v_scat, new_v)
+        tp = torch.where(in_act.unsqueeze(-1), tp_in, tp)
+        active = active & ~dead_out & ~exited & ~(entering & refl)
+        active = active & (torch.all(torch.isfinite(new_o), dim=-1)
+                           & torch.all(torch.isfinite(new_v), dim=-1)
+                           & torch.all(torch.isfinite(tp), dim=-1))
+        o = torch.nan_to_num(new_o)
+        v = torch.nan_to_num(new_v, nan=1.0)
+        tp = torch.nan_to_num(tp)
+    return film
+
+
+def render_er_light_image(scene: Scene, cfg: RenderConfig, seed: int = 0,
+                          n_passes: int = 2, device=None):
+    """The light image (the t = 1 family) through the refractive medium
+    (volpath_er.py:679-694): n_passes wavefronts of H * W particles, their
+    splats summed and divided by the particles traced; an (H, W, 3) image.
+    Runs on the CUDA card unless device="cpu" is passed."""
+    scene = scene.to(common.render_device(device))
+    H, W = cfg.height, cfg.width
+    film = torch.zeros((H * W, 3), dtype=torch.float32,
+                       device=scene.aabb_min.device)
+    for i in range(n_passes):
+        film = film + trace_er_particles(scene, cfg, H * W, seed, i)
+    return (film / float(n_passes * H * W)).reshape(H, W, 3)

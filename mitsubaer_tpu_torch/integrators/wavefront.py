@@ -115,8 +115,7 @@ class WFState:
 
 def check_supported(scene: Scene, cfg: RenderConfig) -> None:
     """Raise for what the wavefront road does not port yet."""
-    if cfg.medium_strategies:
-        raise not_ported("cfg.medium_strategies", 7)
+    phase_m.check_supported(scene.media.phase)
     if rng.mode_of(cfg.sampler) != rng.INDEPENDENT:
         raise not_ported(f"the {cfg.sampler!r} sampler", 1)
     if cfg.n_frames != 1 or cfg.modulation != "none":
@@ -461,8 +460,10 @@ def make_engine(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
             scene.media, medium, sampling_weight=True)
         u_hom, smp = rng.next_1d(smp)
         uc_hom, smp = rng.next_1d(smp)
+        strat = (medium_m.params_strategy(scene.media, medium)
+                 if cfg.medium_strategies else (None, None))
         hs, ht, hw, _ = medium_m.sample_distance_homogeneous(
-            sa_m, ss_m, sw_m, t_far, u_hom, uc_hom)
+            sa_m, ss_m, sw_m, t_far, u_hom, uc_hom, *strat)
         in_hom = ext_need & (kind_m == MED_HOMOGENEOUS)
         in_het = ext_need & (kind_m == MED_HETEROGENEOUS)
         in_vac = ext_need & ~in_hom & ~in_het

@@ -12,19 +12,26 @@ target point with a batched Levenberg-Marquardt iteration over the endpoint
 error, whose Jacobian comes from dp/dv0 and dv/dv0 carried along the ray
 (er_derivativestep, :798-814).
 
-Fields: the analytic RIFs constant / linear / radial-Gaussian, the
-analytic sphere / box SDFs, and the cubic B-spline RIF and SDF over a
-coefficient grid (core/spline.py). The acoustic RIF and float64 are not
-ported (ROADMAP Queue 1 step 7).
+Fields: the analytic RIFs constant / linear / radial-Gaussian / acoustic
+(a Bessel beam, acousticrifvolume.cpp), the analytic sphere / box SDFs,
+and the cubic B-spline RIF and SDF over a coefficient grid
+(core/spline.py).
 
 The two march loops run in kernels D and E (models/ermarch.py) where the
 JAX package runs its Pallas kernels (`_er_kernel_ok` and its lax.cond on
-the kind): in forward mode, with an analytic RIF of kind <= RIF_RADIAL and
-an analytic SDF. Everything else, the differentiable marches and every
-spline march, runs the kernels' plain versions (`ermarch.trace_plain`,
+the kind): in forward mode, in float32, with an analytic RIF of kind <=
+RIF_RADIAL and an analytic SDF. Everything else, the differentiable
+marches, every acoustic and spline march and the float64 core, runs the
+kernels' plain versions (`ermarch.trace_plain`,
 `ermarch.sens_march_plain`), which are the JAX package's XLA loops in
-PyTorch. The route follows from the mode and the fields alone
+PyTorch. The route follows from the mode, the dtype and the fields alone
 (`kernel_route`).
+
+Float64 (the integrator's `er_f64`): every function here follows the
+dtype of its points, with the parameters held as float32 values as the
+JAX package holds them, so a float64 march promotes them as JAX does
+under x64; the analytic RIF is then computed in the JAX package's order
+(`_rif_attached`).
 
 `differentiable=True` keeps autograd attached through the marches: to the
 RIF's parameter tensor, which `rif_from_media` keeps where it requires
@@ -37,13 +44,14 @@ once, attached, from the solution.
 """
 from __future__ import annotations
 
+import functools
+import math
 from dataclasses import dataclass, field, replace
 from typing import Optional
 
 import numpy as np
 import torch
 
-from .. import not_ported
 from ..core import spline, warp
 from ..core.math import Frame, dot, length, normalize, safe_sqrt, sgn
 from ..core.rng import M32, _hash_u32, _u32_to_float
@@ -52,7 +60,8 @@ from ..scene.types import Media
 RIF_CONST = 0
 RIF_LINEAR = 1    # n = p0 + g . p                   params [p0, gx, gy, gz]
 RIF_RADIAL = 2    # n = p0 + a exp(-|p-c|^2 / w^2)   params [p0, a, w, cx, cy, cz]
-RIF_ACOUSTIC = 3
+RIF_ACOUSTIC = 3  # n = p0 + nmax J_m(kr r) cos(m phi), the beam along +x;
+#                   params [p0, nmax, kr, m] (m 0..4)
 RIF_SPLINE = 4    # cubic B-spline over the media's rif_coeff
 
 SDF_NONE = 0      # always outside
@@ -86,9 +95,8 @@ class RifField:
     grid: Optional[spline.SplineGrid3D] = field(default=None, compare=False)
 
     def __post_init__(self):
-        if self.kind == RIF_ACOUSTIC:
-            raise not_ported("the acoustic RIF", 7)
-        if self.kind not in (RIF_CONST, RIF_LINEAR, RIF_RADIAL, RIF_SPLINE):
+        if self.kind not in (RIF_CONST, RIF_LINEAR, RIF_RADIAL,
+                             RIF_ACOUSTIC, RIF_SPLINE):
             raise ValueError(f"unknown RIF kind {self.kind}")
         object.__setattr__(self, "params", _params8(self.params))
 
@@ -137,13 +145,15 @@ def sdf_from_media(media: Media) -> SdfField:
                     _grid(media.sdf_coeff, media.sdf_min, media.sdf_max))
 
 
-def kernel_route(rif: RifField, sdf: SdfField, differentiable: bool) -> bool:
+def kernel_route(rif: RifField, sdf: SdfField, differentiable: bool,
+                 dtype=torch.float32) -> bool:
     """Whether the marches run in kernels D and E (the JAX package's
     `_er_kernel_ok` with its lax.cond on kind <= RIF_RADIAL, eikonal.py:
-    344-376): forward mode, an analytic RIF of kind <= RIF_RADIAL and an
-    analytic SDF (no grid in the media). Elsewhere their plain versions
-    march."""
-    return (not differentiable and rif.grid is None and sdf.grid is None
+    344-376): forward mode, float32 points, an analytic RIF of kind <=
+    RIF_RADIAL and an analytic SDF (no grid in the media). Elsewhere their
+    plain versions march."""
+    return (not differentiable and dtype == torch.float32
+            and rif.grid is None and sdf.grid is None
             and rif.kind <= RIF_RADIAL)
 
 
@@ -158,7 +168,12 @@ def _rif(f: RifField, p, need_hess: bool):
         v, g = spline.value_gradient(f.grid, p)
         return v, g, None
     if f.tensor is not None:
-        return _rif_attached(f.kind, f.tensor, p, need_hess)
+        return _rif_attached(f.kind, f.tensor, p, need_hess, f.params[3])
+    if p.dtype != torch.float32:
+        return _rif_attached(f.kind, _param_tensor(f.params, p.device), p,
+                             need_hess, f.params[3])
+    if f.kind == RIF_ACOUSTIC:
+        return _acoustic(f.params, p, need_hess, f.params[3])
     x, y, z = p[..., 0], p[..., 1], p[..., 2]
     q = f.params
     zeros = torch.zeros_like(x)
@@ -188,9 +203,20 @@ def _rif(f: RifField, p, need_hess: bool):
     return val, g, hess
 
 
-def _rif_attached(kind: int, prm, p, need_hess: bool):
+@functools.lru_cache(maxsize=16)
+def _param_tensor(params: tuple, device):
+    """The float32 (8,) tensor of a RIF's parameters on `device`, made once
+    (the float64 core promotes it as JAX promotes its float32 params)."""
+    return torch.tensor(params, dtype=torch.float32, device=device)
+
+
+def _rif_attached(kind: int, prm, p, need_hess: bool, mode: float):
     """The analytic RIF from its (8,) parameter tensor, in the JAX
-    package's order (_rif_analytic, eikonal.py:153-236)."""
+    package's order (_rif_analytic, eikonal.py:153-236); `mode` is the
+    acoustic mode as a host value. Float32 parameters promote to the
+    points' dtype."""
+    if kind == RIF_ACOUSTIC:
+        return _acoustic(prm, p, need_hess, mode)
     zero33 = p.new_zeros(p.shape + (3,)) if need_hess else None
     if kind == RIF_RADIAL:
         w2 = torch.clamp_min(prm[2] * prm[2], 1e-12)
@@ -205,8 +231,165 @@ def _rif_attached(kind: int, prm, p, need_hess: bool):
         return prm[0] + e, g, hess
     if kind == RIF_LINEAR:
         return prm[0] + dot(p, prm[1:4].expand(p.shape)), \
-            prm[1:4].expand(p.shape), zero33
-    return prm[0].expand(p.shape[:-1]), torch.zeros_like(p), zero33
+            prm[1:4].to(p.dtype).expand(p.shape), zero33
+    return prm[0].to(p.dtype).expand(p.shape[:-1]), torch.zeros_like(p), \
+        zero33
+
+
+# ---------------------------------------------------------------------------
+# the acoustic RIF: Bessel J_m (acousticrifvolume.cpp:243-315), series and
+# leading asymptotic terms as in the JAX package (eikonal.py:61-133). The
+# orders a call needs are evaluated together, stacked on a leading axis, so
+# that each elementwise step is one launch for all of them; each element
+# sees the JAX package's operations in its order.
+# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=64)
+def _consts(values: tuple, dtype, device):
+    """A (len(values), 1) tensor of constants, made once."""
+    return torch.tensor(values, dtype=dtype, device=device).unsqueeze(-1)
+
+
+def _series(xs, orders: tuple, n_terms: int):
+    """sum_k (-1)^k (xs/2)^(2k+m) / (k! (k+m)!) over k <= n_terms for each
+    order m, (len(orders), N): term_k = term_{k-1} (-xs^2/4) / (k (k+m))."""
+    q = -0.25 * xs * xs
+    term = torch.stack([(0.5 * xs) ** m / math.factorial(m) if m else
+                        torch.ones_like(xs) for m in orders])
+    acc = term
+    for k in range(1, n_terms + 1):
+        term = term * q / _consts(tuple(float(k * (k + m)) for m in orders),
+                                  xs.dtype, xs.device)
+        acc = acc + term
+    return acc
+
+
+def _asymptotic01(ax):
+    """The leading asymptotic J0 and J1 at max(|x|, 8), (2, N)."""
+    c = functools.partial(_consts, dtype=ax.dtype, device=ax.device)
+    z = torch.clamp_min(ax, 8.0)
+    iz2 = 1.0 / (z * z)
+    P = 1.0 + c((-0.0703125, 0.1171875)) * iz2 \
+        + c((0.1121520996, -0.1441955566)) * iz2 * iz2
+    Q = c((-0.125, 0.375)) / z + c((0.0732421875, -0.1025390625)) / (
+        z * z * z)
+    xx = z - c((0.78539816339, 2.35619449019))
+    return torch.sqrt(0.63661977236 / z) * (torch.cos(xx) * P
+                                            - torch.sin(xx) * Q)
+
+
+def _bessel01(x):
+    """(J0, J1): the power series for |x| < 8, the leading asymptotic
+    expansion beyond."""
+    ax = torch.abs(x)
+    small = ax < 8.0
+    j = torch.where(small, _series(torch.where(small, ax, 0.0), (0, 1), 23),
+                    _asymptotic01(ax))
+    return j[0], j[1] * torch.sign(x)
+
+
+def bessel_orders(orders: tuple, x):
+    """[J_m(x) for m in orders] (eikonal.py:61-133): J0 and J1 as
+    `_bessel01`; an order m >= 2 by its power series for |x| < 4 and the
+    upward recurrence J_{m+1} = (2m / x) J_m - J_{m-1} from J0 and J1 at
+    max(|x|, 4) beyond (times sign(x) where m is odd)."""
+    out = {}
+    if any(m < 2 for m in orders):
+        out[0], out[1] = _bessel01(x)
+    high = tuple(m for m in orders if m >= 2)
+    if high:
+        ax = torch.abs(x)
+        small = ax < 4.0
+        ser = _series(torch.where(small, ax, 0.0), high, 17)
+        xb = torch.clamp_min(ax, 4.0)
+        jm1, jm = _bessel01(xb)
+        for mm in range(1, max(high)):
+            jm1, jm = jm, (2.0 * mm / xb) * jm - jm1
+            if mm + 1 in high:
+                val = torch.where(small, ser[high.index(mm + 1)], jm)
+                out[mm + 1] = val * torch.sign(x) if (mm + 1) % 2 else val
+    return [out[m] for m in orders]
+
+
+def bessel_j0(x):
+    return _bessel01(x)[0]
+
+
+def bessel_j1(x):
+    return _bessel01(x)[1]
+
+
+def _acoustic(prm, p, need_hess: bool, mode: float):
+    """n0 + nmax J_m(kr r) cos(m phi) with r and phi = atan2(y, z) in the
+    yz plane, the beam along +x (eikonal.py:181-235); prm is [n0, nmax, kr,
+    mode, ...], host floats or a tensor, and `mode` its host value. The
+    value and gradient are JAX's
+    closed forms. JAX evaluates J_0 ... J_5 and selects the mode's with
+    where; the mode is a host value here, so only the two orders it reads
+    are evaluated, which selects the same values. JAX's Hessian is the
+    forward-mode Jacobian of the closed-form yz gradient, symmetrised;
+    here it is that Jacobian in closed form, with J_m'' and J_{m+1}' from
+    the Bessel recurrences. A mode outside 0..4 gives n0, as in JAX."""
+    m_f = float(mode)
+    n0, amp, kr = prm[0], prm[1], prm[2]
+    y, z = p[..., 1], p[..., 2]
+    zeros = torch.zeros_like(y)
+    m = int(m_f)
+    if m != m_f or not 0 <= m <= 4:
+        val = zeros + n0
+        return val, torch.zeros_like(p), (
+            p.new_zeros(p.shape + (3,)) if need_hess else None)
+    rr = torch.clamp_min(torch.sqrt(y * y + z * z), 1e-6)
+    phi = torch.atan2(y, z)
+    xx = kr * rr
+    J, Jn = bessel_orders((m, m + 1), xx)
+    inv_x = m / torch.clamp_min(xx, 1e-9)
+    dJ = inv_x * J - Jn
+    cm, sm = torch.cos(m * phi), torch.sin(m * phi)
+    invr = 1.0 / rr
+    gy = amp * (dJ * kr * y * invr * cm - J * m_f * sm * z * invr * invr)
+    gz = amp * (dJ * kr * z * invr * cm + J * m_f * sm * y * invr * invr)
+    val = n0 + amp * J * cm
+    grad = torch.stack([zeros, gy, gz], -1)
+    if not need_hess:
+        return val, grad, None
+    # d/dx of dJ = (m/x) J - J_{m+1}: -(m/x^2) J + (m/x) J' - J_{m+1}',
+    # with J' = dJ and J_{m+1}' = J - ((m+1)/x) J_{m+1}
+    ix = 1.0 / torch.clamp_min(xx, 1e-9)
+    ddJ = -inv_x * ix * J + inv_x * dJ - (J - (m + 1) * ix * Jn)
+    cy, cz = y * invr, z * invr                   # d r / dy, d r / dz
+    ir2 = invr * invr
+    py_, pz_ = z * ir2, -y * ir2                  # d phi / dy, d phi / dz
+    # gy / amp = k dJ cy cm - m J sm z / r^2, gz / amp = k dJ cz cm
+    # + m J sm y / r^2; each factor's y and z derivatives
+    dcy = (z * z * ir2 * invr, -y * z * ir2 * invr)
+    dcz = (-y * z * ir2 * invr, y * y * ir2 * invr)
+    dcm = (-m * sm * py_, -m * sm * pz_)
+    dsm = (m * cm * py_, m * cm * pz_)
+    dx = (kr * cy, kr * cz)
+    dzr2 = (-2.0 * y * z * ir2 * ir2, ir2 - 2.0 * z * z * ir2 * ir2)
+    dyr2 = (ir2 - 2.0 * y * y * ir2 * ir2, -2.0 * y * z * ir2 * ir2)
+    zr2, yr2 = z * ir2, y * ir2
+
+    def d_gy(a):        # d gy / d(y, z)[a]
+        t1 = kr * (ddJ * dx[a] * cy * cm + dJ * dcy[a] * cm
+                   + dJ * cy * dcm[a])
+        t2 = m_f * (dJ * dx[a] * sm * zr2 + J * dsm[a] * zr2
+                    + J * sm * dzr2[a])
+        return amp * (t1 - t2)
+
+    def d_gz(a):        # d gz / d(y, z)[a]
+        u1 = kr * (ddJ * dx[a] * cz * cm + dJ * dcz[a] * cm
+                   + dJ * cz * dcm[a])
+        u2 = m_f * (dJ * dx[a] * sm * yr2 + J * dsm[a] * yr2
+                    + J * sm * dyr2[a])
+        return amp * (u1 + u2)
+
+    h_yy, h_yz, h_zy, h_zz = d_gy(0), d_gy(1), d_gz(0), d_gz(1)
+    h_off = 0.5 * (h_yz + h_zy)
+    hess = torch.stack([zeros, zeros, zeros,
+                        zeros, h_yy, h_off,
+                        zeros, h_off, h_zz], -1).unflatten(-1, (3, 3))
+    return val, grad, hess
 
 
 def rif_value(f: RifField, p):
@@ -287,8 +470,8 @@ def _mv(m, x):
 
 
 def _lanes(x, n, like):
-    """A scalar or (N,) value as an (N,) float32 tensor."""
-    return torch.as_tensor(x, dtype=torch.float32, device=like.device).expand(n)
+    """A scalar or (N,) value as an (N,) tensor of like's dtype."""
+    return torch.as_tensor(x, dtype=like.dtype, device=like.device).expand(n)
 
 
 # ---------------------------------------------------------------------------
@@ -335,7 +518,7 @@ def trace_curved(rif: RifField, sdf: SdfField, p, v, distance, h,
     random numbers, so stopping once no lane runs gives the same values.
     Returns (p, v, optical_len, dist_marched, exited, steps)."""
     from . import ermarch
-    if kernel_route(rif, sdf, differentiable):
+    if kernel_route(rif, sdf, differentiable, p.dtype):
         return ermarch.trace(rif, sdf, p, v, distance, h, max_steps, active)
     return ermarch.trace_plain(rif, sdf, p, v, distance, h, max_steps,
                                active)
@@ -391,7 +574,7 @@ def integrate_with_sensitivities(rif: RifField, sdf: SdfField, p1, v0, p2,
     not read them, so they are the same; the JAX package leaves that work
     to XLA's dead-code elimination."""
     n = p1.shape[0]
-    on_kernel = kernel_route(rif, sdf, differentiable)
+    on_kernel = kernel_route(rif, sdf, differentiable, p1.dtype)
     # scale v0 to |v| = n(p1), carrying the projection's Jacobian (:846-851)
     r0 = rif_value(rif, p1)
     nv = length(v0)
@@ -607,7 +790,7 @@ def solve_bvp(rif: RifField, sdf: SdfField, p1, p2, init_dir, h,
                        rev_dir=-normalize(v_end))
     n = p1.shape[0]
     r0 = rif_value(rif, p1)
-    weight = torch.ones((n,), dtype=torch.float32, device=p1.device)
+    weight = torch.ones((n,), dtype=p1.dtype, device=p1.device)
 
     if max_restarts <= 0 or seed_bits is None:
         v_fin, cost = _levenberg_solve(

@@ -19,8 +19,9 @@ reports the count of its first block; see ROADMAP Queue 3.)
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel and counts the launch; on anything else it raises. The
 plain versions are also the marches of every call off the kernels' route
-(eikonal.kernel_route: the differentiable marches, attached to the RIF, and
-every spline march), on either device.
+(eikonal.kernel_route: the differentiable marches, attached to the RIF,
+every acoustic and spline march and the float64 core), on either device,
+in the dtype of their inputs.
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ def trace_plain(rif, sdf, p, v, distance, h, max_steps: int, active):
     n = p.shape[0]
     dist = ek._lanes(distance, n, p)
     hb = ek._lanes(h, n, p)
-    opt = torch.zeros((n,), dtype=torch.float32, device=p.device)
+    opt = torch.zeros((n,), dtype=p.dtype, device=p.device)
     marched = torch.zeros_like(opt)
     running = active.clone()
     exited = torch.zeros_like(active)
@@ -80,7 +81,7 @@ def sens_march_plain(rif, sdf, p1, v, dpdv0, dvdv0, p2, h, max_steps: int,
     n = p1.shape[0]
     hb = ek._lanes(h, n, p1)
     p, dp, dv = p1, dpdv0, dvdv0
-    opt = torch.zeros((n,), dtype=torch.float32, device=p1.device)
+    opt = torch.zeros((n,), dtype=p1.dtype, device=p1.device)
     marched = torch.zeros_like(opt)
     running = active.clone()
     crossed = torch.zeros_like(active)

@@ -2,9 +2,10 @@
 mitsubaer_tpu/models/medium.py): medium parameters, the heterogeneous density
 lookup (kernel A) and its gradient (kernel A', `TrilinearLookup`), Woodcock
 distance sampling, ratio-tracking transmittance and homogeneous distance
-sampling, each with the differentiable mode of the JAX package (detached
-sampling decisions, attached weights, and the log-density of the decisions
-for the score term).
+sampling under the four strategies of homogeneous.cpp, each with the
+differentiable mode of the JAX package (detached sampling decisions,
+attached weights, and the log-density of the decisions for the score
+term).
 
 Kernel A, `trilinear_lookup`, replaces the JAX package's
 `DensityBricks.lookup` as a whole (the 8x4x4 apron-brick gather plus the
@@ -26,7 +27,8 @@ import torch
 from .. import kernels
 from ..core import rng, spline
 from ..core.math import take_rows
-from ..scene.types import Media
+from ..scene.types import (STRAT_MANUAL, STRAT_MAXIMUM, STRAT_SINGLE,
+                           Media)
 
 INF = 3.0e38
 UNROLL = 4      # collision tests a trip of the tracking loops, as in JAX
@@ -292,35 +294,129 @@ def _mean3(x):
     return (x[..., 0] + x[..., 1] + x[..., 2]) / 3.0
 
 
-def homog_strategy_pdfs(sigma_t, dist):
-    """(pdf_success per unit length, pdf_failure) of the balance-strategy
-    homogeneous distance sampler at `dist` (homogeneous.cpp pdfDistance /
-    pdfFailure). The other strategies (cfg.medium_strategies) are not ported
-    (ROADMAP Queue 1 step 7)."""
+def params_strategy(media: Media, idx):
+    """(strategy, manual_density) of medium idx (medium.py:68-70)."""
+    i = torch.clamp(idx, 0, media.kind.shape[0] - 1).to(torch.int64)
+    return media.strategy[i], media.manual_density[i]
+
+
+def _pick(x, k):
+    """x[..., k] lane by lane for an (N,) index k."""
+    return torch.gather(x, -1, k.unsqueeze(-1)).squeeze(-1)
+
+
+def _maxexp_segments(sigma):
+    """MaxExpDist (maxexp.h:28), the EMaximum strategy: the normalised
+    upper envelope max_i sigma_i e^{-sigma_i t}. With the channels sorted
+    descending, channel k leads on [t_k, t_{k+1}), the crossovers at
+    ln(s_i / s_j) / (s_i - s_j), and equal channels (closer than 1e-9)
+    cross at 0. Returns (sigma sorted (N, 3), edges (N, 4), the segments'
+    unnormalised masses (N, 3), their sum Z (N,))."""
+    s = torch.sort(sigma, dim=-1, descending=True).values
+    s0, s1, s2 = s[..., 0], s[..., 1], s[..., 2]
+
+    def crossover(a, b):
+        same = torch.abs(a - b) < 1e-9
+        return torch.where(
+            same, 0.0,
+            torch.log(torch.clamp_min(a, 1e-20) / torch.clamp_min(b, 1e-20))
+            / torch.where(same, 1.0, a - b))
+
+    t1 = torch.clamp_min(crossover(s0, s1), 0.0)
+    t2 = torch.maximum(crossover(s1, s2), t1)
+    edges = torch.stack([torch.zeros_like(t1), t1, t2,
+                         torch.full_like(t1, 1e30)], dim=-1)
+    mass = torch.stack([
+        torch.exp(-s0 * edges[..., 0]) - torch.exp(-s0 * edges[..., 1]),
+        torch.exp(-s1 * edges[..., 1]) - torch.exp(-s1 * edges[..., 2]),
+        torch.exp(-s2 * edges[..., 2])], dim=-1)
+    return s, edges, mass, mass.sum(-1)
+
+
+def _maxexp_sample(sigma, u):
+    """Inverse-CDF sample of the MaxExpDist: (t, pdf(t))."""
+    s, edges, mass, Z = _maxexp_segments(sigma)
+    target = u * Z
+    c0 = mass[..., 0]
+    c1 = c0 + mass[..., 1]
+    seg = torch.where(target < c0, 0, torch.where(target < c1, 1, 2))
+    sk, a = _pick(s, seg), _pick(edges, seg)
+    prev = torch.where(seg == 0, 0.0, torch.where(seg == 1, c0, c1))
+    # within the segment: e^{-sk a} - e^{-sk t} = target - prev
+    expo = torch.clamp_min(torch.exp(-sk * a) - (target - prev), 1e-30)
+    t = -torch.log(expo) / torch.clamp_min(sk, 1e-20)
+    return t, sk * torch.exp(-sk * t) / torch.clamp_min(Z, 1e-20)
+
+
+def _maxexp_pdf_cdf(sigma, t):
+    """pdf and cdf of the MaxExpDist at t."""
+    s, edges, mass, Z = _maxexp_segments(sigma)
+    seg = torch.where(t < edges[..., 1], 0,
+                      torch.where(t < edges[..., 2], 1, 2))
+    sk, a = _pick(s, seg), _pick(edges, seg)
+    prev = torch.where(seg == 0, 0.0,
+                       torch.where(seg == 1, mass[..., 0],
+                                   mass[..., 0] + mass[..., 1]))
+    zc = torch.clamp_min(Z, 1e-20)
+    cdf = (prev + torch.exp(-sk * a) - torch.exp(-sk * t)) / zc
+    return sk * torch.exp(-sk * t) / zc, cdf
+
+
+def homog_strategy_pdfs(sigma_t, dist, strategy=None, manual_density=None):
+    """(pdf_success per unit length, pdf_failure) of the homogeneous
+    distance sampler at `dist` (homogeneous.cpp pdfDistance / pdfFailure):
+    balance where `strategy` is None, else each lane's STRAT_* with its
+    manual density (medium.py:441-466). The refractive medium re-weights
+    its straight sample at the curved arc length with these."""
     tmp = torch.exp(-sigma_t * dist.unsqueeze(-1))
-    return _mean3(sigma_t * tmp), _mean3(tmp)
+    pdf_succ, pdf_fail = _mean3(sigma_t * tmp), _mean3(tmp)
+    if strategy is None:
+        return pdf_succ, pdf_fail
+    md = torch.clamp_min(manual_density, 1e-20)
+    s0 = sigma_t[..., 0]
+    p_maxexp, c_maxexp = _maxexp_pdf_cdf(sigma_t, dist)
+    for k, p, f in ((STRAT_SINGLE, s0 * torch.exp(-s0 * dist),
+                     torch.exp(-s0 * dist)),
+                    (STRAT_MANUAL, md * torch.exp(-md * dist),
+                     torch.exp(-md * dist)),
+                    (STRAT_MAXIMUM, p_maxexp, 1.0 - c_maxexp)):
+        pdf_succ = torch.where(strategy == k, p, pdf_succ)
+        pdf_fail = torch.where(strategy == k, f, pdf_fail)
+    return pdf_succ, pdf_fail
 
 
 def sample_distance_homogeneous(sigma_a, sigma_s, sampling_weight, t_max, u,
-                                uc):
-    """Balance-strategy distance sample: a channel picked by u, an
-    exponential distance in it, gated into the medium with probability
-    sampling_weight by uc. Returns (success, dist, weight, log_pdf). The
-    distance is detached and the weight keeps sigma attached; log_pdf is
-    the attached log-density of the decision at the detached sample
-    (medium.py:468-525)."""
+                                uc, strategy=None, manual_density=None):
+    """Homogeneous distance sample (medium.py:468-525), gated into the
+    medium with probability sampling_weight by uc. Balance where `strategy`
+    is None: a channel picked by u, an exponential distance in it. Else
+    each lane's STRAT_*: the first channel's exponential (single), the
+    manual density's (manual) or the MaxExpDist of the three channels
+    (maximum). Returns (success, dist, weight, log_pdf). The distance is
+    detached and the weight keeps sigma attached; log_pdf is the attached
+    log-density of the strategy's decision at the detached sample."""
     sigma_t = sigma_a + sigma_s
     w = sampling_weight
     in_medium = uc < w
     u_resc = torch.where(in_medium, uc / torch.clamp_min(w, 1e-9), 0.0)
     ch = torch.clamp((u * 3).to(torch.int64), 0, 2)
-    dens = torch.clamp_min(
-        torch.gather(sigma_t, -1, ch.unsqueeze(-1)).squeeze(-1),
-        1e-20).detach()
+    dens = torch.clamp_min(_pick(sigma_t, ch), 1e-20).detach()
     t_sample = torch.where(in_medium, -torch.log1p(-u_resc) / dens, INF)
+    md = None
+    if strategy is not None:
+        md = torch.clamp_min(manual_density, 1e-20)
+        s0 = torch.clamp_min(sigma_t[..., 0], 1e-20)
+        t_maxexp, _ = _maxexp_sample(sigma_t,
+                                     torch.clamp(u_resc, 0.0, 0.9999994))
+        t_alt = t_sample
+        for k, t_k in ((STRAT_SINGLE, -torch.log1p(-u_resc) / s0),
+                       (STRAT_MANUAL, -torch.log1p(-u_resc) / md),
+                       (STRAT_MAXIMUM, t_maxexp)):
+            t_alt = torch.where(strategy == k, t_k, t_alt)
+        t_sample = torch.where(in_medium, t_alt.detach(), INF)
     success = t_sample < t_max
     dist = torch.minimum(t_sample, t_max).detach()
-    pdf_succ, pdf_fail = homog_strategy_pdfs(sigma_t, dist)
+    pdf_succ, pdf_fail = homog_strategy_pdfs(sigma_t, dist, strategy, md)
     tr = torch.exp(-sigma_t * dist.unsqueeze(-1))
     pdf_succ = pdf_succ * w
     pdf_fail = w * pdf_fail + (1.0 - w)

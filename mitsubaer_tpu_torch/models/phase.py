@@ -10,9 +10,20 @@ from dataclasses import dataclass
 
 import torch
 
+from .. import not_ported
 from ..core import warp
 from ..core.math import INV_FOURPI, Frame, dot, safe_sqrt, take_rows
-from ..scene.types import PH_HG, PhaseTable
+from ..scene.types import PH_HG, PH_ISOTROPIC, PhaseTable
+
+
+def check_supported(ph: PhaseTable) -> None:
+    """Raise for a phase kind other than isotropic and HG in the scene's
+    phase table: `eval` and `sample` would take it for isotropic. Every
+    road that reads the table calls this on the host (the JAX config's
+    `phase_kinds` has no counterpart here)."""
+    kinds = set(ph.kind.tolist()) - {PH_ISOTROPIC, PH_HG}
+    if kinds:
+        raise not_ported(f"phase kind {sorted(kinds)}", 9)
 
 
 def hg_pdf(g, cos_theta):
@@ -23,7 +34,8 @@ def hg_pdf(g, cos_theta):
 
 def eval(ph: PhaseTable, idx, wi, wo):
     """Phase value (== pdf) of medium `idx` for (N, 3) directions. Only
-    isotropic and HG are ported; callers gate on the scene's phase kinds."""
+    isotropic and HG are ported; the roads refuse other kinds first
+    (`check_supported`)."""
     i = torch.clamp(idx, 0, ph.kind.shape[0] - 1).to(torch.int64)
     kind, g = ph.kind[i], take_rows(ph.g, i)
     cos_forward = dot(wi, wo)

@@ -8,7 +8,7 @@ small need no BVH.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Optional
 
 import numpy as np
@@ -39,6 +39,8 @@ class _Medium:
     sigma_a: tuple = (0.0, 0.0, 0.0)
     sigma_s: tuple = (0.0, 0.0, 0.0)
     sampling_weight: float = -1.0
+    strategy: int = T.STRAT_BALANCE
+    manual_density: float = 1.0
     phase_kind: int = T.PH_ISOTROPIC
     g: float = 0.0
     scale: float = 1.0
@@ -182,6 +184,8 @@ class SceneBuilder:
         for c, r, _ in self._spheres:
             pts += [c[None, :] - r, c[None, :] + r]
         allp = np.concatenate(pts)
+        self.config = replace(self.config, medium_strategies=any(
+            m.strategy != T.STRAT_BALANCE for m in self._media))
         return T.Scene(
             geo=geo, shapes=shapes, bsdfs=bsdfs, emitters=emitters,
             sensor=self._build_sensor(), media=self._build_media(),
@@ -242,6 +246,8 @@ class SceneBuilder:
             kind=_t([m.kind for m in media], np.int32),
             sigma_a=_t(sigma_a, np.float32), sigma_s=_t(sigma_s, np.float32),
             sampling_weight=_t(sw, np.float32),
+            strategy=_t([m.strategy for m in media], np.int32),
+            manual_density=_t([m.manual_density for m in media], np.float32),
             phase=T.PhaseTable(kind=_t([m.phase_kind for m in media], np.int32),
                                g=_t([m.g for m in media], np.float32)),
             scale=_t([m.scale for m in media], np.float32),

@@ -32,7 +32,15 @@ MED_HOMOGENEOUS = 0
 MED_HETEROGENEOUS = 1
 MED_REFRACTIVE = 2
 
-# Phase kinds
+# Homogeneous distance-sampling strategies (homogeneous.cpp:143 EBalance,
+# ESingle, EManual, EMaximum)
+STRAT_BALANCE = 0
+STRAT_SINGLE = 1
+STRAT_MANUAL = 2
+STRAT_MAXIMUM = 3
+
+# Phase kinds (only isotropic and HG are ported; the JAX package's others,
+# Rayleigh 2, vMF 3, mixture 4, Kajiya-Kay 5 and microflake 6, raise)
 PH_ISOTROPIC = 0
 PH_HG = 1
 
@@ -118,6 +126,8 @@ class Media(_Tensors):
     sigma_a: torch.Tensor   # (NM, 3)
     sigma_s: torch.Tensor   # (NM, 3)
     sampling_weight: torch.Tensor  # (NM,) mediumSamplingWeight
+    strategy: torch.Tensor  # (NM,) int32 STRAT_* (homogeneous sampling)
+    manual_density: torch.Tensor  # (NM,) EManual strategy density
     phase: PhaseTable
     scale: torch.Tensor     # (NM,)
     density: GridData
@@ -178,7 +188,8 @@ class RenderConfig:
     er_bvp_hscale: float = 1.0
     er_f64: bool = False
     hide_emitters: bool = False
-    medium_strategies: bool = False
+    medium_strategies: bool = False   # some medium samples distances
+    #   with a strategy other than balance; the builder sets it
     has_beam: bool = False      # the beam NEE of the loop and wavefront
     #   engines; volumetric_box sets it for its collimated beam, the scene
     #   builder leaves it False (as in the JAX package)

@@ -211,11 +211,15 @@ def test_solve_bvp_matches(max_restarts):
 
 
 def test_fields_not_ported_raise():
-    """The acoustic RIF still raises; the spline SDF and the
-    differentiable march, ported since, run (their values are held against
-    JAX in tests/test_torch_spline.py and tests/test_torch_er_grad.py)."""
-    with pytest.raises(NotImplementedError, match="acoustic RIF.*step 7"):
-        tek.RifField(tek.RIF_ACOUSTIC, (1.33, 0.03, 6.0, 0.0))
+    """The acoustic RIF, the spline SDF and the differentiable march,
+    ported since, run (their values are held against JAX in
+    tests/test_torch_acoustic.py, tests/test_torch_spline.py and
+    tests/test_torch_er_grad.py); an unknown kind raises."""
+    acoustic = tek.RifField(tek.RIF_ACOUSTIC, (1.33, 0.03, 6.0, 0.0))
+    n = tek.rif_value(acoustic, torch.tensor([[0.0, 0.1, 0.2]]))
+    assert bool(torch.isfinite(n).all()) and abs(float(n) - 1.33) < 0.03
+    with pytest.raises(ValueError, match="unknown RIF kind"):
+        tek.RifField(7, (1.0,))
     zs = torch.linspace(-1.5, 1.5, 6)
     Z, Y, X = torch.meshgrid(zs, zs, zs, indexing="ij")
     from mitsubaer_tpu_torch.core import spline as tspline

@@ -99,19 +99,131 @@ def test_spp_per_pass_follows_render_budget():
 
 
 @pytest.mark.parametrize("kw,step", [
-    (dict(filter="gaussian", sampler="ldsampler"), "step 1"),
-    (dict(filter="gaussian", decomposition="transient", max_bound=4.0),
-     "step 10"),
-    (dict(filter="box", integrator="path"), "step 9"),
-    (dict(filter="box", integrator="bdpt"), "step 12"),
-    (dict(filter="box", emitter_kind="point", medium_strategies=True),
-     "step 7"),
+    pytest.param(dict(filter="gaussian", sampler="ldsampler"), "step 1",
+                 id="kw0-step 1"),
+    pytest.param(dict(filter="gaussian", decomposition="transient",
+                      max_bound=4.0), "step 10", id="kw1-step 10"),
+    pytest.param(dict(filter="box", integrator="path"), "step 9",
+                 id="kw2-step 9"),
+    pytest.param(dict(filter="box", integrator="bdpt"), "step 12",
+                 id="kw3-step 12"),
+    # step 7's medium_strategies on the wavefront road, ported since: it
+    # renders (tests/test_torch_strategies.py)
+    pytest.param(dict(filter="box", emitter_kind="point",
+                      medium_strategies=True), None, id="kw4-step 7"),
 ])
 def test_other_roads_raise(kw, step):
     scene, cfg = tpresets.volumetric_box(res=8, spp=1, heterogeneous=True,
                                          density_res=8, **kw)
+    if step is None:
+        img = trender.render(scene, dataclasses.replace(cfg, max_depth=3),
+                             device="cpu")
+        assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+        return
     with pytest.raises(NotImplementedError, match=step):
         trender.render(scene, cfg, device="cpu")
+
+
+def _with_phase_kind(scene, kind):
+    media = scene.media
+    phase = dataclasses.replace(
+        media.phase, kind=torch.full_like(media.phase.kind, kind))
+    return dataclasses.replace(scene, media=dataclasses.replace(
+        media, phase=phase))
+
+
+def _phase_box(kind, **kw):
+    scene, cfg = tpresets.volumetric_box(res=16, spp=4, heterogeneous=True,
+                                         density_res=8, max_depth=4, g=0.0,
+                                         **kw)
+    return _with_phase_kind(scene, kind), cfg
+
+
+def _road_loop(kind):
+    scene, cfg = _phase_box(kind)
+    return trender.render(scene, cfg, seed=0, device="cpu")
+
+
+def _road_wavefront(kind):
+    scene, cfg = _phase_box(kind, filter="box", emitter_kind="point")
+    return trender.render(scene, cfg, seed=0, device="cpu")
+
+
+def _road_boxwalk_class(kind):
+    """The beam box with a box filter: boxwalk's class but for the kind,
+    which sends an unsupported kind to the wavefront road."""
+    scene, cfg = _phase_box(kind, filter="box")
+    return trender.render(scene, cfg, seed=0, device="cpu")
+
+
+def _road_training(kind):
+    from mitsubaer_tpu_torch.diff import render as dr
+    scene, cfg = _phase_box(kind)
+    cfg = dataclasses.replace(cfg, width=4, height=4, max_depth=2)
+    p = dr.get_params(scene)
+    return dr.loss_and_grad(scene, p, cfg, 1, 7, 0,
+                            torch.zeros((4, 4, 3)), device="cpu")[0]
+
+
+def _er_scene(kind, res=4):
+    scene, cfg = tpresets.refractive_sphere(
+        res=res, spp=1, max_depth=2, rif_kind=1, rif_params=(1.3, 0.15),
+        er_stepsize=0.05, filter="box")
+    return _with_phase_kind(scene, kind), dataclasses.replace(
+        cfg, er_maxsteps=32)
+
+
+def _road_eikonal(kind):
+    scene, cfg = _er_scene(kind)
+    return trender.render(scene, cfg, seed=0, device="cpu")
+
+
+def _road_light_image(kind):
+    from mitsubaer_tpu_torch.integrators import volpath_er as ter
+    scene, cfg = _er_scene(kind, res=32)       # ~2% of particles enter
+    return ter.render_er_light_image(scene, cfg, n_passes=1, device="cpu")
+
+
+ROADS = {"loop": _road_loop, "wavefront": _road_wavefront,
+         "boxwalk_class": _road_boxwalk_class, "training": _road_training,
+         "eikonal": _road_eikonal, "light_image": _road_light_image}
+
+
+@pytest.mark.parametrize("road", list(ROADS))
+@pytest.mark.parametrize("kind", [2, 3])
+def test_unported_phase_kinds_raise(road, kind):
+    """Rayleigh (2) and vMF (3) raise on every road that reads the phase
+    table, rather than render as isotropic (the port's phase models hold
+    isotropic and HG only)."""
+    with pytest.raises(NotImplementedError, match="phase kind.*step 9"):
+        ROADS[road](kind)
+
+
+@pytest.mark.parametrize("road", list(ROADS))
+@pytest.mark.parametrize("kind", [0, 1])
+def test_ported_phase_kinds_render(road, kind):
+    """Isotropic and HG go on rendering on every road. The isotropic loop
+    render is the image that Rayleigh and vMF used to render in its place,
+    mean 0.155699 (the JAX package's Rayleigh render: 0.156008)."""
+    out = ROADS[road](kind)
+    assert bool(torch.isfinite(out).all())
+    if road != "training":
+        assert float(out.mean()) > 0
+    if road == "loop" and kind == 0:
+        assert abs(float(out.mean()) / 0.155699 - 1) < 1e-5
+
+
+@pytest.mark.parametrize("name", ["volpth", "adaptive"])
+def test_unknown_integrator_raises_as_jax(name):
+    """A name neither package knows raises ValueError in both, as JAX's
+    get_integrator does; the port used to render it as volpath."""
+    scene, cfg = tpresets.volumetric_box(res=8, spp=1, heterogeneous=True,
+                                         density_res=8, max_depth=3)
+    with pytest.raises(ValueError, match=f"unknown integrator {name}"):
+        trender.render(scene, dataclasses.replace(cfg, integrator=name),
+                       device="cpu")
+    with pytest.raises(ValueError, match=f"unknown integrator {name}"):
+        jrender.get_integrator(name)
 
 
 def test_render_defaults_to_cuda():
