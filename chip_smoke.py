@@ -109,8 +109,8 @@ Phases (any failure raises and the script exits non-zero):
      each lane count, and its busiest): every output equal to its plain
      version on the same inputs, and E timed at the busiest;
  20. the spline RIF's voxel gradient: test_inverse.py's scene (a Gaussian
-     index bump, sphere SDF, point light, h 0.05, er_maxsteps 96, depth 4)
-     with a 32^3 grid at 64^2 sppc 2, twice: finite, non-zero, more than
+     index bump, sphere SDF, point light, h 0.05, er_maxsteps 96) with a
+     32^3 grid at 64^2 sppc 2, depth SPLINE_DEPTH, twice: finite, non-zero, more than
      0.3 of its mass on the interior voxels, no kernel launched; the same
      measures as phase 19. Then at test_inverse.py's own size (12^3, 8^2,
      sppc 4, seed 3) its directional finite-difference check, the
@@ -134,13 +134,45 @@ Phases (any failure raises and the script exits non-zero):
      1e-3, at most LIGHT_MAX_FLIPPED on one only;
  24. the acoustic RIF (mode 2): one plain kernel-E march at the bench's
      36,864 lanes, then phase 7's render with it at depth ACOUSTIC_DEPTH
-     through the plain loops (no kernel may launch): the wall;
+     through the plain loops (no kernel may launch; the plain curved
+     march and BVP solve must run on some lanes): the wall;
  25. er_f64: one float64 plain kernel-E march at 36,864 lanes, then phase
      7's render in float64 at depth F64_DEPTH through the plain loops (no
      kernel may launch): the wall and the image's difference from the
-     float32 render (phase 7's, or one at that depth).
+     float32 render (phase 7's, or one at that depth);
+ 26. the surface path, BASELINE config 1: render() of cornell_box at
+     256^2, spp 64, depth 40, "path", gaussian filter (2 passes of 32 spp
+     through path.li), every kernel count 0 before and after (the cbox
+     roads run no hand-written kernel: no pallas_call lies on them): the
+     wall, bounces a pass, peak device memory and mean; one pass again
+     under the profiler (launches a bounce, device time, busy share);
+     then "direct", whose mean must not exceed the path's;
+ 27. the same two renders at 16^2 spp 8 on the card and on the CPU, by
+     phase 8's rule; every one of the 21 BSDF kinds' eval, pdf and sample
+     (tests/test_torch_bsdf.py's table) at 2^20 seeded lanes on the card
+     and on the CPU, within that test's tolerance;
+ 28. BASELINE config 2: the cbox filled with a homogeneous HG medium
+     (CBOX_MEDIUM), "volpath" on the loop engine, measured as phase 26;
+     then card against CPU at 16^2 spp 8;
+ 29. the box-filter cbox on the wavefront road at 256^2 spp 64, "path" and
+     the config-2 medium: no sample left unfinished, the pixel-by-pixel
+     median ratio against the loop road (engine "loop", box filter, same
+     seed) within 0.95-1.05; WF_PROFILE_SUPERS super-iterations
+     profiled (launches a super-iteration, busy share);
+ 30. the BVH: the cbox with a subdivided sphere of 81,920 triangles; the
+     256^2 camera rays through the BVH and through the brute-force sweep
+     in chunks (equal hits, t within 1e-5 relative, equal triangle ids but
+     at ties: rays that meet both triangles at one t, on a shared edge or
+     corner or in one plane; `_bvh_ties`), both
+     timed; a 64^2 spp 4 path render through the BVH at depth BVH_DEPTH;
+ 31. the area-lit refractive sphere (refractive_sphere(emitter=
+     "area_behind") at bench_er_forward's settings, 96^2 spp 2): D and E
+     must launch; their first and busiest calls captured, each output
+     equal to the plain version's, timed at the busiest; then card
+     against CPU at 16^2 spp 4, single solve, by phase 22's rule.
+     Phases 26-31 print their measures as one {"surface": ...} JSON line.
 With `--phases a-b[,c-d]` only those phase groups run (3-8, 9-12, 13-15,
-16-18, 19-21, 22-25; 1 and 2 always), for iterating on the card.
+16-18, 19-21, 22-25, 26-31; 1 and 2 always), for iterating on the card.
 Prints one JSON line of per-kernel results (time, bound, plain version,
 library yardstick, launches on the main paths; for A also its launches on
 the loop road and its checks and times at the loop road's point counts,
@@ -149,11 +181,13 @@ and registers; for A' its bare-launch and clustered times and its checks
 and times at the training step's point counts; for E its launches in an eikonal
 gradient, its checks and times at that gradient's calls, and the walls of
 phases 19 and 20; for D and E their launches, checks and times in the
-light image, and the walls of phases 22-25), then the contract line
+light image and in the area-lit sphere, and the walls of phases 22-25),
+then the contract line
 {"ok": true, "device": {...}} last.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -232,6 +266,12 @@ LOOP_FIELDS = ("sigma_a", "sigma_s", "density", "g")
 ER_CARD_CPU_TOL = (1e-4, 1e-4)
 # phases 19 and 20: tests/test_inverse.py's finite-difference tolerance
 ER_FD_RTOL, ER_FD_ATOL = 0.5, 5e-3
+# phase 20: the depth of the spline gradient at 64^2 (the scene's own is
+# 4: 55.5-98 s a call on an H100, two calls), cut to make room for
+# phases 26-31 (at depth 2 no path reaches the light through the medium:
+# the loss and gradient are 0); its finite-difference check at
+# test_inverse.py's size keeps depth 4
+SPLINE_DEPTH = 3
 
 
 def _cuda_ms(fn, reps):
@@ -668,19 +708,26 @@ def main() -> int:
     results = {}
 
     phases = _phase_range(sys.argv[1:])
-    er_img = None
-    if phases & set(range(3, 9)):
-        er_img = _core_phases(dev, card, results, build_log)
-    if phases & set(range(9, 13)):
-        _megatrack_phases(dev, card, results, build_log)
-    if phases & set(range(13, 16)):
-        _loop_phases(dev, card, results)
-    if phases & set(range(16, 19)):
-        _training_phases(dev, card, results)
-    if phases & set(range(19, 22)):
-        _er_grad_phases(dev, card, results)
-    if phases & set(range(22, 26)):
-        _er_rest_phases(dev, card, results, er_img)
+    groups = {}
+
+    def timed(first, last, fn, *args):
+        if not phases & set(range(first, last + 1)):
+            return None
+        t0 = time.perf_counter()
+        out = fn(dev, card, results, *args)
+        groups[f"{first}-{last}"] = time.perf_counter() - t0
+        print(f"phases {first}-{last}: {groups[f'{first}-{last}']:.1f} s",
+              flush=True)
+        return out
+
+    er_img = timed(3, 8, _core_phases, build_log)
+    timed(9, 12, _megatrack_phases, build_log)
+    timed(13, 15, _loop_phases)
+    timed(16, 18, _training_phases)
+    timed(19, 21, _er_grad_phases)
+    timed(22, 25, _er_rest_phases, er_img)
+    timed(26, 31, _surface_phases)
+    print(json.dumps({"phase_group_s": groups}))
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -695,7 +742,7 @@ def _phase_range(argv):
     run, and a phase group runs whole where any of its phases is asked
     for."""
     if not argv:
-        return set(range(1, 26))
+        return set(range(1, 32))
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: chip_smoke.py [--phases a-b[,c-d...]]")
     phases = set()
@@ -2001,6 +2048,8 @@ def _er_fd(scene, cfg, sppc, seed, dev, field, direction, step, what,
 def _er_grad_phases(dev, card, results):
     """Phases 19-21: the eikonal training path (volpath_er.li with
     differentiable=True)."""
+    import dataclasses
+
     import numpy as np
     import torch
 
@@ -2050,6 +2099,7 @@ def _er_grad_phases(dev, card, results):
 
     # ---- phase 20: the spline RIF's voxel gradient ----
     s_scene, s_cfg = _spline_scene(64, 32)
+    s_cfg = dataclasses.replace(s_cfg, max_depth=SPLINE_DEPTH)
     s_scene = s_scene.to(dev)
     runs = [_er_grad_step(s_scene, s_cfg, 2, seed, dev, "rif_coeff")
             for seed in (0, 1)]
@@ -2058,7 +2108,8 @@ def _er_grad_phases(dev, card, results):
     mass = gr.abs().sum().item()
     interior = gr[3:-3, 3:-3, 3:-3].abs().sum().item()
     print(f"spline RIF gradient (test_inverse's scene, 32^3 grid, 64x64 "
-          f"sppc 2, {64 * 64 * 2} lanes, depth 4, h 0.05, er_maxsteps 96): "
+          f"sppc 2, {64 * 64 * 2} lanes, depth {SPLINE_DEPTH}, h 0.05, "
+          f"er_maxsteps 96): "
           f"first call {runs[0][2]:.3f} s, second {wall:.3f} s, "
           f"{64 * 64 * 2 / wall:.1f} fwd+bwd samples/s, peak device memory "
           f"{peak / 2**30:.3f} GiB, launches of D and E {launches}, loss "
@@ -2273,11 +2324,14 @@ def _check_e_calls(captured, card, where):
 
 # phases 24 and 25 march the plain loops, launch-bound on the card: their
 # renders' depth (bench_er_forward's is 6), cut where the script's time
-# needs it. On an H100 the acoustic render took 1.9 s at depth 2 and
-# 215.6 s at depth 4 (one plain acoustic E march at 36,864 lanes 0.49-0.73
-# s, ~5x the linear one's); the float64 render 32.0-45.4 s at depth 6
+# needs it. On an H100 the acoustic render took 1.9 s at depth 2, 69.2 s
+# at depth 3 and 215.6 s at depth 4 (one plain acoustic E march at 36,864
+# lanes 0.49-0.81 s, ~5x the linear one's); the float64 render 32.0-51.2
+# s at depth 6. A camera ray enters the sphere at depth 2, and curved
+# NEE and continuation need depth < max_depth: depth 3 is the least at
+# which the medium is marched. F64_DEPTH 3 leaves room for phases 26-31
 ACOUSTIC_DEPTH = 3
-F64_DEPTH = 6
+F64_DEPTH = 3
 # phase 23: the light image, card against CPU at 24^2 pass by pass: pixels
 # lit on one device only (connections whose Levenberg stop test the two
 # devices' ulps decided differently) over LIGHT_PASSES passes
@@ -2319,6 +2373,32 @@ def _er_variant(presets, res, spp, max_steps, strategy=None, **kw):
         scene = dataclasses.replace(scene, media=media)
         cfg = dataclasses.replace(cfg, medium_strategies=True)
     return scene, cfg
+
+
+@contextlib.contextmanager
+def _plain_march_lanes():
+    """Count the active lanes that ermarch's plain marches (D's and E's
+    plain versions: the curved march and the BVP solve's inner loop) are
+    called with, by name, while the block runs."""
+    from mitsubaer_tpu_torch.models import ermarch
+
+    names = ("trace_plain", "sens_march_plain")
+    lanes = dict.fromkeys(names, 0)
+    saved = {k: getattr(ermarch, k) for k in names}
+
+    def counted(name):
+        def march(*args):
+            lanes[name] += int(args[-1].sum())
+            return saved[name](*args)
+        return march
+
+    for k in names:
+        setattr(ermarch, k, counted(k))
+    try:
+        yield lanes
+    finally:
+        for k, f in saved.items():
+            setattr(ermarch, k, f)
 
 
 def _er_render(scene, cfg, dev, seed=1):
@@ -2485,17 +2565,21 @@ def _er_rest_phases(dev, card, results, er_img):
                            e_in, torch.float32)
     scene, cfg = _er_variant(presets, 96, 2, 256, rif_kind=ek.RIF_ACOUSTIC,
                              rif_params=acoustic, max_depth=ACOUSTIC_DEPTH)
-    img, wall, launches = _er_render(scene, cfg, dev)
+    with _plain_march_lanes() as marched:
+        img, wall, launches = _er_render(scene, cfg, dev)
     print(f"acoustic RIF (mode 2, kr 6): one plain kernel-E march at 36864 "
           f"lanes {plain_ac:.1f} ms; eikonal render 96x96 spp 2 depth "
           f"{ACOUSTIC_DEPTH}: wall {wall:.3f} s, mean "
-          f"{img.mean().item():.6f}, launches of D and E {launches} "
-          f"[{card}]", flush=True)
+          f"{img.mean().item():.6f}, launches of D and E {launches}, active "
+          f"lanes of the plain marches {marched} [{card}]", flush=True)
     if launches != (0, 0):
         raise AssertionError("the acoustic RIF reached a kernel")
+    if not marched["sens_march_plain"] or not marched["trace_plain"]:
+        raise AssertionError("the acoustic render ran no curved march or "
+                             "no BVP solve in the medium")
     e_row["acoustic"] = dict(
         plain_ms=plain_ac, wall_s=wall, depth=ACOUSTIC_DEPTH,
-        mean=img.mean().item())
+        mean=img.mean().item(), plain_march_lanes=marched)
 
     # ---- phase 25: er_f64 through the plain loops, against phase 7's
     # float32 render ----
@@ -2531,6 +2615,628 @@ def _er_rest_phases(dev, card, results, er_img):
         plain_ms=plain64, wall_s=wall, depth=F64_DEPTH,
         max_abs_diff_f32=diff.max().item(), median_ratio_f32=ratio,
         mean_rel_f32=mean_rel)
+
+
+# ---------------------------------------------------------------------------
+# Phases 26-31: the surface path
+# ---------------------------------------------------------------------------
+# BASELINE config 2's medium: sigma_s 1e-3 over the ~550-unit box gives a
+# camera ray to the back wall an optical depth of about 1.5 (the preset's
+# default, 0.5, would extinguish every ray before the box)
+CBOX_MEDIUM = dict(sigma_s=(1e-3,) * 3, sigma_a=(1e-4,) * 3, g=0.7)
+# phase 27: the BSDFs card against CPU, tests/test_torch_bsdf.py's rule
+# (there held against the JAX package): a lane agrees within 1e-4 relative
+# plus 1e-6 of the quantity's 99th-percentile magnitude; at most 2% of a
+# kind's lanes and 0.1% of all may disagree
+BSDF_RTOL, BSDF_ATOL_SCALE, BSDF_MAX_BAD = 1e-4, 1e-6, 0.02
+# phase 30: subdivisions of the icosahedron (20 4^k triangles), and the
+# depth of the path render through the BVH: each traversal is a host loop
+# of ~130 launches a trip (scene/bvh.py), ~350 trips, two traversals a
+# bounce (24.2 s at depth 8 on an H100)
+BVH_SUBDIV = 6
+BVH_DEPTH = 2
+# phase 29: the wavefront engine profiled over WF_PROFILE_SUPERS
+# super-iterations after WF_PROFILE_SUPERS of warm-up, in a pass of sppc
+# WF_PROFILE_SPPC (a 32-spp pass holds ~600,000 launches, whose trace
+# takes ~0.2 ms an event to aggregate)
+WF_PROFILE_SPPC, WF_PROFILE_SUPERS = 4, 5
+
+
+def _kernel_counts():
+    """Every kernel wrapper's launch count."""
+    from mitsubaer_tpu_torch.integrators import boxwalk, megatrack
+    from mitsubaer_tpu_torch.models import ermarch, medium
+
+    return {"trilinear_lookup": medium.trilinear_lookup.launches,
+            "trilinear_lookup_backward":
+                medium.trilinear_lookup_backward.launches,
+            "boxwalk": boxwalk.walk.launches, "megatrack": megatrack.run.launches,
+            "er_trace": ermarch.trace.launches,
+            "er_sens": ermarch.sens_march.launches}
+
+
+def _zero_counts():
+    from mitsubaer_tpu_torch.integrators import boxwalk, megatrack
+    from mitsubaer_tpu_torch.models import ermarch, medium
+
+    for fn in (medium.trilinear_lookup, medium.trilinear_lookup_backward,
+               boxwalk.walk, megatrack.run, ermarch.trace,
+               ermarch.sens_march):
+        fn.launches = 0
+
+
+def _surface_render(scene, cfg, dev, card, what, seed=0):
+    """render() on the card with every kernel count at 0 just before and
+    read just after (the cbox roads launch none: no heterogeneous medium,
+    no refractive one); returns (image, stats, wall s, peak device
+    bytes)."""
+    import torch
+
+    from mitsubaer_tpu_torch.integrators import render as render_m
+
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    img = render_m.render(scene, cfg, seed=seed, device=dev, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _kernel_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if (tuple(img.shape) != (cfg.height, cfg.width, 3)
+            or not bool(torch.isfinite(img).all()) or not img.mean() > 0):
+        raise AssertionError(f"{what}: a non-finite, black or misshapen "
+                             "image")
+    if any(counts.values()):
+        raise AssertionError(f"{what} launched a kernel: {counts}")
+    return img, stats, wall, peak
+
+
+def _profile_pass(run, card, what):
+    """run() (one spp chunk, ending in a synchronize) under torch.profiler,
+    device activity only (host events of a wavefront pass number in the
+    millions, and their aggregation took minutes): its wall, the device
+    time and count of the kernels and copies it launched, and the busy
+    share of the wall. The profiler slows the host, so the share is a
+    floor."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_us, launches = 0.0, 0
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if us > 0:
+            dev_us += us
+            launches += e.count
+    if not launches:
+        raise AssertionError(f"{what}: the profiler saw no device work")
+    return out, dict(wall_s=wall, device_s=dev_us / 1e6, launches=launches,
+                     busy=dev_us / 1e6 / wall)
+
+
+def _loop_pass_profile(scene, cfg, dev, card, what):
+    """One loop-road pass (render_pass at the render's own sppc) profiled:
+    returns its measures with launches a bounce."""
+    import torch
+
+    from mitsubaer_tpu_torch.integrators import render as render_m
+
+    sppc = render_m._spp_per_pass(cfg)
+    acc = torch.zeros((cfg.height, cfg.width, 4), device=dev)
+    (_, counts), m = _profile_pass(
+        lambda: render_m.render_pass(scene, acc, cfg, sppc, 0, 0), card,
+        what)
+    m["bounces"] = counts[0]
+    m["launches_a_bounce"] = m["launches"] / max(counts[0], 1)
+    print(f"{what}, one pass (sppc {sppc}) profiled: wall "
+          f"{m['wall_s']:.3f} s, {counts[0]} bounces, {m['launches']} device "
+          f"launches ({m['launches_a_bounce']:.1f} a bounce), device time "
+          f"{m['device_s']:.3f} s, busy share {m['busy']:.3f} [{card}]",
+          flush=True)
+    return m
+
+
+def _profile_wavefront(scene, cfg, card, what):
+    """The wavefront engine's super-iterations WF_PROFILE_SUPERS + 1 to
+    2 WF_PROFILE_SUPERS of a pass of sppc WF_PROFILE_SPPC (seed 7),
+    profiled (render_wavefront's loop, stepped here): launches a
+    super-iteration, device time, busy share."""
+    from mitsubaer_tpu_torch.integrators import render as render_m
+    from mitsubaer_tpu_torch.integrators import wavefront as wf_m
+
+    het = render_m._any_het(scene)
+    st, event_pass, tracking_mega, cond, _ = wf_m.make_engine(
+        scene, cfg, WF_PROFILE_SPPC, 7, 0,
+        has_direct=render_m._has_direct(scene), any_het=het)
+
+    def supers(st, k):
+        for _ in range(k):
+            if not cond(st):
+                raise AssertionError(f"{what}: the pass ended in the "
+                                     "profiled window")
+            st = event_pass(st)
+            for _ in range(cfg.wf_mini_passes):
+                st = event_pass(st, mini=True)
+                if het:
+                    st = tracking_mega(st)
+            if cfg.wf_mini_passes == 0 and het:
+                st = tracking_mega(st)
+        return st
+
+    st = supers(st, WF_PROFILE_SUPERS)
+    _, m = _profile_pass(lambda: supers(st, WF_PROFILE_SUPERS), card, what)
+    m["super_iterations"] = WF_PROFILE_SUPERS
+    m["launches_a_super_iteration"] = m["launches"] / WF_PROFILE_SUPERS
+    print(f"{what}, super-iterations {WF_PROFILE_SUPERS + 1}-"
+          f"{2 * WF_PROFILE_SUPERS} of a pass of sppc {WF_PROFILE_SPPC} "
+          f"profiled: wall {m['wall_s']:.3f} s, {m['launches']} device "
+          f"launches ({m['launches_a_super_iteration']:.1f} a "
+          f"super-iteration), busy share {m['busy']:.3f} [{card}]",
+          flush=True)
+    return m
+
+
+def _bsdf_table():
+    """tests/test_torch_bsdf.py's table, built by the port: every kind, a
+    masked plastic, the wrappers over their children."""
+    import numpy as np
+
+    from mitsubaer_tpu_torch.scene import types as T
+    from mitsubaer_tpu_torch.scene.build import SceneBuilder
+
+    b = SceneBuilder()
+    add = b.add_bsdf
+    d = add(T.BSDF_DIFFUSE, reflectance=(0.7, 0.5, 0.3))
+    add(T.BSDF_DIELECTRIC, eta=1.5)
+    add(T.BSDF_CONDUCTOR, cond_eta=(0.2, 0.9, 1.1), cond_k=(3.9, 2.4, 2.2))
+    add(T.BSDF_NULL)
+    add(T.BSDF_PLASTIC, reflectance=(0.6, 0.4, 0.2), eta=1.49)
+    rc = add(T.BSDF_ROUGHCONDUCTOR, alpha=0.3, cond_eta=(0.2, 0.9, 1.1),
+             cond_k=(3.9, 2.4, 2.2))
+    add(T.BSDF_THINDIELECTRIC, eta=1.33)
+    add(T.BSDF_ROUGHDIELECTRIC, alpha=0.25, eta=1.5)
+    add(T.BSDF_PHONG, reflectance=(0.4, 0.4, 0.4), specular_r=(0.3, 0.3, 0.3),
+        exponent=20.0)
+    add(T.BSDF_MIRROR, specular_r=(0.9, 0.8, 0.7))
+    add(T.BSDF_HDIELECTRIC, eta=1.4)
+    add(T.BSDF_ROUGHPLASTIC, reflectance=(0.5, 0.3, 0.6), alpha=0.2)
+    add(T.BSDF_WARD, reflectance=(0.3, 0.3, 0.3), specular_r=(0.4, 0.4, 0.4),
+        alpha=0.2, alpha_v=0.35)
+    add(T.BSDF_DIFFTRANS, reflectance=(0.6, 0.6, 0.6))
+    add(T.BSDF_HROUGHDIELECTRIC, alpha=0.3, eta=1.4)
+    add(T.BSDF_MIXTURE, child0=d, child1=rc, mix_w=0.35)
+    add(T.BSDF_TWOSIDED, child0=d)
+    add(T.BSDF_HK, specular_r=(0.8, 0.5, 0.3), specular_t=(0.1, 0.2, 0.3),
+        alpha=0.6, mix_w=0.4)
+    add(T.BSDF_ROUGHDIFFUSE, reflectance=(0.7, 0.6, 0.5), alpha=0.5)
+    add(T.BSDF_COATING, child0=d, eta=1.5, specular_t=(0.1, 0.1, 0.1))
+    add(T.BSDF_ROUGHCOATING, child0=d, eta=1.5, alpha=0.2,
+        specular_t=(0.05, 0.05, 0.05))
+    add(T.BSDF_PLASTIC, reflectance=(0.6, 0.6, 0.6), opacity=0.6)
+    b.add_mesh(np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0]], np.float32),
+               np.array([[0, 1, 2]], np.int32), bsdf=0)
+    b.set_perspective_sensor(np.eye(4, dtype=np.float32), 45.0)
+    return b.build().bsdfs
+
+
+def _bsdf_inputs(nb, n):
+    """Seeded inputs on n lanes: row indices (-1 the null surface), wi,
+    wo, u2, u1, an h-dielectric eta_override and a texture's refl_scale."""
+    import numpy as np
+    import torch
+
+    r = np.random.default_rng(0)
+
+    def dirs():
+        d = r.normal(size=(n, 3))
+        return (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(
+            np.float32)
+
+    x = dict(idx=(np.arange(n) % (nb + 1) - 1), wi=dirs(), wo=dirs(),
+             u2=r.uniform(0, 1, (n, 2)).astype(np.float32),
+             u1=r.uniform(0, 1, n).astype(np.float32),
+             eta_override=r.uniform(1.1, 1.6, n).astype(np.float32),
+             refl_scale=r.uniform(0.5, 1.0, (n, 3)).astype(np.float32))
+    return {k: torch.from_numpy(v) for k, v in x.items()}
+
+
+def _bsdf_all(bs, x):
+    """(eval, pdf, sample fields) of every lane, all kinds on."""
+    from mitsubaer_tpu_torch.models import bsdf as bsdf_m
+
+    kw = dict(eta_override=x["eta_override"], refl_scale=x["refl_scale"])
+    s = bsdf_m.sample(bs, x["idx"], x["wi"], x["u2"], x["u1"], **kw)
+    return dict(eval=bsdf_m.eval(bs, x["idx"], x["wi"], x["wo"], **kw),
+                pdf=bsdf_m.pdf(bs, x["idx"], x["wi"], x["wo"], **kw),
+                wo=s.wo, weight=s.weight, spdf=s.pdf, delta=s.delta,
+                eta=s.eta, null=s.null_passthrough)
+
+
+def _bsdf_card_vs_cpu(dev, card):
+    """Phase 27's BSDF half: every kind's eval, pdf and sample at 2^20
+    lanes on the card and on the CPU."""
+    import torch
+
+    bs = _bsdf_table()
+    n = 1 << 20
+    x = _bsdf_inputs(bs.kind.shape[0], n)
+    kinds = torch.where(x["idx"] >= 0, bs.kind[x["idx"].clamp_min(0)], -1)
+    want = _bsdf_all(bs, x)
+    bs_g = bs.to(dev)
+    x_g = {k: v.to(dev) for k, v in x.items()}
+    got = {k: v.cpu() for k, v in _bsdf_all(bs_g, x_g).items()}
+    ms = _cuda_ms(lambda: _bsdf_all(bs_g, x_g), 3)
+    worst = {}
+    for name, w in want.items():
+        g = got[name]
+        if w.dtype == torch.bool:
+            ok = g == w
+        else:
+            s = max(torch.quantile(w.abs().flatten()[::7].double(),
+                                   0.99).item(), 1.0)
+            ok = (g - w).abs() <= BSDF_RTOL * w.abs() + BSDF_ATOL_SCALE * s
+            if ok.dim() > 1:
+                ok = ok.all(-1)
+        bad_all = (~ok).double().mean().item()
+        bad_kind = max((~ok[kinds == k]).double().mean().item()
+                       for k in range(-1, 21))
+        worst[name] = (bad_all, bad_kind)
+        if bad_all > 1e-3 or bad_kind > BSDF_MAX_BAD:
+            raise AssertionError(f"BSDF {name} card against CPU: {bad_all} "
+                                 f"of the lanes, {bad_kind} of a kind's "
+                                 "disagree")
+    print(f"BSDFs, all 21 kinds and the null surface at {n} lanes, card "
+          f"against CPU: lanes that disagree (all, worst kind) {worst}; "
+          f"eval + pdf + sample of every lane {ms:.3f} ms [{card}]",
+          flush=True)
+    return dict(lanes=n, disagree=worst, ms=ms)
+
+
+def _icosphere(level, center, radius):
+    """(verts, faces) of an icosahedron subdivided `level` times, projected
+    on the sphere; 20 4^level triangles, vertices not shared."""
+    import numpy as np
+
+    t = (1.0 + 5 ** 0.5) / 2
+    v = np.array([[-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+                  [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+                  [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1]])
+    f = np.array([[0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+                  [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+                  [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+                  [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1]])
+    tri = v[f] / np.linalg.norm(v[f], axis=-1, keepdims=True)
+    for _ in range(level):
+        a, b, c = tri[:, 0], tri[:, 1], tri[:, 2]
+        ab, bc, ca = ((p + q) / np.linalg.norm(p + q, axis=-1, keepdims=True)
+                      for p, q in ((a, b), (b, c), (c, a)))
+        tri = np.concatenate([np.stack(s, 1) for s in
+                              ((a, ab, ca), (ab, b, bc), (ca, bc, c),
+                               (ab, bc, ca))])
+    verts = (tri.reshape(-1, 3) * radius + center).astype(np.float32)
+    return verts, np.arange(len(verts), dtype=np.int32).reshape(-1, 3)
+
+
+# phase 30: a hit on a triangle's border has a barycentric within
+# BVH_BORDER of 0; two corners, or two planes, are one within BVH_CORNER
+# (scene units; the icosphere's edges are ~10 long)
+BVH_BORDER, BVH_CORNER = 1e-3, 1e-3
+
+
+def _bvh_ties(geo, other, o, d, t, prim_b, prim_f):
+    """Phase 30's exemption. Where a ray meets two triangles at one t,
+    brute force keeps the lower id and the walk the first it visits. Of
+    the `other` lanes (equal t, the ids differ), count as ties those whose
+    ray, intersected anew with each of the two triangles of `geo`, meets
+    both at t (within 1e-5 relative, barycentrics within BVH_BORDER of the
+    triangle), where the two share an edge or a corner with both hits on
+    their border, or lie in one plane (the cbox's ceiling and the patch
+    over it); `other` counts the rest."""
+    import torch
+
+    idx = other.nonzero().squeeze(-1)
+    o, d, t, p_b, p_f = (x[idx] for x in (o, d, t, prim_b, prim_f))
+
+    def hit(prim):
+        """(t, u, v) of each ray against its triangle (Moller-Trumbore)."""
+        v0, e1, e2 = geo.v0[prim], geo.e1[prim], geo.e2[prim]
+        pv = torch.cross(d, e2, dim=-1)
+        inv = 1.0 / (e1 * pv).sum(-1)
+        tv = o - v0
+        u = (tv * pv).sum(-1) * inv
+        qv = torch.cross(tv, e1, dim=-1)
+        return (e2 * qv).sum(-1) * inv, u, (d * qv).sum(-1) * inv
+
+    def corners(prim):
+        v0 = geo.v0[prim]
+        return torch.stack([v0, v0 + geo.e1[prim], v0 + geo.e2[prim]], 1)
+
+    def unit_normal(prim):
+        n = torch.cross(geo.e1[prim], geo.e2[prim], dim=-1)
+        return n / n.norm(dim=-1, keepdim=True)
+
+    meets, border = torch.ones_like(t, dtype=torch.bool), []
+    for prim in (p_b, p_f):
+        t_p, u, v = hit(prim)
+        b = torch.minimum(torch.minimum(u, v), 1 - u - v)
+        meets &= ((t_p - t).abs() <= 1e-5 * t.abs()) & (b >= -BVH_BORDER)
+        border.append(b <= BVH_BORDER)
+    shared = ((corners(p_b)[:, :, None] - corners(p_f)[:, None])
+              .abs().amax(-1) <= BVH_CORNER).sum((1, 2))
+    on_shared = border[0] & border[1] & (shared >= 1)
+    n_b, n_f = unit_normal(p_b), unit_normal(p_f)
+    coplanar = (((n_b * n_f).sum(-1).abs() >= 1 - 1e-6)
+                & ((n_f * (geo.v0[p_b] - geo.v0[p_f])).sum(-1).abs()
+                   <= BVH_CORNER))
+    edge = meets & on_shared & (shared >= 2)
+    corner = meets & on_shared & (shared == 1)
+    plane = meets & ~on_shared & coplanar
+    return dict(edge=int(edge.sum()), corner=int(corner.sum()),
+                coplanar=int(plane.sum()),
+                other=int((~(edge | corner | plane)).sum()))
+
+
+def _bvh_scene(res, spp):
+    """The cbox without its boxes and with a subdivided sphere of
+    20 4^BVH_SUBDIV triangles in their place (BVH on: over 512)."""
+    from dataclasses import replace
+
+    from mitsubaer_tpu_torch.core import transform as tf
+    from mitsubaer_tpu_torch.scene import presets
+    from mitsubaer_tpu_torch.scene import types as T
+    from mitsubaer_tpu_torch.scene.build import SceneBuilder
+
+    b = SceneBuilder()
+    white = b.add_bsdf(T.BSDF_DIFFUSE, reflectance=presets.CBOX_WHITE)
+    red = b.add_bsdf(T.BSDF_DIFFUSE, reflectance=presets.CBOX_RED)
+    green = b.add_bsdf(T.BSDF_DIFFUSE, reflectance=presets.CBOX_GREEN)
+    light = b.add_bsdf(T.BSDF_DIFFUSE, reflectance=(0.78, 0.78, 0.78))
+    for pts, mat in [(presets._FLOOR, white), (presets._CEIL, white),
+                     (presets._CEIL_PATCH, white), (presets._BACK, white),
+                     (presets._RED, red), (presets._GREEN, green)]:
+        b.add_mesh(*presets._quad(pts), bsdf=mat)
+    b.add_mesh(*presets._quad(presets._LIGHT), bsdf=light,
+               emitter_radiance=presets.CBOX_LIGHT_RAD)
+    b.add_mesh(*_icosphere(BVH_SUBDIV, (278.0, 160.0, 280.0), 150.0),
+               bsdf=white)
+    b.set_perspective_sensor(
+        to_world=tf.look_at([278, 273, -800], [278, 273, -799], [0, 1, 0]),
+        fov_deg=39.3077, fov_axis="x", near=10.0)
+    b.config = replace(b.config, width=res, height=res, spp=spp,
+                       max_depth=40)
+    return b.build(), b.config
+
+
+def _surface_phases(dev, card, results):
+    """Phases 26-31: the surface path (cornell_box, path, direct, the
+    BSDFs, the wavefront road's cbox, the BVH, the area-lit refractive
+    sphere)."""
+    import dataclasses
+
+    import torch
+
+    from mitsubaer_tpu_torch.integrators import render as render_m
+    from mitsubaer_tpu_torch.models import ermarch
+    from mitsubaer_tpu_torch.scene import bvh as bvh_m
+    from mitsubaer_tpu_torch.scene import intersect as isect
+    from mitsubaer_tpu_torch.scene import presets
+    from mitsubaer_tpu_torch.scene import types as T
+
+    surf = {"phase_s": {}}
+    clock = [time.perf_counter()]
+
+    def lap(phase):
+        now = time.perf_counter()
+        surf["phase_s"][phase] = now - clock[0]
+        print(f"phase {phase}: {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
+
+    # ---- phase 26: BASELINE config 1, then "direct" ----
+    scene, cfg = presets.cornell_box(res=256, spp=64, max_depth=40)
+    scene = scene.to(dev)
+    img, stats, wall, peak = _surface_render(scene, cfg, dev, card,
+                                             "the cbox path render")
+    path_mean = img.mean().item()
+    print(f"cbox path (BASELINE config 1): 256x256 spp 64 depth 40 gaussian "
+          f"filter in {len(stats['passes'])} passes, bounces a pass "
+          f"{[p[0] for p in stats['passes']]}, wall {wall:.3f} s, "
+          f"{256 * 256 * 64 / wall / 1e6:.4f} Msamples/s, peak device "
+          f"memory {peak / 2**30:.3f} GiB, mean {path_mean:.6f} [{card}]",
+          flush=True)
+    prof = _loop_pass_profile(scene, cfg, dev, card, "cbox path")
+    d_cfg = dataclasses.replace(cfg, integrator="direct")
+    d_img, d_stats, d_wall, _ = _surface_render(scene, d_cfg, dev, card,
+                                                "the cbox direct render")
+    direct_mean = d_img.mean().item()
+    print(f"cbox direct: wall {d_wall:.3f} s, mean {direct_mean:.6f} "
+          f"(path {path_mean:.6f}) [{card}]", flush=True)
+    if not direct_mean <= path_mean:
+        raise AssertionError("direct lighting exceeds the path tracer")
+    surf["config1"] = dict(wall_s=wall, passes=stats["passes"],
+                           peak_bytes=peak, mean=path_mean, profile=prof,
+                           direct_wall_s=d_wall, direct_mean=direct_mean)
+
+    lap(26)
+
+    # ---- phase 27: card against CPU, renders and BSDFs ----
+    for integ in ("path", "direct"):
+        s_scene, s_cfg = presets.cornell_box(res=16, spp=8, max_depth=40,
+                                             integrator=integ)
+        img_g = render_m.render(s_scene, s_cfg, seed=3, device=dev).cpu()
+        img_c = render_m.render(s_scene, s_cfg, seed=3, device="cpu")
+        surf[f"card_vs_cpu_{integ}"] = _card_vs_cpu(
+            img_g, img_c, f"cbox {integ} render at 16x16 spp 8")
+    surf["bsdf_card_vs_cpu"] = _bsdf_card_vs_cpu(dev, card)
+
+    lap(27)
+
+    # ---- phase 28: BASELINE config 2 on the loop engine ----
+    scene2, cfg2 = presets.cornell_box(res=256, spp=64, max_depth=40,
+                                       integrator="volpath",
+                                       medium=CBOX_MEDIUM)
+    scene2 = scene2.to(dev)
+    img2, stats2, wall2, peak2 = _surface_render(
+        scene2, cfg2, dev, card, "the cbox medium render")
+    print(f"cbox with medium (BASELINE config 2, sigma_s 1e-3, sigma_a "
+          f"1e-4, g 0.7): 256x256 spp 64 depth 40 gaussian filter, loop "
+          f"engine, [bounces, Woodcock] a pass {stats2['passes']}, wall "
+          f"{wall2:.3f} s, {256 * 256 * 64 / wall2 / 1e6:.4f} Msamples/s, "
+          f"peak device memory {peak2 / 2**30:.3f} GiB, mean "
+          f"{img2.mean().item():.6f} [{card}]", flush=True)
+    prof2 = _loop_pass_profile(scene2, cfg2, dev, card, "cbox medium")
+    s_scene, s_cfg = presets.cornell_box(res=16, spp=8, max_depth=40,
+                                         integrator="volpath",
+                                         medium=CBOX_MEDIUM)
+    img_g = render_m.render(s_scene, s_cfg, seed=3, device=dev).cpu()
+    img_c = render_m.render(s_scene, s_cfg, seed=3, device="cpu")
+    surf["config2"] = dict(
+        wall_s=wall2, passes=stats2["passes"], peak_bytes=peak2,
+        mean=img2.mean().item(), profile=prof2,
+        card_vs_cpu=_card_vs_cpu(img_g, img_c,
+                                 "cbox medium render at 16x16 spp 8"))
+
+    lap(28)
+
+    # ---- phase 29: the box-filter cbox on the wavefront road, against
+    # the loop road at the same seed ----
+    for name, sc, base in (("path", scene, cfg), ("medium", scene2, cfg2)):
+        w_cfg = dataclasses.replace(base, filter="box")
+        w_img, w_stats, w_wall, w_peak = _surface_render(
+            sc, w_cfg, dev, card, f"the wavefront cbox {name} render",
+            seed=7)
+        supers = sum(p[2] for p in w_stats["passes"])
+        l_img = _surface_render(sc, dataclasses.replace(w_cfg, engine="loop"),
+                                dev, card, f"the loop cbox {name} render",
+                                seed=7)[0]
+        lw, ll = w_img.mean(-1).flatten(), l_img.mean(-1).flatten()
+        both = (lw > 0) & (ll > 0)
+        ratio = (lw[both] / ll[both]).median().item()
+        print(f"cbox {name} on the wavefront road (box filter): 256x256 spp "
+              f"64, [segments, taps, super-iterations, unfinished] a pass "
+              f"{w_stats['passes']}, wall {w_wall:.3f} s, peak device "
+              f"memory {w_peak / 2**30:.3f} GiB, mean "
+              f"{w_img.mean().item():.6f}; against the loop road at seed 7: "
+              f"pixel-by-pixel median ratio {ratio:.6f}, mean ratio "
+              f"{(lw.mean() / ll.mean()).item():.6f} [{card}]", flush=True)
+        if w_stats["passes"][-1][3] != 0:
+            raise AssertionError(f"the wavefront cbox {name} left samples "
+                                 "unfinished")
+        if not 0.95 <= ratio <= 1.05:
+            raise AssertionError(f"the wavefront and loop roads disagree on "
+                                 f"the cbox ({name})")
+        wprof = _profile_wavefront(sc, w_cfg, card, f"wavefront cbox {name}")
+        surf[f"wavefront_{name}"] = dict(
+            wall_s=w_wall, passes=w_stats["passes"], super_iterations=supers,
+            peak_bytes=w_peak, mean=w_img.mean().item(), ratio_loop=ratio,
+            profile=wprof)
+
+    lap(29)
+
+    # ---- phase 30: the BVH ----
+    b_scene, b_cfg = _bvh_scene(256, 4)
+    b_scene = b_scene.to(dev)
+    geo = b_scene.geo
+    n_tri = geo.v0.shape[0]
+    from mitsubaer_tpu_torch.integrators import common
+    rays = common.camera_samples(b_scene, b_cfg, 1, 0, 0)[0]
+    n = rays.o.shape[0]
+    t_min = torch.full((n,), 1e-2, device=dev)
+    t_max = torch.full((n,), isect.INF, device=dev)
+    bstats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t_b, packed, _, _ = bvh_m.intersect_bvh(geo.bvh, rays.o, rays.d, t_min,
+                                            t_max, stats=bstats)
+    torch.cuda.synchronize()
+    bvh_s = time.perf_counter() - t0
+    prim_b = geo.bvh.tri_id[packed].long()
+    flat = dataclasses.replace(geo, bvh=T.empty_bvh().to(dev))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t_f, prim_f, _, _, ok_f = isect._triangles(flat, rays.o, rays.d, t_min,
+                                               t_max)
+    torch.cuda.synchronize()
+    brute_s = time.perf_counter() - t0
+    hit_b = t_b < isect.INF
+    if not torch.equal(hit_b, ok_f):
+        raise AssertionError("the BVH and brute force disagree on which rays "
+                             "hit")
+    other = (prim_b != prim_f) & hit_b
+    ties = _bvh_ties(geo, other & (t_b == t_f), rays.o, rays.d, t_f, prim_b,
+                     prim_f)
+    rel = ((t_b - t_f).abs() / t_f.abs().clamp_min(1e-30))[hit_b]
+    off = int((other & (t_b != t_f)).sum()) + ties["other"]
+    if off or rel.max().item() > 1e-5:
+        raise AssertionError(f"the BVH and brute force disagree: {off} "
+                             f"triangle ids not tied, t rel "
+                             f"{rel.max().item():.3e}")
+    print(f"BVH: {n_tri} triangles ({geo.bvh.nodes.shape[0]} nodes), {n} "
+          f"camera rays: traversal {bvh_s * 1e3:.2f} ms ({bstats['trips']} "
+          f"trips, {bstats['lane_trips'] / n:.1f} node visits a ray), brute "
+          f"force in chunks of {isect._CHUNK} {brute_s * 1e3:.2f} ms; "
+          f"{int(hit_b.sum())} hits, ids equal but for ties at equal t "
+          f"{ties}, t max rel diff {rel.max().item():.2e} [{card}]",
+          flush=True)
+    s_b_cfg = dataclasses.replace(b_cfg, width=64, height=64, spp=4,
+                                  max_depth=BVH_DEPTH)
+    b_img, b_stats, b_wall, _ = _surface_render(b_scene, s_b_cfg, dev, card,
+                                                "the BVH path render")
+    print(f"path render through the BVH: 64x64 spp 4 depth {BVH_DEPTH}, "
+          f"bounces "
+          f"{[p[0] for p in b_stats['passes']]}, wall {b_wall:.3f} s, mean "
+          f"{b_img.mean().item():.6f} [{card}]", flush=True)
+    surf["bvh"] = dict(triangles=n_tri, nodes=geo.bvh.nodes.shape[0],
+                       rays=n, bvh_ms=bvh_s * 1e3, brute_ms=brute_s * 1e3,
+                       trips=bstats["trips"], ties=ties,
+                       visits_a_ray=bstats["lane_trips"] / n,
+                       render_wall_s=b_wall, render_mean=b_img.mean().item())
+    del b_scene, flat, t_f, prim_f, ok_f
+
+    lap(30)
+
+    # ---- phase 31: the area-lit refractive sphere (kernels D and E) ----
+    a_scene, a_cfg = _er_variant(presets, 96, 2, 256, emitter="area_behind")
+    d_row = results.setdefault("er_trace", {})
+    e_row = results.setdefault("er_sens", {})
+    trace, sens_march = ermarch.trace, ermarch.sens_march
+    d_calls, e_calls = {}, {}
+    ermarch.trace = _capture_calls(trace, d_calls, (0,))
+    ermarch.sens_march = _capture_calls(sens_march, e_calls, (0,))
+    try:
+        a_img, a_wall, a_launches = _er_render(a_scene, a_cfg, dev)
+    finally:
+        ermarch.trace, ermarch.sens_march = trace, sens_march
+    print(f"area-lit refractive sphere (96x96 spp 2 depth 6, linear RIF, "
+          f"8 BVP restarts at 4x h): wall {a_wall:.3f} s, "
+          f"{96 * 96 * 2 / a_wall / 1e6:.6f} Msamples/s, mean "
+          f"{a_img.mean().item():.6f}, launches of D and E {a_launches} "
+          f"[{card}]", flush=True)
+    if min(a_launches) < 1:
+        raise AssertionError(f"the area-lit sphere skipped a kernel: "
+                             f"{a_launches}")
+    d_row["area_light"] = dict(
+        wall_s=a_wall, launches=a_launches[0], mean=a_img.mean().item(),
+        calls=_check_d_calls(d_calls, card, "the area-lit sphere"))
+    e_row["area_light"] = dict(
+        launches=a_launches[1],
+        calls=_check_e_calls(e_calls, card, "the area-lit sphere"))
+    del d_calls, e_calls
+    s_scene, s_cfg = _er_variant(presets, 16, 4, 128, emitter="area_behind")
+    s_cfg = dataclasses.replace(s_cfg, bvp_restarts=0)
+    img_g = _er_render(s_scene, s_cfg, dev, seed=3)[0].cpu()
+    img_c = render_m.render(s_scene, s_cfg, seed=3, device="cpu")
+    d_row["area_light"]["card_vs_cpu"] = _card_vs_cpu(
+        img_g, img_c, "area-lit sphere, 16x16 spp 4, single solve")
+    lap(31)
+    print(json.dumps({"surface": surf}))
 
 
 if __name__ == "__main__":

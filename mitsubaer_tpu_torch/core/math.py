@@ -5,6 +5,8 @@ order of rounding is the same on every device.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 INV_PI = 0.3183098861837907
@@ -72,6 +74,78 @@ class Frame:
     def to_world(self, v: torch.Tensor) -> torch.Tensor:
         return (v[..., 0:1] * self.s + v[..., 1:2] * self.t
                 + v[..., 2:3] * self.n)
+
+
+def cos_theta(v):
+    return v[..., 2]
+
+
+def abs_cos_theta(v):
+    return torch.abs(v[..., 2])
+
+
+def sin_theta(v):
+    return torch.sqrt(torch.clamp_min(1.0 - v[..., 2] * v[..., 2], 0.0))
+
+
+def tan_theta(v):
+    z = v[..., 2]
+    return sin_theta(v) / torch.where(z == 0, 1e-20, z)
+
+
+def reflect_local(wi):
+    """Mirror reflection in the local frame: (-x, -y, z)."""
+    return torch.stack([-wi[..., 0], -wi[..., 1], wi[..., 2]], dim=-1)
+
+
+def reflect(wi, n):
+    """wi (pointing away from the surface) reflected about n."""
+    return 2.0 * dot(wi, n, True) * n - wi
+
+
+def refract(wi, n, eta):
+    """wi (away from the surface) refracted through n with relative IOR eta
+    (int/ext when entering). Returns (wt, total internal reflection);
+    cos(theta_t) has the opposite sign of cos(theta_i) (util.cpp refract)."""
+    cos_i = dot(wi, n, True)
+    eta_rel = torch.where(cos_i > 0, eta, 1.0 / eta)
+    cos_t2 = 1.0 - (1.0 - cos_i * cos_i) / (eta_rel * eta_rel)
+    tir = cos_t2 <= 0.0
+    cos_t = safe_sqrt(cos_t2)
+    cos_t = torch.where(cos_i > 0, -cos_t, cos_t)
+    wt = -wi / eta_rel + (cos_i / eta_rel + cos_t) * n
+    return normalize(wt), tir[..., 0]
+
+
+def fresnel_conductor(cos_theta_i, eta, k):
+    """Unpolarized conductor Fresnel reflectance for (..., 3) eta and k
+    (fresnelConductorApprox)."""
+    ci = torch.abs(cos_theta_i).unsqueeze(-1)
+    ci2 = ci * ci
+    si2 = 1.0 - ci2
+    eta2 = eta * eta
+    k2 = k * k
+    t0 = eta2 - k2 - si2
+    a2b2 = safe_sqrt(t0 * t0 + 4.0 * eta2 * k2)
+    t1 = a2b2 + ci2
+    a = safe_sqrt(0.5 * (a2b2 + t0))
+    t2 = 2.0 * a * ci
+    rs2 = (t1 - t2) / (t1 + t2)
+    t3 = ci2 * a2b2 + si2 * si2
+    t4 = t2 * si2
+    rp2 = rs2 * (t3 - t4) / (t3 + t4)
+    return 0.5 * (rp2 + rs2)
+
+
+def spherical_direction(theta, phi):
+    st, ct = torch.sin(theta), torch.cos(theta)
+    return torch.stack([st * torch.cos(phi), st * torch.sin(phi), ct], dim=-1)
+
+
+def spherical_coordinates(d):
+    theta = torch.acos(torch.clamp(d[..., 2], -1.0, 1.0))
+    phi = torch.atan2(d[..., 1], d[..., 0])
+    return theta, torch.where(phi < 0, phi + 2.0 * math.pi, phi)
 
 
 def fresnel_dielectric(cos_theta_i, eta):

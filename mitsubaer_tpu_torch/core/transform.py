@@ -9,6 +9,42 @@ import numpy as np
 import torch
 
 
+def identity():
+    return np.eye(4, dtype=np.float32)
+
+
+def translate(v):
+    m = np.eye(4, dtype=np.float32)
+    m[:3, 3] = v
+    return m
+
+
+def scale(v):
+    v = np.broadcast_to(np.asarray(v, np.float32), (3,))
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0], m[1, 1], m[2, 2] = v
+    return m
+
+
+def rotate(axis, angle_deg):
+    """Rotation about `axis` by `angle_deg` degrees (transform.cpp:218)."""
+    axis = np.asarray(axis, np.float64)
+    axis = axis / np.linalg.norm(axis)
+    s, c = np.sin(np.deg2rad(angle_deg)), np.cos(np.deg2rad(angle_deg))
+    x, y, z = axis
+    K = np.array([[0, -z, y], [z, 0, -x], [-y, x, 0]])
+    m = np.eye(4, dtype=np.float32)
+    m[:3, :3] = (np.eye(3) + s * K + (1 - c) * (K @ K)).astype(np.float32)
+    return m
+
+
+def compose(*mats):
+    out = np.eye(4, dtype=np.float32)
+    for m in mats:
+        out = out @ np.asarray(m, np.float32)
+    return out
+
+
 def look_at(origin, target, up):
     """Camera-to-world transform (Mitsuba's Transform::lookAt): +z looks
     from origin toward target, left = normalize(cross(up, dir)),
@@ -31,6 +67,11 @@ def look_at(origin, target, up):
 def apply_point(m: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """Apply a (4, 4) matrix to (..., 3) points."""
     return apply_vector(m, p) + m[:3, 3]
+
+
+def apply_normal(m: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """Normals transform by the inverse transpose of m[:3, :3]."""
+    return n @ torch.linalg.inv(m[:3, :3])
 
 
 def apply_vector(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:

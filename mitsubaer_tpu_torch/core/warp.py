@@ -9,7 +9,7 @@ import math
 
 import torch
 
-from .math import INV_PI, safe_sqrt
+from .math import INV_PI, INV_TWOPI, safe_sqrt
 
 _TWO_PI = 2.0 * math.pi
 
@@ -26,6 +26,31 @@ def square_to_uniform_sphere(sample):
 def square_to_uniform_hemisphere(sample):
     z = sample[..., 0]
     return _polar(safe_sqrt(1.0 - z * z), _TWO_PI * sample[..., 1], z)
+
+
+def square_to_uniform_hemisphere_pdf():
+    return INV_TWOPI
+
+
+def square_to_uniform_disk(sample):
+    r = torch.sqrt(sample[..., 0])
+    phi = _TWO_PI * sample[..., 1]
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi)], dim=-1)
+
+
+def square_to_uniform_triangle(sample):
+    """Barycentric (u, v) with u + v <= 1 (warp.cpp:88)."""
+    a = safe_sqrt(1.0 - sample[..., 0])
+    return torch.stack([1.0 - a, a * sample[..., 1]], dim=-1)
+
+
+def square_to_uniform_cone(cos_cutoff, sample):
+    ct = (1.0 - sample[..., 0]) + sample[..., 0] * cos_cutoff
+    return _polar(safe_sqrt(1.0 - ct * ct), _TWO_PI * sample[..., 1], ct)
+
+
+def square_to_uniform_cone_pdf(cos_cutoff):
+    return INV_TWOPI / (1.0 - cos_cutoff)
 
 
 def square_to_uniform_disk_concentric(sample):

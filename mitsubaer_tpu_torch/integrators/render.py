@@ -1,18 +1,19 @@
 """Render entry point (port of mitsubaer_tpu/integrators/render.py::render).
 
 Four roads are ported, chosen as the JAX render() chooses them:
-- loop: the loop engine (`volpath.li`), taken by integrator "volpath"
-  with any film filter but box (the default is gaussian) or with
-  engine="loop", and by "volpath_simple" unless engine="wavefront"; each
-  spp chunk runs camera rays, the host-driven bounce loop and the
-  filtered film splat (`render_pass`), then the collimated-beam splat
-  where the scene has a beam.
+- loop: the loop engines, taken by integrators "volpath" and "path" with
+  any film filter but box (the default is gaussian) or with
+  engine="loop", by "volpath_simple" unless engine="wavefront", and by
+  "direct" (the path tracer at max_depth 2); each spp chunk runs camera
+  rays, the host-driven bounce loop (`volpath.li` or `path.li`) and the
+  filtered film splat (`render_pass`), then, for volpath, the
+  collimated-beam splat where the scene has a beam.
 - boxwalk: the bounded-volume scene class with a box filter
   (`boxwalk.supported`), plus the collimated-beam splat. The JAX package
   takes it only on a TPU backend; here on every device.
-- wavefront: every other steady-state volpath scene with a box filter
-  (point, collimated and constant-environment emitters, null and diffuse
-  surfaces, homogeneous and heterogeneous media), through
+- wavefront: every other steady-state volpath or path scene with a box
+  filter (area, point, spot, directional, collimated and constant
+  emitters, every BSDF kind, homogeneous and heterogeneous media), through
   `wavefront.render_wavefront` and kernel C, plus the beam splat where the
   scene has a collimated emitter.
 - volpath_er: the eikonal (refractive) integrator, forward and steady-state,
@@ -39,18 +40,19 @@ from ..models import phase as phase_m
 from ..models import sensor as sensor_m
 from ..scene.types import EM_COLLIMATED, MED_HETEROGENEOUS, RenderConfig, Scene
 from . import boxwalk, common
+from . import path as path_m
 from . import volpath as volpath_m
 from . import volpath_er as er_m
 from . import wavefront as wf_m
 
 _NOT_PORTED = {
-    "path": 9, "direct": 9, "ao": 9, "field": 9,
+    "ao": 9, "field": 9,
     "ptracer": 12, "vpl": 12, "bdpt": 12, "pssmlt": 12, "pssmlt_volpath": 12,
     "mlt": 12, "erpt": 12, "singlescatter": 12, "singlescatter_mesh": 12,
     "dipole": 12, "photonmapper": 12, "ppm": 12, "sppm": 12, "bre": 12,
     "irrcache": 12,
 }
-_PORTED = ("volpath", "volpath_simple", "volpath_er")
+_PORTED = ("volpath", "volpath_simple", "volpath_er", "path", "direct")
 
 
 def _use_wavefront(cfg: RenderConfig) -> bool:
@@ -92,13 +94,20 @@ def render_pass_wavefront(scene: Scene, accum_L, cfg: RenderConfig,
 
 def render_pass(scene: Scene, accum, cfg: RenderConfig, sppc: int,
                 seed: int, pass_idx: int):
-    """One spp chunk through the loop engine (render.py:106-148): camera
-    samples, `volpath.li` and the splat with cfg.filter. Returns the
-    accumulator and [bounces, Woodcock tracking iterations]."""
+    """One spp chunk through a loop engine (render.py:106-148): camera
+    samples, `volpath.li` or `path.li` ("direct" is path at max_depth 2)
+    and the splat with cfg.filter. Returns the accumulator and [bounces,
+    Woodcock tracking iterations] (volpath) or [bounces] (path)."""
     rays, jitter, smp = common.camera_samples(scene, cfg, sppc, seed,
                                               pass_idx)
-    sink, _, counts = volpath_m.li(scene, cfg, rays.o, rays.d, smp,
-                                   simple=cfg.integrator == "volpath_simple")
+    if cfg.integrator == "direct":
+        cfg = replace(cfg, max_depth=2, integrator="path")
+    if cfg.integrator == "path":
+        sink, _, counts = path_m.li(scene, cfg, rays.o, rays.d, smp)
+    else:
+        sink, _, counts = volpath_m.li(
+            scene, cfg, rays.o, rays.d, smp,
+            simple=cfg.integrator == "volpath_simple")
     H, W = cfg.height, cfg.width
     accum = film_m.splat(accum, sink.reshape(sppc, H, W, 3),
                          jitter.reshape(sppc, H, W, 2), cfg.filter)
@@ -163,22 +172,21 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
     device="cpu" is passed.
 
     Roads: integrator "volpath_er" takes the eikonal road (steady state);
-    "volpath" with a box filter takes boxwalk on a scene of the boxwalk
-    class and the wavefront engine on any other; "volpath" with another
-    filter or engine="loop", and "volpath_simple" unless
-    engine="wavefront", take the loop engine.
+    "volpath" or "path" with a box filter takes boxwalk on a scene of the
+    boxwalk class and the wavefront engine on any other; "volpath" or
+    "path" with another filter or engine="loop", "volpath_simple" unless
+    engine="wavefront", and "direct" take a loop engine.
     The JAX package's other integrators raise NotImplementedError naming
-    their ROADMAP Queue 1 step: the surface integrators (step 9), the
-    transient sinks (step 10) and the other integrators (step 12). A name
-    the JAX package does not know raises ValueError, as its
-    get_integrator does.
+    their ROADMAP Queue 1 step: "ao" and "field" (step 9), the transient
+    sinks (step 10) and the other integrators (step 12). A name the JAX
+    package does not know raises ValueError, as its get_integrator does.
 
     If `stats` is a dict it receives, per pass, "passes" ([segments, taps,
     iters, unfinished] on the boxwalk and wavefront roads, [bounces,
-    Woodcock tracking iterations] on the loop road, [bounces] on the
-    eikonal road) and the seconds of the passes, timed with a device
-    synchronize around each, as "boxwalk_s", "wavefront_s", "loop_s" or
-    "er_s"."""
+    Woodcock tracking iterations] on the volpath loop road, [bounces] on
+    the path loop road and the eikonal road) and the seconds of the
+    passes, timed with a device synchronize around each, as "boxwalk_s",
+    "wavefront_s", "loop_s" or "er_s"."""
     if spp is not None:
         cfg = replace(cfg, spp=spp)
     if cfg.integrator in _NOT_PORTED:

@@ -21,10 +21,12 @@ contribution as a score surrogate, the tracking loops capped at 64 tests,
 and each bounce run under `torch.utils.checkpoint` (the counterpart of
 JAX's checkpointed scan), so the stored graph is one bounce's. The RNG is
 a stateless hash, so a recomputed bounce draws the same numbers and its
-host-synced trip counts come out the same. Transient and CW-ToF sinks
-(step 10), phase kinds other than isotropic and HG, and direct sampling
-of area, spot and directional emitters (step 9) raise `not_ported` with
-their ROADMAP Queue 1 step.
+host-synced trip counts come out the same. Surfaces read every BSDF
+kind (only the lobes of cfg.bsdf_kinds run) and their textures where
+cfg.has_textures; as in the JAX `li`, normal and bump maps are not read
+here. Transient and CW-ToF sinks (step 10), phase kinds other than
+isotropic and HG and the environment-map emitter (step 9) raise
+`not_ported` with their ROADMAP Queue 1 step.
 """
 from __future__ import annotations
 
@@ -41,10 +43,10 @@ from ..models import bsdf as bsdf_m
 from ..models import emitter as emitter_m
 from ..models import medium as medium_m
 from ..models import phase as phase_m
+from ..models import texture as texture_m
 from ..scene import intersect as isect
-from ..scene.types import (BSDF_NULL, EM_COLLIMATED, EM_CONSTANT, EM_POINT,
-                           MED_HETEROGENEOUS, MED_HOMOGENEOUS, RenderConfig,
-                           Scene)
+from ..scene.types import (BSDF_NULL, EM_COLLIMATED, MED_HETEROGENEOUS,
+                           MED_HOMOGENEOUS, RenderConfig, Scene)
 from . import common
 
 
@@ -209,9 +211,6 @@ def beam_transmittance(beam: Beam, tau_table, s, with_density: bool = False):
 # ---------------------------------------------------------------------------
 # The loop engine
 # ---------------------------------------------------------------------------
-_DIRECT = {EM_POINT, EM_CONSTANT, EM_COLLIMATED}   # sample_direct's kinds
-
-
 def check_supported(scene: Scene, cfg: RenderConfig) -> None:
     """Raise for what the loop engine does not port yet."""
     if cfg.n_frames != 1 or cfg.modulation != "none":
@@ -219,18 +218,15 @@ def check_supported(scene: Scene, cfg: RenderConfig) -> None:
     phase_m.check_supported(scene.media.phase)
     if rng.mode_of(cfg.sampler) != rng.INDEPENDENT:
         raise not_ported(f"the {cfg.sampler!r} sampler", 1)
-    kinds = set(scene.emitters.kind.tolist())
-    if kinds - _DIRECT:
-        raise not_ported(f"direct sampling of emitter kinds "
-                         f"{sorted(kinds - _DIRECT)}", 9)
+    emitter_m.check_supported(scene)
 
 
 @dataclass(frozen=True)
 class PassTables:
     """What `li` builds once a pass: the f32 density grid every lookup
     goes through (one cell table for kernel A, as the JAX `li` gathers one
-    DensityBricks), the beam and its tau table (with cfg.has_beam), and the
-    ray epsilon."""
+    DensityBricks), the beam and its tau table (with cfg.has_beam), the
+    ray epsilon and the scene's emitter kinds."""
     bricks: medium_m.DensityGrid
     beam: Beam | None
     beam_tau: torch.Tensor | None
@@ -291,7 +287,8 @@ def body(scene: Scene, cfg: RenderConfig, s: State, tabs: PassTables,
     eps, bricks, beam = tabs.eps, tabs.bricks, tabs.beam
     media = scene.media
     smp = s.sampler
-    hit = isect.intersect(scene.geo, s.o, s.d, eps.expand(n), isect.INF)
+    hit = isect.intersect(scene.geo, s.o, s.d, eps.expand(n), isect.INF,
+                          need_uv=cfg.has_textures)
     # bound medium marching for escaped rays by the scene AABB exit
     _, t_scene = isect.ray_aabb(s.o, s.d, scene.aabb_min, scene.aabb_max)
     t_far = torch.where(hit.valid, hit.t, torch.clamp_min(t_scene, 0.0))
@@ -359,8 +356,14 @@ def body(scene: Scene, cfg: RenderConfig, s: State, tabs: PassTables,
     ds = emitter_m.sample_direct(scene, vtx_p, u2e, u1e)
     frame = Frame.from_normal(hit.ng)
     wi_srf = frame.to_local(-s.d)
-    f_srf = bsdf_m.eval(scene.bsdfs, b_idx, wi_srf, frame.to_local(ds.d))
-    pdf_srf = bsdf_m.pdf(scene.bsdfs, b_idx, wi_srf, frame.to_local(ds.d))
+    wo_srf = frame.to_local(ds.d)
+    act = cfg.bsdf_kinds or None
+    rscale = texture_m.bsdf_refl_scale(scene, b_idx, hit.tex_uv, hit.uv,
+                                       enabled=cfg.has_textures)
+    f_srf = bsdf_m.eval(scene.bsdfs, b_idx, wi_srf, wo_srf,
+                        refl_scale=rscale, active=act)
+    pdf_srf = bsdf_m.pdf(scene.bsdfs, b_idx, wi_srf, wo_srf,
+                         refl_scale=rscale, active=act)
     pdf_med = phase_m.eval(media.phase, s.medium, s.d, ds.d)
     f_vtx = _w3(scattered, pdf_med.unsqueeze(-1), f_srf)
     pdf_vtx = torch.where(scattered, pdf_med, pdf_srf)
@@ -410,7 +413,8 @@ def body(scene: Scene, cfg: RenderConfig, s: State, tabs: PassTables,
         # light reaches the vertex along d_yp (y -> p); the direction from
         # the vertex toward the beam point is -d_yp
         f_srf_b = bsdf_m.eval(scene.bsdfs, b_idx, wi_srf,
-                              frame.to_local(-d_yp))
+                              frame.to_local(-d_yp), refl_scale=rscale,
+                              active=act)
         f_med_b = phase_m.eval(media.phase, s.medium, s.d, -d_yp)
         f_b = _w3(scattered, f_med_b.unsqueeze(-1), f_srf_b)
         sink = common.add_contribution(sink, throughput * f_b * bval,
@@ -420,7 +424,8 @@ def body(scene: Scene, cfg: RenderConfig, s: State, tabs: PassTables,
     u2p, smp = rng.next_2d(smp)
     u1p, smp = rng.next_1d(smp)
     ps = phase_m.sample(media.phase, s.medium, s.d, u2p)
-    bs = bsdf_m.sample(scene.bsdfs, b_idx, wi_srf, u2p, u1p)
+    bs = bsdf_m.sample(scene.bsdfs, b_idx, wi_srf, u2p, u1p,
+                       refl_scale=rscale, active=act)
     new_d = _w3(scattered, ps.wo, frame.to_world(bs.wo))
     scatter_w = _w3(scattered, ps.weight.unsqueeze(-1), bs.weight)
     if differentiable:

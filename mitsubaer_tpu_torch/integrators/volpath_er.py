@@ -187,8 +187,9 @@ def body(scene: Scene, cfg: RenderConfig, s: State, rif: ek.RifField,
     u1e, smp = rng.next_1d(smp)
     ds = emitter_m.sample_direct(scene, hit.p, u2e, u1e)
     wo_nee = frame.to_local(ds.d)
-    f_nee = bsdf_m.eval(scene.bsdfs, b_idx, wi_l, wo_nee)
-    pdf_dir = bsdf_m.pdf(scene.bsdfs, b_idx, wi_l, wo_nee)
+    act = cfg.bsdf_kinds or None
+    f_nee = bsdf_m.eval(scene.bsdfs, b_idx, wi_l, wo_nee, active=act)
+    pdf_dir = bsdf_m.pdf(scene.bsdfs, b_idx, wi_l, wo_nee, active=act)
     vis = (srf & (ds.pdf > 0) & torch.any(f_nee > 0, dim=-1)
            & torch.any(ds.value > 0, dim=-1))
     blocked = isect.occluded(scene.geo, hit.p + ds.d * eps, ds.d,
@@ -200,7 +201,7 @@ def body(scene: Scene, cfg: RenderConfig, s: State, rif: ek.RifField,
         vis & ~blocked)
     u2b, smp = rng.next_2d(smp)
     u1b, smp = rng.next_1d(smp)
-    bs = bsdf_m.sample(scene.bsdfs, b_idx, wi_l, u2b, u1b)
+    bs = bsdf_m.sample(scene.bsdfs, b_idx, wi_l, u2b, u1b, active=act)
     wo_srf = frame.to_world(bs.wo)
 
     # --- refractive boundary crossing (h-dielectric entry) ---

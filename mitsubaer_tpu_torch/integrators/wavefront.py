@@ -23,6 +23,9 @@ tracking call under a `lax.cond` when no lane has tracking work; here the
 call is made anyway (with no work it changes nothing), so that the loop
 needs no second sync.
 
+Surfaces read every BSDF kind (only the lobes of cfg.bsdf_kinds run); as
+in the JAX engine, textures and normal maps are not read on this road.
+
 Every `rng.next_*` draw advances `dim` on every lane, so the draws are made
 unconditionally and in the JAX order: a full pass draws u_nee2 (2), u_nee1,
 u_fam, u_b (beam scenes only), u_dir2 (2), u_dir1, u_rr; after regeneration
@@ -51,15 +54,13 @@ from ..models import medium as medium_m
 from ..models import phase as phase_m
 from ..models import sensor as sensor_m
 from ..scene import intersect as isect
-from ..scene.types import (EM_COLLIMATED, EM_CONSTANT, EM_POINT,
-                           MED_HETEROGENEOUS, MED_HOMOGENEOUS, RenderConfig,
+from ..scene.types import (MED_HETEROGENEOUS, MED_HOMOGENEOUS, RenderConfig,
                            Scene)
 from . import common, megatrack
 from .boxwalk import pass_seed
 from .volpath import (_is_null_surface, _shape_tables, beam_transmittance,
                       build_beam_tau, get_beam, sample_beam_point)
 
-_EMITTERS = {EM_POINT, EM_COLLIMATED, EM_CONSTANT}
 
 
 @dataclass(frozen=True)
@@ -120,10 +121,7 @@ def check_supported(scene: Scene, cfg: RenderConfig) -> None:
         raise not_ported(f"the {cfg.sampler!r} sampler", 1)
     if cfg.n_frames != 1 or cfg.modulation != "none":
         raise not_ported("transient and CW-ToF sinks", 10)
-    kinds = set(scene.emitters.kind.tolist())
-    if kinds - _EMITTERS:
-        raise not_ported(f"emitter kinds {sorted(kinds - _EMITTERS)} on the "
-                         "wavefront road", 9)
+    emitter_m.check_supported(scene)
 
 
 def _w3(cond, a, b):
@@ -189,6 +187,7 @@ def make_engine(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
     tap_seed = pass_seed(seed, pass_idx)
     stride = 104729 % npix
     max_super = sppc * (6 * cfg.max_depth + 16) + 64
+    act = cfg.bsdf_kinds or None
 
     lane = torch.arange(n, dtype=torch.int64, device=dev)
     f0 = torch.zeros((n,), dtype=torch.float32, device=dev)
@@ -293,8 +292,10 @@ def make_engine(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
         if has_direct and not mini:
             ds = emitter_m.sample_direct(scene, vtx, u_nee2, u_nee1)
             wo_srf = frame.to_local(ds.d)
-            f_srf = bsdf_m.eval(scene.bsdfs, b_idx, wi_srf, wo_srf)
-            pdf_srf = bsdf_m.pdf(scene.bsdfs, b_idx, wi_srf, wo_srf)
+            f_srf = bsdf_m.eval(scene.bsdfs, b_idx, wi_srf, wo_srf,
+                                active=act)
+            pdf_srf = bsdf_m.pdf(scene.bsdfs, b_idx, wi_srf, wo_srf,
+                                 active=act)
             f_med = phase_m.eval(media.phase, st.medium, st.d,
                                  ds.d).unsqueeze(-1)
             f_vtx = _w3(scattered, f_med, f_srf)
@@ -331,7 +332,7 @@ def make_engine(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
                     * (rho_y / torch.clamp_min(pdf_sb * dist_b * dist_b,
                                                1e-12)).unsqueeze(-1))
             f_srf_b = bsdf_m.eval(scene.bsdfs, b_idx, wi_srf,
-                                  frame.to_local(-d_yp))
+                                  frame.to_local(-d_yp), active=act)
             f_med_b = phase_m.eval(media.phase, st.medium, st.d,
                                    -d_yp).unsqueeze(-1)
             val_b = tp * _w3(scattered, f_med_b, f_srf_b) * bval * fam_w
@@ -365,7 +366,8 @@ def make_engine(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
             u_dir2, smp = rng.next_2d(smp)
             u_dir1, smp = rng.next_1d(smp)
             ps = phase_m.sample(media.phase, st.medium, st.d, u_dir2)
-            bs = bsdf_m.sample(scene.bsdfs, b_idx, wi_srf, u_dir2, u_dir1)
+            bs = bsdf_m.sample(scene.bsdfs, b_idx, wi_srf, u_dir2, u_dir1,
+                               active=act)
             new_d = _w3(scattered, ps.wo, frame.to_world(bs.wo))
             scatter_w = _w3(scattered, ps.weight.unsqueeze(-1), bs.weight)
             new_pdf = torch.where(scattered, ps.pdf, bs.pdf)

@@ -1,14 +1,18 @@
 """Host-side scene construction (port of mitsubaer_tpu/scene/build.py).
 
-Accumulates shapes, BSDFs, media and emitters in numpy and freezes them into
-tensors at `build()`. The ported slices need triangle meshes, analytic
-spheres, diffuse BSDFs, homogeneous, heterogeneous and refractive media
-(analytic or B-spline RIF and SDF, the spline samples prefiltered here), point and collimated emitters and a perspective sensor; scenes this
-small need no BVH.
+Accumulates shapes, BSDFs, textures, media and emitters in numpy and
+freezes them into tensors at `build()`: triangle meshes (with texture
+coordinates) and analytic spheres, either of them an area emitter; every
+BSDF kind and texture kind; homogeneous, heterogeneous and refractive
+media (analytic or B-spline RIF and SDF, the spline samples prefiltered
+here); point, spot, directional, collimated and constant emitters; a
+perspective sensor. A scene of _BVH_MIN_TRIS triangles or more gets a BVH
+(scene/bvh.py); the area emitters get their triangles' cdf table. The
+environment-map emitter is not ported (ROADMAP Queue 1 step 9).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
 from typing import Optional
 
 import numpy as np
@@ -16,21 +20,54 @@ import torch
 
 from .. import not_ported
 from ..core import spline
+from . import bvh as bvh_m
 from . import types as T
+
+# triangle count from which build() attaches a BVH
+_BVH_MIN_TRIS = 512
 
 
 @dataclass
 class _BSDF:
     kind: int = T.BSDF_DIFFUSE
     reflectance: tuple = (0.5, 0.5, 0.5)
+    specular_r: tuple = (1.0, 1.0, 1.0)
+    specular_t: tuple = (1.0, 1.0, 1.0)
+    eta: float = 1.5046
+    cond_eta: tuple = (0.0, 0.0, 0.0)
+    cond_k: tuple = (1.0, 1.0, 1.0)
+    alpha: float = 0.1
+    exponent: float = 30.0
+    alpha_v: float = 0.1
+    opacity: float = 1.0
+    texture: int = -1
+    twosided: bool = False
+    child0: int = -1
+    child1: int = -1
+    mix_w: float = 0.5
+    normal_tex: int = -1
 
 
 @dataclass
 class _Emitter:
-    kind: int
+    kind: int = T.EM_AREA
     radiance: tuple = (1.0, 1.0, 1.0)
     position: tuple = (0.0, 0.0, 0.0)
     direction: tuple = (0.0, 0.0, 1.0)
+    shape_id: int = -1
+    cutoff_deg: float = 20.0
+    beam_width_deg: float = 15.0
+
+
+@dataclass
+class _Texture:
+    kind: int = T.TEX_CHECKERBOARD
+    color0: tuple = (0.4, 0.4, 0.4)
+    color1: tuple = (0.2, 0.2, 0.2)
+    uv_scale: tuple = (1.0, 1.0)
+    uv_offset: tuple = (0.0, 0.0)
+    line_width: float = 0.01
+    bitmap: Optional[np.ndarray] = None  # (Hb, Wb, 3)
 
 
 @dataclass
@@ -75,45 +112,71 @@ class SceneBuilder:
         self._shapes = []
         self._bsdfs: list[_BSDF] = []
         self._emitters: list[_Emitter] = []
+        self._textures: list[_Texture] = []
+        self._mesh_uvs = []     # per mesh (V, 2) uv, or None
         self._media: list[_Medium] = []
         self._sensor = None
         self.config = T.RenderConfig()
         self.camera_medium = -1
 
     def add_bsdf(self, kind=T.BSDF_DIFFUSE, **kw) -> int:
-        if kind != T.BSDF_DIFFUSE:
-            raise not_ported(f"BSDF kind {kind}", 9)
         self._bsdfs.append(_BSDF(kind=kind, **kw))
         return len(self._bsdfs) - 1
+
+    def add_texture(self, kind=T.TEX_CHECKERBOARD, **kw) -> int:
+        """A texture row; returns its id for a BSDF's texture or
+        normal_tex."""
+        self._textures.append(_Texture(kind=kind, **kw))
+        return len(self._textures) - 1
 
     def add_medium(self, **kw) -> int:
         self._media.append(_Medium(**kw))
         return len(self._media) - 1
 
     def add_emitter(self, kind, **kw) -> int:
+        """A point, spot (cutoff_deg, beam_width_deg), directional,
+        collimated or constant emitter; area emitters come with their
+        shape (`emitter_radiance`)."""
+        if kind == T.EM_ENVMAP:
+            raise not_ported("the environment-map emitter (EM_ENVMAP)", 9)
         self._emitters.append(_Emitter(kind=kind, **kw))
         return len(self._emitters) - 1
 
-    def _add_shape(self, bsdf, interior, exterior) -> int:
-        self._shapes.append(dict(bsdf=bsdf, emitter=-1, interior=interior,
-                                 exterior=exterior))
-        return len(self._shapes) - 1
+    def _add_shape(self, bsdf, interior, exterior, emitter_radiance) -> int:
+        shape_id = len(self._shapes)
+        emitter = -1
+        if emitter_radiance is not None:
+            emitter = len(self._emitters)
+            self._emitters.append(_Emitter(
+                kind=T.EM_AREA, radiance=tuple(np.asarray(emitter_radiance,
+                                                          np.float64)),
+                shape_id=shape_id))
+        self._shapes.append(dict(bsdf=bsdf, emitter=emitter,
+                                 interior=interior, exterior=exterior))
+        return shape_id
 
-    def add_mesh(self, verts, faces, bsdf=-1, interior=-1, exterior=-1,
-                 to_world=None) -> int:
+    def add_mesh(self, verts, faces, bsdf=-1, emitter_radiance=None,
+                 interior=-1, exterior=-1, to_world=None, uv=None) -> int:
+        """A triangle mesh; `uv` (V, 2) its texture coordinates (else each
+        face's barycentric chart), `emitter_radiance` makes it an area
+        emitter."""
         verts = np.asarray(verts, np.float32)
         if to_world is not None:
             m = np.asarray(to_world, np.float32)
             verts = verts @ m[:3, :3].T + m[:3, 3]
-        shape_id = self._add_shape(bsdf, interior, exterior)
+        shape_id = self._add_shape(bsdf, interior, exterior,
+                                   emitter_radiance)
         self._verts.append(verts)
         self._faces.append(np.asarray(faces, np.int32))
         self._face_shape.append(shape_id)
+        self._mesh_uvs.append(None if uv is None
+                              else np.asarray(uv, np.float32))
         return shape_id
 
-    def add_sphere(self, center, radius, bsdf=-1, interior=-1,
-                   exterior=-1) -> int:
-        shape_id = self._add_shape(bsdf, interior, exterior)
+    def add_sphere(self, center, radius, bsdf=-1, emitter_radiance=None,
+                   interior=-1, exterior=-1) -> int:
+        shape_id = self._add_shape(bsdf, interior, exterior,
+                                   emitter_radiance)
         self._spheres.append((np.asarray(center, np.float32), float(radius),
                               shape_id))
         return shape_id
@@ -141,14 +204,27 @@ class SceneBuilder:
             tri_shape = np.concatenate([
                 np.full(len(f), s, np.int32)
                 for f, s in zip(self._faces, self._face_shape)])
+            tri_uvs = []
+            for f, uv in zip(self._faces, self._mesh_uvs):
+                if uv is None:
+                    # each face's barycentric chart
+                    base = np.zeros((len(f), 3, 2), np.float32)
+                    base[:, 1, 0] = 1.0
+                    base[:, 2, 1] = 1.0
+                    tri_uvs.append(base)
+                else:
+                    tri_uvs.append(uv[f])
+            tri_uvs = np.concatenate(tri_uvs)
         else:
             tri = np.zeros((1, 3, 3), np.float32)
             tri_shape = np.full((1,), -1, np.int32)
+            tri_uvs = np.zeros((1, 3, 2), np.float32)
         v0 = tri[:, 0]
         e1 = tri[:, 1] - tri[:, 0]
         e2 = tri[:, 2] - tri[:, 0]
         ngu = np.cross(e1, e2)
-        ng = ngu / np.maximum(np.linalg.norm(ngu, axis=-1), 1e-20)[:, None]
+        areas2 = np.linalg.norm(ngu, axis=-1)
+        ng = ngu / np.maximum(areas2, 1e-20)[:, None]
         if self._spheres:
             sc = np.stack([s[0] for s in self._spheres])
             sr = [s[1] for s in self._spheres]
@@ -158,40 +234,124 @@ class SceneBuilder:
         geo = T.Geometry(
             v0=_t(v0, np.float32), e1=_t(e1, np.float32),
             e2=_t(e2, np.float32), ng=_t(ng, np.float32),
-            shape_id=_t(tri_shape, np.int32), sph_center=_t(sc, np.float32),
-            sph_radius=_t(sr, np.float32), sph_shape_id=_t(ss, np.int32))
+            shape_id=_t(tri_shape, np.int32),
+            uv0=_t(tri_uvs[:, 0], np.float32),
+            uve1=_t(tri_uvs[:, 1] - tri_uvs[:, 0], np.float32),
+            uve2=_t(tri_uvs[:, 2] - tri_uvs[:, 0], np.float32),
+            sph_center=_t(sc, np.float32),
+            sph_radius=_t(sr, np.float32), sph_shape_id=_t(ss, np.int32),
+            bvh=(bvh_m.build_bvh(v0, e1, e2)
+                 if v0.shape[0] >= _BVH_MIN_TRIS else T.empty_bvh()))
         shapes = T.Shapes(**{
             k: _t([s[k] for s in self._shapes] or [-1], np.int32)
             for k in ("bsdf", "emitter", "interior", "exterior")})
-        # the JAX builder's table holds one default diffuse entry when the
-        # scene names no BSDF
-        bs = self._bsdfs or [_BSDF()]
-        bsdfs = T.BSDFs(kind=_t([b.kind for b in bs], np.int32),
-                        reflectance=_t([b.reflectance for b in bs],
-                                       np.float32))
+        # the table holds one default diffuse entry when the scene names
+        # no BSDF, as the JAX builder's does
+        if not self._bsdfs:
+            self._bsdfs.append(_BSDF())
+        bs = self._bsdfs
+        dtypes = {"kind": np.int32, "texture": np.int32, "twosided": bool,
+                  "child0": np.int32, "child1": np.int32,
+                  "normal_tex": np.int32}
+        bsdfs = T.BSDFs(**{
+            f.name: _t([getattr(b, f.name) for b in bs],
+                       dtypes.get(f.name, np.float32))
+            for f in fields(T.BSDFs)})
+        wrappers = (T.BSDF_MIXTURE, T.BSDF_TWOSIDED)
+        for b in bs:
+            if b.kind in wrappers:
+                for c in [b.child0] + ([b.child1] if b.kind == T.BSDF_MIXTURE
+                                       else []):
+                    if not (0 <= c < len(bs)) or bs[c].kind in wrappers:
+                        raise ValueError(
+                            "a mixture's or two-sided BSDF's children must "
+                            "be base BSDFs of the table (one wrapper level)")
+        pts = [tri.reshape(-1, 3)]
+        for c, r, _ in self._spheres:
+            pts += [c[None, :] - r, c[None, :] + r]
+        allp = np.concatenate(pts)
+        self.config = replace(
+            self.config,
+            bsdf_kinds=tuple(sorted({b.kind for b in bs} | (
+                {T.BSDF_NULL} if any(s["bsdf"] < 0 for s in self._shapes)
+                else set()))),
+            has_textures=any(b.texture >= 0 for b in bs),
+            has_normal_tex=any(b.normal_tex >= 0 for b in bs),
+            medium_strategies=any(
+                m.strategy != T.STRAT_BALANCE for m in self._media))
+        return T.Scene(
+            geo=geo, shapes=shapes, bsdfs=bsdfs,
+            emitters=self._build_emitters(tri_shape, areas2),
+            sensor=self._build_sensor(), media=self._build_media(),
+            textures=self._build_textures(),
+            aabb_min=_t(allp.min(axis=0), np.float32),
+            aabb_max=_t(allp.max(axis=0), np.float32),
+            camera_medium=_t(self.camera_medium, np.int32))
+
+    def _build_emitters(self, tri_shape, areas2) -> T.Emitters:
         if not self._emitters:
-            self._emitters.append(_Emitter(kind=T.EM_POINT, radiance=(0, 0, 0)))
+            self._emitters.append(_Emitter(kind=T.EM_POINT,
+                                           radiance=(0, 0, 0)))
         em = self._emitters
-        emitters = T.Emitters(
+        ne = len(em)
+        tri_index, tri_cdf, tri_emitter = [], [], []
+        tri_offset = np.zeros(ne, np.int32)
+        tri_count = np.zeros(ne, np.int32)
+        area = np.zeros(ne, np.float32)
+        for ei, e in enumerate(em):
+            tri_offset[ei] = len(tri_index)
+            if e.kind == T.EM_AREA and e.shape_id >= 0:
+                ids = np.nonzero(tri_shape == e.shape_id)[0]
+                a = 0.5 * areas2[ids]
+                total = a.sum()
+                area[ei] = total
+                cdf = np.cumsum(a) / max(total, 1e-20)
+                tri_index.extend(ids.tolist())
+                tri_cdf.extend(cdf.tolist())
+                tri_emitter.extend([ei] * len(ids))
+                tri_count[ei] = len(ids)
+        if not tri_index:
+            tri_index, tri_cdf, tri_emitter = [0], [1.0], [-1]
+        return T.Emitters(
             kind=_t([e.kind for e in em], np.int32),
             radiance=_t([e.radiance for e in em], np.float32),
             position=_t([e.position for e in em], np.float32),
             direction=_t([np.asarray(e.direction)
                           / max(np.linalg.norm(e.direction), 1e-20)
                           for e in em], np.float32),
-            area=torch.zeros(len(em)))
-        pts = [tri.reshape(-1, 3)]
-        for c, r, _ in self._spheres:
-            pts += [c[None, :] - r, c[None, :] + r]
-        allp = np.concatenate(pts)
-        self.config = replace(self.config, medium_strategies=any(
-            m.strategy != T.STRAT_BALANCE for m in self._media))
-        return T.Scene(
-            geo=geo, shapes=shapes, bsdfs=bsdfs, emitters=emitters,
-            sensor=self._build_sensor(), media=self._build_media(),
-            aabb_min=_t(allp.min(axis=0), np.float32),
-            aabb_max=_t(allp.max(axis=0), np.float32),
-            camera_medium=_t(self.camera_medium, np.int32))
+            shape_id=_t([e.shape_id for e in em], np.int32),
+            area=_t(area, np.float32),
+            cutoff_cos=_t([np.cos(np.deg2rad(e.cutoff_deg)) for e in em],
+                          np.float32),
+            beam_falloff_cos=_t([np.cos(np.deg2rad(e.beam_width_deg))
+                                 for e in em], np.float32),
+            tri_index=_t(tri_index, np.int32),
+            tri_cdf=_t(tri_cdf, np.float32),
+            tri_emitter=_t(tri_emitter, np.int32),
+            tri_offset=_t(tri_offset, np.int32),
+            tri_count=_t(tri_count, np.int32))
+
+    def _build_textures(self) -> T.Textures:
+        if not self._textures:
+            return T.empty_textures()
+        bitmaps = [t.bitmap for t in self._textures if t.bitmap is not None]
+        if len(bitmaps) > 1:
+            # the table holds one shared image
+            raise ValueError(
+                f"scene uses {len(bitmaps)} bitmap textures but the texture "
+                "table holds a single shared image; atlas them into one "
+                "bitmap or use procedural textures")
+        tx = self._textures
+        return T.Textures(
+            kind=_t([t.kind for t in tx], np.int32),
+            color0=_t([t.color0 for t in tx], np.float32),
+            color1=_t([t.color1 for t in tx], np.float32),
+            uv_scale=_t([t.uv_scale for t in tx], np.float32),
+            uv_offset=_t([t.uv_offset for t in tx], np.float32),
+            line_width=_t([t.line_width for t in tx], np.float32),
+            use_bitmap=_t([t.bitmap is not None for t in tx], bool),
+            bitmap=_t(bitmaps[0] if bitmaps else np.ones((1, 1, 3)),
+                      np.float32))
 
     def _build_sensor(self) -> T.Sensor:
         s = self._sensor

@@ -1,17 +1,21 @@
 """Ray-scene intersection (port of mitsubaer_tpu/scene/intersect.py).
 
-Brute force over every triangle and sphere: the ported scenes hold a dozen
-triangles, so there is no acceleration structure. The JAX package's
-per-triangle Moller-Trumbore loop becomes one (N, T) broadcast with the same
-component arithmetic; ties go to the lower triangle index in both.
+Below the scene builder's BVH threshold (512 triangles, scene/build.py)
+every triangle is tested: the JAX package's per-triangle Moller-Trumbore
+loop becomes (N, _CHUNK) broadcasts with the same component arithmetic,
+chunk after chunk; ties go to the lower triangle index in both. A scene
+with a BVH walks it (scene/bvh.py). Spheres are analytic. `need_uv` adds
+the interpolated texture coordinates of the hit.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
 
 from ..core.math import normalize
+from . import bvh as bvh_m
 from .types import Geometry
 
 INF = 3.0e38
@@ -26,12 +30,19 @@ class Hit:
     shape_id: torch.Tensor  # (N,) int, -1 on a miss
     p: torch.Tensor         # (N, 3) hit position (o on a miss)
     ng: torch.Tensor        # (N, 3) unit geometric normal
+    uv: torch.Tensor        # (N, 2) barycentric coordinates
+    tex_uv: torch.Tensor    # (N, 2) texture coordinates (need_uv), else uv
 
 
-def _triangles(geo: Geometry, o, d, t_min, t_max):
-    """Closest triangle hit with t > 0, then kept only inside [t_min, t_max]
-    (as the JAX package does: a closer hit below t_min masks a farther one)."""
-    v0, e1, e2 = (a.unsqueeze(0) for a in (geo.v0, geo.e1, geo.e2))
+# triangles a brute-force broadcast tests at once: an (N, _CHUNK) f32
+# temporary at 2^20 lanes is 256 MiB
+_CHUNK = 64
+
+
+def _chunk(v0, e1, e2, o, d):
+    """Closest hit with t > 0 of (N, 3) rays against (C, 3) triangles:
+    (t, index in the chunk, u, v), t = INF on a miss."""
+    v0, e1, e2 = (a.unsqueeze(0) for a in (v0, e1, e2))
     ox, oy, oz = (o[:, i:i + 1] for i in range(3))
     dx, dy, dz = (d[:, i:i + 1] for i in range(3))
     e1x, e1y, e1z = e1[..., 0], e1[..., 1], e1[..., 2]
@@ -55,9 +66,36 @@ def _triangles(geo: Geometry, o, d, t_min, t_max):
     hit = ok & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0) & (t > 0.0)
     t = torch.where(hit, t, torch.full_like(t, INF))
     prim = torch.argmin(t, dim=-1)              # first of equal minima
-    t = torch.gather(t, 1, prim.unsqueeze(1)).squeeze(1)
+    pick = prim.unsqueeze(1)
+    return (torch.gather(t, 1, pick).squeeze(1), prim,
+            torch.gather(u, 1, pick).squeeze(1),
+            torch.gather(v, 1, pick).squeeze(1))
+
+
+def _triangles(geo: Geometry, o, d, t_min, t_max):
+    """Closest triangle hit: (t, prim, u, v, ok). Brute force takes the
+    closest hit with t > 0 and keeps it only inside [t_min, t_max] (as the
+    JAX package does: a closer hit below t_min masks a farther one); the
+    BVH takes the closest hit inside [t_min, t_max]."""
+    T = geo.v0.shape[0]
+    if geo.bvh.nodes.shape[0] > 0:
+        t, packed, u, v = bvh_m.intersect_bvh(geo.bvh, o, d, t_min, t_max)
+        prim = geo.bvh.tri_id[torch.clamp(
+            packed, 0, geo.bvh.tri_id.shape[0] - 1)].to(torch.int64)
+        ok = (t < INF) & (geo.shape_id[torch.clamp(prim, 0, T - 1)] >= 0)
+        return t, prim, u, v, ok
+    t, prim, u, v = _chunk(geo.v0[:_CHUNK], geo.e1[:_CHUNK],
+                           geo.e2[:_CHUNK], o, d)
+    for s in range(_CHUNK, T, _CHUNK):
+        tc, pc, uc, vc = _chunk(geo.v0[s:s + _CHUNK], geo.e1[s:s + _CHUNK],
+                                geo.e2[s:s + _CHUNK], o, d)
+        closer = tc < t
+        t = torch.where(closer, tc, t)
+        prim = torch.where(closer, pc + s, prim)
+        u = torch.where(closer, uc, u)
+        v = torch.where(closer, vc, v)
     in_range = (t >= t_min) & (t <= t_max) & (t < INF)
-    return t, prim, in_range & (geo.shape_id[prim] >= 0)
+    return t, prim, u, v, in_range & (geo.shape_id[prim] >= 0)
 
 
 def _spheres(geo: Geometry, o, d, t_min, t_max):
@@ -81,14 +119,16 @@ def _spheres(geo: Geometry, o, d, t_min, t_max):
     return best_t, best, best_t < INF
 
 
-def intersect(geo: Geometry, o, d, t_min, t_max) -> Hit:
-    """Closest hit over triangles and spheres of (N, 3) rays."""
+def intersect(geo: Geometry, o, d, t_min, t_max,
+              need_uv: bool = False) -> Hit:
+    """Closest hit over triangles and spheres of (N, 3) rays; with need_uv
+    the hit's interpolated texture coordinates (a sphere's lat-long)."""
     n = o.shape[0]
     t_min = torch.as_tensor(t_min, dtype=torch.float32,
                             device=o.device).expand(n)
     t_max = torch.as_tensor(t_max, dtype=torch.float32,
                             device=o.device).expand(n)
-    tt, tprim, tok = _triangles(geo, o, d, t_min, t_max)
+    tt, tprim, tu, tv, tok = _triangles(geo, o, d, t_min, t_max)
     st, sprim, sok = _spheres(geo, o, d, t_min, t_max)
     inf = torch.full_like(tt, INF)
     use_sph = sok & (st < torch.where(tok, tt, inf))
@@ -100,8 +140,18 @@ def intersect(geo: Geometry, o, d, t_min, t_max) -> Hit:
     ng = torch.where(use_sph.unsqueeze(-1), sph_ng, geo.ng[tprim])
     shape_id = torch.where(use_sph, geo.sph_shape_id[sprim],
                            geo.shape_id[tprim]).to(torch.int64)
+    uv = torch.stack([tu, tv], dim=-1)
+    tex_uv = uv
+    if need_uv:
+        tri_uv = (geo.uv0[tprim] + tu.unsqueeze(-1) * geo.uve1[tprim]
+                  + tv.unsqueeze(-1) * geo.uve2[tprim])
+        sph_u = 0.5 + torch.atan2(sph_ng[:, 1], sph_ng[:, 0]) / (2 * math.pi)
+        sph_v = 0.5 - torch.asin(torch.clamp(sph_ng[:, 2], -1, 1)) / math.pi
+        tex_uv = torch.where(use_sph.unsqueeze(-1),
+                             torch.stack([sph_u, sph_v], dim=-1), tri_uv)
     return Hit(t=t, valid=valid, prim=prim,
-               shape_id=torch.where(valid, shape_id, -1), p=p, ng=ng)
+               shape_id=torch.where(valid, shape_id, -1), p=p, ng=ng,
+               uv=uv, tex_uv=tex_uv)
 
 
 def occluded(geo: Geometry, o, d, t_min, t_max) -> torch.Tensor:

@@ -4,7 +4,8 @@ mitsubaer_tpu/scene/types.py).
 Only the fields that change the results of the ported slices are kept; the
 JAX package's TPU tuning knobs (`er_host_stepped`, `brick_map`, and the
 `wf_*` fields but the two that set the wavefront engine's pass schedule)
-have no counterpart. `scene_from_numpy` and `config_from_dict` take the JAX package's
+have no counterpart, nor do the environment map's tables (an EM_ENVMAP
+row raises on every road, ROADMAP Queue 1 step 9). `scene_from_numpy` and `config_from_dict` take the JAX package's
 `Scene` / `RenderConfig` flattened to nested dicts of numpy arrays (same
 field names), so both packages can render the very same scene.
 
@@ -17,15 +18,49 @@ from dataclasses import dataclass, fields
 import numpy as np
 import torch
 
-# BSDF kinds (diffuse and the null test are on the ported paths)
+# BSDF kinds (models/bsdf.py)
 BSDF_DIFFUSE = 0
+BSDF_DIELECTRIC = 1
+BSDF_CONDUCTOR = 2
 BSDF_NULL = 3
+BSDF_PLASTIC = 4
+BSDF_ROUGHCONDUCTOR = 5
+BSDF_THINDIELECTRIC = 6
+BSDF_ROUGHDIELECTRIC = 7
+BSDF_PHONG = 8
+BSDF_MIRROR = 9
+BSDF_HDIELECTRIC = 10       # eta from the RIF at the hit (eta_override)
+BSDF_ROUGHPLASTIC = 11
+BSDF_WARD = 12
+BSDF_DIFFTRANS = 13
+BSDF_HROUGHDIELECTRIC = 14  # rough dielectric with the RIF's eta
+BSDF_MIXTURE = 15           # w child0 + (1 - w) child1
+BSDF_TWOSIDED = 16          # child0 shaded on both faces
+BSDF_HK = 17                # Hanrahan-Krueger slab: specular_r = sigma_s,
+#   specular_t = sigma_a, alpha = thickness, mix_w = HG g
+BSDF_ROUGHDIFFUSE = 18      # Oren-Nayar
+BSDF_COATING = 19           # smooth dielectric coat over child0
+BSDF_ROUGHCOATING = 20      # GGX-rough coat over child0
 
-# Emitter kinds
+# Texture kinds (models/texture.py)
+TEX_NONE = -1
+TEX_CHECKERBOARD = 0
+TEX_GRIDTEXTURE = 1
+TEX_BITMAP = 2
+TEX_WIREFRAME = 3
+TEX_SCALE = 4          # color0 * the shared bitmap
+TEX_NORMALMAP = 5      # tangent-space normal from RGB
+TEX_BUMPMAP = 6        # height field; strength = color0[0]
+TEX_NOISE = 7          # Perlin fBm between color0 and color1
+
+# Emitter kinds (EM_ENVMAP is not ported: it raises on every road)
 EM_AREA = 0
 EM_POINT = 1
+EM_DIRECTIONAL = 2
 EM_COLLIMATED = 3
 EM_CONSTANT = 4
+EM_SPOT = 5
+EM_ENVMAP = 6
 
 # Medium kinds
 MED_HOMOGENEOUS = 0
@@ -58,6 +93,25 @@ class _Tensors:
 
 
 @dataclass(frozen=True)
+class Bvh(_Tensors):
+    """Flattened BVH (scene/bvh.py); no nodes where the scene has fewer
+    triangles than the builder's threshold (brute-force intersection)."""
+
+    nodes: torch.Tensor    # (N, 8) f32: min3, max3, the skip link and
+    #   leaf's first packed triangle + 1 (0 = interior) as int32 bits
+    counts: torch.Tensor   # (N,) int32 leaf triangle count (0 = interior)
+    tris: torch.Tensor     # (T, 12) f32 packed [v0, e1, e2, pad3]
+    tri_id: torch.Tensor   # (T,) int32 packed index -> triangle id
+
+
+def empty_bvh() -> Bvh:
+    return Bvh(nodes=torch.zeros((0, 8)),
+               counts=torch.zeros((0,), dtype=torch.int32),
+               tris=torch.zeros((0, 12)),
+               tri_id=torch.zeros((0,), dtype=torch.int32))
+
+
+@dataclass(frozen=True)
 class Geometry(_Tensors):
     """All triangles in one buffer plus analytic spheres."""
 
@@ -66,9 +120,13 @@ class Geometry(_Tensors):
     e2: torch.Tensor            # (T, 3) v2 - v0
     ng: torch.Tensor            # (T, 3) unit geometric normal
     shape_id: torch.Tensor      # (T,) int32
+    uv0: torch.Tensor           # (T, 2) texture coordinates at v0
+    uve1: torch.Tensor          # (T, 2) uv1 - uv0
+    uve2: torch.Tensor          # (T, 2) uv2 - uv0
     sph_center: torch.Tensor    # (S, 3)
     sph_radius: torch.Tensor    # (S,)
     sph_shape_id: torch.Tensor  # (S,) int32
+    bvh: Bvh = dataclasses.field(default_factory=empty_bvh)
 
 
 @dataclass(frozen=True)
@@ -81,17 +139,68 @@ class Shapes(_Tensors):
 
 @dataclass(frozen=True)
 class BSDFs(_Tensors):
+    """Tagged-union BSDF parameter table."""
+
     kind: torch.Tensor          # (NB,) int32
-    reflectance: torch.Tensor   # (NB, 3) diffuse albedo
+    reflectance: torch.Tensor   # (NB, 3) diffuse albedo / plastic diffuse
+    specular_r: torch.Tensor    # (NB, 3)
+    specular_t: torch.Tensor    # (NB, 3)
+    eta: torch.Tensor           # (NB,) relative IOR int/ext
+    cond_eta: torch.Tensor      # (NB, 3) conductor eta
+    cond_k: torch.Tensor        # (NB, 3) conductor k
+    alpha: torch.Tensor         # (NB,) GGX roughness (Ward: alpha_u)
+    exponent: torch.Tensor      # (NB,) Phong exponent
+    alpha_v: torch.Tensor       # (NB,) Ward alpha_v
+    opacity: torch.Tensor       # (NB,) mask opacity (1 = opaque)
+    texture: torch.Tensor       # (NB,) int32 texture scaling reflectance
+    twosided: torch.Tensor      # (NB,) bool
+    child0: torch.Tensor        # (NB,) int32 wrapper child A (-1 unused)
+    child1: torch.Tensor        # (NB,) int32 mixture child B
+    mix_w: torch.Tensor         # (NB,) mixture weight of child A
+    normal_tex: torch.Tensor    # (NB,) int32 normal or bump map (-1 none)
+
+
+@dataclass(frozen=True)
+class Textures(_Tensors):
+    """Texture table; one bitmap shared by the scene."""
+
+    kind: torch.Tensor        # (NT,) int32 TEX_*
+    color0: torch.Tensor      # (NT, 3)
+    color1: torch.Tensor      # (NT, 3)
+    uv_scale: torch.Tensor    # (NT, 2)
+    uv_offset: torch.Tensor   # (NT, 2)
+    line_width: torch.Tensor  # (NT,)
+    use_bitmap: torch.Tensor  # (NT,) bool
+    bitmap: torch.Tensor      # (Hb, Wb, 3), (1, 1, 3) when unused
+
+
+def empty_textures() -> Textures:
+    return Textures(
+        kind=torch.full((1,), TEX_NONE, dtype=torch.int32),
+        color0=torch.ones((1, 3)), color1=torch.zeros((1, 3)),
+        uv_scale=torch.ones((1, 2)), uv_offset=torch.zeros((1, 2)),
+        line_width=torch.full((1,), 0.01),
+        use_bitmap=torch.zeros((1,), dtype=torch.bool),
+        bitmap=torch.ones((1, 1, 3)))
 
 
 @dataclass(frozen=True)
 class Emitters(_Tensors):
     kind: torch.Tensor       # (NE,) int32
-    radiance: torch.Tensor   # (NE, 3) point: intensity; collimated: power
+    radiance: torch.Tensor   # (NE, 3) area radiance / point and spot
+    #   intensity / directional irradiance / collimated power
     position: torch.Tensor   # (NE, 3)
     direction: torch.Tensor  # (NE, 3) unit
+    shape_id: torch.Tensor   # (NE,) int32 shape of an area emitter, else -1
     area: torch.Tensor       # (NE,) surface area of area emitters
+    cutoff_cos: torch.Tensor        # (NE,) spot cutoff cosine
+    beam_falloff_cos: torch.Tensor  # (NE,)
+    # the area emitters' triangles, one segment an emitter
+    tri_index: torch.Tensor   # (M,) int32 triangle id
+    tri_cdf: torch.Tensor     # (M,) area cdf within the emitter's segment
+    tri_emitter: torch.Tensor  # (M,) int32
+    tri_offset: torch.Tensor  # (NE,) int32 segment start
+    tri_count: torch.Tensor   # (NE,) int32
 
 
 @dataclass(frozen=True)
@@ -153,6 +262,7 @@ class Scene(_Tensors):
     emitters: Emitters
     sensor: Sensor
     media: Media
+    textures: Textures
     aabb_min: torch.Tensor
     aabb_max: torch.Tensor
     camera_medium: torch.Tensor  # () int32, -1 = vacuum
@@ -200,6 +310,10 @@ class RenderConfig:
     # when kernel C tracks; the port derives it from the scene's media.)
     wf_mini_passes: int = 1
     wf_mega_trips: int = 6
+    bsdf_kinds: tuple = ()      # the BSDF kinds of the scene (the builder
+    #   sets it); only their lobes run (() = all, models/bsdf.py _on)
+    has_textures: bool = False  # some BSDF carries a texture
+    has_normal_tex: bool = False  # some BSDF carries a normal or bump map
 
     @property
     def n_frames(self) -> int:
@@ -210,9 +324,20 @@ class RenderConfig:
         return 1
 
 
+# fields a JAX tree may leave out (None there): the JAX Geometry's bvh
+# below its threshold, a BSDFs table built without normal maps
+_ABSENT = {
+    (Geometry, "bvh"): lambda kw: empty_bvh(),
+    (BSDFs, "normal_tex"): lambda kw: torch.full_like(kw["kind"], -1),
+}
+
+
 def _from_numpy(cls, tree, device):
     kw = {}
     for f in fields(cls):
+        if f.name not in tree:
+            kw[f.name] = _ABSENT[(cls, f.name)](kw).to(device)
+            continue
         v = tree[f.name]
         if isinstance(f.type, type) and issubclass(f.type, _Tensors):
             kw[f.name] = _from_numpy(f.type, v, device)
@@ -223,7 +348,8 @@ def _from_numpy(cls, tree, device):
 
 def scene_from_numpy(tree: dict, device="cpu") -> Scene:
     """A Scene from nested dicts of numpy arrays named as the JAX Scene's
-    fields; fields the port does not keep are ignored."""
+    fields; fields the port does not keep (the environment map's tables,
+    the TPU layouts) are ignored."""
     return _from_numpy(Scene, tree, device)
 
 

@@ -163,11 +163,22 @@ def test_er_road_parts_not_ported_raise(kw, step):
 
 
 def test_er_scene_parts_not_ported_raise():
-    """Other emitters in refractive_sphere raise (step 9); the acoustic
-    RIF, ported since, renders through the plain loops
-    (tests/test_torch_acoustic.py)."""
+    """The environment-map emitter raises on the eikonal road (step 9);
+    the area emitter of refractive_sphere(emitter="area_behind") and the
+    acoustic RIF, ported since, render (tests/test_torch_surface.py,
+    tests/test_torch_acoustic.py)."""
+    scene, cfg = tpresets.refractive_sphere(
+        res=8, spp=1, max_depth=3, rif_kind=1, rif_params=(1.3, 0.15),
+        er_stepsize=0.05, emitter="area_behind", filter="box")
+    cfg = dataclasses.replace(cfg, er_maxsteps=32)
+    img = trender.render(scene, cfg, device="cpu")
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+    kind = scene.emitters.kind.clone()
+    kind[0] = T.EM_ENVMAP
+    envmap = dataclasses.replace(scene, emitters=dataclasses.replace(
+        scene.emitters, kind=kind))
     with pytest.raises(NotImplementedError, match="step 9"):
-        tpresets.refractive_sphere(res=4, emitter="area_behind")
+        trender.render(envmap, cfg, device="cpu")
     scene, cfg = tpresets.refractive_sphere(res=4, spp=1, rif_kind=3,
                                             rif_params=(1.33, 0.03, 6.0, 0.0),
                                             filter="box", max_depth=2)
