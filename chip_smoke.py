@@ -171,8 +171,39 @@ Phases (any failure raises and the script exits non-zero):
      equal to the plain version's, timed at the busiest; then card
      against CPU at 16^2 spp 4, single solve, by phase 22's rule.
      Phases 26-31 print their measures as one {"surface": ...} JSON line.
+ 32. the phase kinds: the heterogeneous bounded volume at 512^2, spp 32,
+     depth 12 with a microflake medium and a 64^3 orientation field on the
+     loop road (kernel A must launch), and with a Rayleigh medium and a
+     box filter on the wavefront road (kernels A and C must launch, no
+     sample left unfinished); vMF, the HG mixture and Kajiya-Kay at 64^2
+     spp 8; each card against CPU by phase 8's rule at 16^2-24^2; every
+     kind's eval and sample at 2^20 seeded lanes, card against CPU
+     within MODEL_PHASE_TOL (scripts/profile_models_torch.py profiles the
+     full-width renders of phases 32-35);
+ 33. every sensor kind on config 1 at 64^2 spp 16 (no kernel may
+     launch); the thin lens at config 1's full width, timed, and card
+     against CPU at 16^2;
+ 34. the sky-lit scene (_sky_scene: make_sky_envmap(res=128) over the
+     cbox's floor and boxes) at 256^2 spp 64 depth 40 on the loop road,
+     timed, with peak memory; the envmap's sampling on the card as
+     tests/test_texture_bsdf.py::TestEnvmap checks it (2^20 samples);
+     the wavefront road against the loop road at 128^2 spp 16, median
+     pixel ratio within 0.95-1.05; card against CPU at 16^2;
+ 35. each sampler mode's stream at 2^20 lanes x 16 dimensions, card equal
+     to CPU bit for bit; config 1 at full width with the ldsampler and
+     the independent sampler in turns (independent, lds, lds,
+     independent); the box-filter cbox with the ldsampler on the
+     wavefront road at 64^2 spp 4; card against CPU at 16^2;
+ 36. "ao" and every "field" on config 1 at 128^2 spp 64,
+     render_multichannel and render_adaptive (4 passes of spp 16 at
+     most); then the light image of the refractive sphere (phase 23's
+     strong lens, 96^2, 2 passes) lit by the area quad behind it (no
+     backdrop), a spot and a directional emitter: D and E must launch,
+     their first and busiest calls held exact (_check_d_calls,
+     _check_e_calls). Phases 32-36 print one {"models": ...} JSON line.
 With `--phases a-b[,c-d]` only those phase groups run (3-8, 9-12, 13-15,
-16-18, 19-21, 22-25, 26-31; 1 and 2 always), for iterating on the card.
+16-18, 19-21, 22-25, 26-31, 32-36; 1 and 2 always), for iterating on the
+card.
 Prints one JSON line of per-kernel results (time, bound, plain version,
 library yardstick, launches on the main paths; for A also its launches on
 the loop road and its checks and times at the loop road's point counts,
@@ -181,8 +212,9 @@ and registers; for A' its bare-launch and clustered times and its checks
 and times at the training step's point counts; for E its launches in an eikonal
 gradient, its checks and times at that gradient's calls, and the walls of
 phases 19 and 20; for D and E their launches, checks and times in the
-light image and in the area-lit sphere, and the walls of phases 22-25),
-then the contract line
+light image and in the area-lit sphere, and the walls of phases 22-25;
+for A and C their launches in phase 32, for D and E in phase 36's light
+images), then the contract line
 {"ok": true, "device": {...}} last.
 """
 from __future__ import annotations
@@ -727,6 +759,7 @@ def main() -> int:
     timed(19, 21, _er_grad_phases)
     timed(22, 25, _er_rest_phases, er_img)
     timed(26, 31, _surface_phases)
+    timed(32, 36, _model_phases)
     print(json.dumps({"phase_group_s": groups}))
 
     print(json.dumps({"kernels": list(results.values())}))
@@ -742,7 +775,7 @@ def _phase_range(argv):
     run, and a phase group runs whole where any of its phases is asked
     for."""
     if not argv:
-        return set(range(1, 32))
+        return set(range(1, 37))
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: chip_smoke.py [--phases a-b[,c-d...]]")
     phases = set()
@@ -3237,6 +3270,524 @@ def _surface_phases(dev, card, results):
         img_g, img_c, "area-lit sphere, 16x16 spp 4, single solve")
     lap(31)
     print(json.dumps({"surface": surf}))
+
+
+# phases 32-36: the rest of the model set and the sampler modes
+MODEL_SKY_SUN = (0.4, 0.3, 0.7)      # toward the sun, z-up
+# the sky's z-up frame turned to the cbox's y-up world (env z -> world y)
+MODEL_Z_TO_Y = ((1, 0, 0), (0, 0, 1), (0, -1, 0))
+MODEL_PHASE_LANES = 1 << 20
+MODEL_PHASE_TOL = 1e-4     # card against CPU, phase functions (ulps of exp,
+#   pow, sin and cos differ between torch's CPU and CUDA)
+MODEL_STREAM_LANES, MODEL_STREAM_DIMS = 1 << 20, 16
+
+
+def _oriented_box(res, spp, kind, **kw):
+    """The heterogeneous bounded volume (density 64^3, depth 12) with its
+    phase replaced by `kind` (microflake and Kajiya-Kay kappa 8 about the
+    table's z axis, vMF kappa 6, the mixture 0.6 g 0.7 + 0.4 g -0.4) and,
+    for microflake, a 64^3 orientation field swirling about the box's y
+    axis."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mitsubaer_tpu_torch.scene import presets
+    from mitsubaer_tpu_torch.scene import types as T
+
+    scene, cfg = presets.volumetric_box(res=res, spp=spp, max_depth=12,
+                                        heterogeneous=True, **kw)
+    media = scene.media
+    full = torch.full_like
+    phase = dataclasses.replace(
+        media.phase, kind=full(media.phase.kind, kind),
+        g2=full(media.phase.g, -0.4), mix=full(media.phase.g, 0.6),
+        kappa=full(media.phase.g, 6.0 if kind == T.PH_VMF else 8.0))
+    orient = kind == T.PH_MICROFLAKE
+    if orient:
+        zs = np.linspace(-1, 1, 64)
+        Z, Y, X = np.meshgrid(zs, zs, zs, indexing="ij")
+        field = np.stack([-Z, 0.3 + 0 * Y, X], -1).astype(np.float32)
+        media = dataclasses.replace(media, orient=T.GridData(
+            torch.from_numpy(field), media.density.aabb_min,
+            media.density.aabb_max))
+    scene = dataclasses.replace(scene, media=dataclasses.replace(
+        media, phase=phase))
+    return scene, dataclasses.replace(cfg, phase_kinds=(kind,),
+                                      phase_orient=orient)
+
+
+def _sky_scene(res, spp, max_depth=40, sky_res=128, **kw):
+    """The sky-lit scene: make_sky_envmap(sky_res) over the cbox's floor
+    (widened) and its two boxes, seen by the cbox's camera; the map's z-up
+    frame turned to the cbox's y-up."""
+    import dataclasses
+
+    import numpy as np
+
+    from mitsubaer_tpu_torch.core import transform as tf
+    from mitsubaer_tpu_torch.models import emitter as emitter_m
+    from mitsubaer_tpu_torch.scene import presets
+    from mitsubaer_tpu_torch.scene import types as T
+    from mitsubaer_tpu_torch.scene.build import SceneBuilder
+
+    b = SceneBuilder()
+    white = b.add_bsdf(T.BSDF_DIFFUSE, reflectance=presets.CBOX_WHITE)
+    floor = [[2500, 0, -1500], [-2000, 0, -1500], [-2000, 0, 3000],
+             [2500, 0, 3000]]
+    b.add_mesh(*presets._quad(floor), bsdf=white)
+    b.add_mesh(*presets._box(presets._SHORT_BOX), bsdf=white)
+    b.add_mesh(*presets._box(presets._TALL_BOX_TOP), bsdf=white)
+    b.add_emitter(T.EM_ENVMAP, scale=0.05,
+                  envmap=emitter_m.make_sky_envmap(MODEL_SKY_SUN, res=sky_res),
+                  to_world=np.array(MODEL_Z_TO_Y, np.float32))
+    b.set_perspective_sensor(
+        to_world=tf.look_at([278, 273, -800], [278, 273, -799], [0, 1, 0]),
+        fov_deg=39.3077, fov_axis="x", near=10.0)
+    b.config = dataclasses.replace(b.config, width=res, height=res, spp=spp,
+                                   max_depth=max_depth, integrator="path",
+                                   **kw)
+    return b.build(), b.config
+
+
+def _model_render(scene, cfg, dev, card, what, seed=0, kernels=()):
+    """render() on the card, every kernel count at 0 just before and read
+    just after: the kernels named in `kernels` must launch, no other may.
+    Returns (image, stats, wall s, peak device bytes, counts)."""
+    import torch
+
+    from mitsubaer_tpu_torch.integrators import render as render_m
+
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    img = render_m.render(scene, cfg, seed=seed, device=dev, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _kernel_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if (tuple(img.shape[:2]) != (cfg.height, cfg.width)
+            or not bool(torch.isfinite(img).all()) or not img.mean() > 0):
+        raise AssertionError(f"{what}: a non-finite, black or misshapen "
+                             "image")
+    missing = [k for k in kernels if counts[k] < 1]
+    extra = [k for k, v in counts.items() if v and k not in kernels]
+    if missing or extra:
+        raise AssertionError(f"{what}: kernels {missing} did not launch, "
+                             f"{extra} launched: {counts}")
+    print(f"{what}: wall {wall:.3f} s, peak device memory "
+          f"{peak / 2**30:.3f} GiB, mean {img.mean().item():.6f}, launches "
+          f"{ {k: counts[k] for k in kernels} } [{card}]", flush=True)
+    return img, stats, wall, peak, counts
+
+
+def _model_card_vs_cpu(scene, cfg, dev, what, seed=3):
+    from mitsubaer_tpu_torch.integrators import render as render_m
+
+    img_g = render_m.render(scene, cfg, seed=seed, device=dev).cpu()
+    img_c = render_m.render(scene, cfg, seed=seed, device="cpu")
+    return _card_vs_cpu(img_g, img_c, what)
+
+
+def _phase_kinds_card_vs_cpu(dev, card):
+    """Every phase kind's eval and sample at 2^20 seeded lanes (kinds
+    mixed, a per-lane axis on half the calls), card against CPU."""
+    import numpy as np
+    import torch
+
+    from mitsubaer_tpu_torch.models import phase as phase_m
+    from mitsubaer_tpu_torch.scene import types as T
+
+    n = MODEL_PHASE_LANES
+    r = np.random.default_rng(32)
+
+    def unit(k):
+        v = r.normal(size=(k, 3))
+        return torch.from_numpy(
+            (v / np.linalg.norm(v, axis=-1, keepdims=True)).astype(np.float32))
+
+    nk = 7
+    table = T.PhaseTable(
+        kind=torch.arange(nk, dtype=torch.int32),
+        g=torch.linspace(-0.6, 0.8, nk), g2=torch.linspace(0.5, -0.7, nk),
+        mix=torch.linspace(0.2, 0.9, nk),
+        kappa=torch.tensor([4.0, 4, 4, 50, 4, 4, 8]), axis=unit(nk))
+    idx = torch.from_numpy(r.integers(0, nk, n))
+    wi, wo, ax = unit(n), unit(n), unit(n)
+    u2 = torch.from_numpy(r.random((n, 2), dtype=np.float32))
+    worst, ms = 0.0, 0.0
+    for override in (None, ax):
+        outs = []
+        for d in (dev, "cpu"):
+            args = [t.to(d) for t in (idx, wi, wo, u2)]
+            ov = None if override is None else override.to(d)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            v = phase_m.eval(table.to(d), args[0], args[1], args[2],
+                             axis_override=ov)
+            ps = phase_m.sample(table.to(d), args[0], args[1], args[3],
+                                axis_override=ov)
+            torch.cuda.synchronize()
+            if d == dev:
+                ms = max(ms, (time.perf_counter() - t0) * 1e3)
+            outs.append([t.cpu() for t in (v, ps.wo, ps.pdf, ps.weight)])
+        for g, c in zip(*outs):
+            worst = max(worst, ((g - c).abs() / c.abs().clamp_min(1.0))
+                        .max().item())
+    print(f"phase functions, 7 kinds at {n} lanes (eval + sample, table axis "
+          f"and per-lane axes): card against CPU largest difference "
+          f"{worst:.3e} (relative above 1), {ms:.2f} ms a call pair on the "
+          f"card [{card}]", flush=True)
+    if not worst <= MODEL_PHASE_TOL:
+        raise AssertionError("the phase functions differ between the card "
+                             "and the CPU")
+    return dict(lanes=n, max_diff=worst, card_ms=ms)
+
+
+def _stream_card_vs_cpu(dev, card):
+    """Each sampler mode's stream at 2^20 lanes x 16 dimensions (2D draws),
+    card against CPU bit for bit, with the card's time for the 16."""
+    import numpy as np
+    import torch
+
+    from mitsubaer_tpu_torch.core import rng
+
+    r = np.random.default_rng(35)
+    lane = torch.from_numpy(r.integers(0, 2 ** 32, MODEL_STREAM_LANES,
+                                       dtype=np.uint64).astype(np.int64))
+    index = torch.from_numpy(r.integers(0, 64, MODEL_STREAM_LANES))
+    out = {}
+    for name in ("independent", "lds", "stratified", "halton",
+                 "hammersley", "sobol"):
+        draws = {}
+        for d in (dev, "cpu"):
+            s = rng.make_sampler(7, lane.to(d), index.to(d),
+                                 mode=rng.MODES[name], n_samples=64)
+            vals = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MODEL_STREAM_DIMS // 2):
+                v, s = rng.next_2d(s)
+                vals.append(v)
+            torch.cuda.synchronize()
+            draws[str(d)] = (torch.cat(vals, -1).cpu(),
+                             (time.perf_counter() - t0) * 1e3)
+        g, c = draws[str(dev)][0], draws["cpu"][0]
+        equal = torch.equal(g, c)
+        out[name] = dict(card_ms=draws[str(dev)][1], cpu_ms=draws["cpu"][1],
+                         bit_exact=equal)
+        print(f"sampler {name}: {MODEL_STREAM_LANES} lanes x "
+              f"{MODEL_STREAM_DIMS} dims, card {draws[str(dev)][1]:.1f} ms, "
+              f"CPU {draws['cpu'][1]:.1f} ms, card == CPU bit for bit "
+              f"{equal} [{card}]", flush=True)
+        if not equal:
+            raise AssertionError(f"the {name} stream differs between the "
+                                 "card and the CPU")
+    return out
+
+
+def _model_phases(dev, card, results):
+    """Phases 32-36: every phase kind and the orientation field, every
+    sensor, the environment map and sky, the sampler modes, ao / field /
+    multichannel / adaptive and the light image's other emitters."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mitsubaer_tpu_torch.integrators import misc as misc_m
+    from mitsubaer_tpu_torch.integrators import volpath_er as er_m
+    from mitsubaer_tpu_torch.models import emitter as emitter_m
+    from mitsubaer_tpu_torch.models import ermarch
+    from mitsubaer_tpu_torch.scene import build as build_m
+    from mitsubaer_tpu_torch.scene import presets
+    from mitsubaer_tpu_torch.scene import types as T
+
+    models = {"phase_s": {}}
+    clock = [time.perf_counter()]
+
+    def lap(phase):
+        now = time.perf_counter()
+        models["phase_s"][phase] = now - clock[0]
+        print(f"phase {phase}: {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
+
+    # ---- phase 32: the phase kinds and the orientation field ----
+    scene, cfg = _oriented_box(512, 32, T.PH_MICROFLAKE)
+    scene = scene.to(dev)
+    img, stats, wall, peak, counts = _model_render(
+        scene, cfg, dev, card,
+        "microflake box with an orientation field, loop road, 512x512 spp "
+        "32 depth 12", kernels=("trilinear_lookup",))
+    models["microflake_loop"] = dict(
+        wall_s=wall, peak_bytes=peak, mean=img.mean().item(),
+        passes=stats["passes"], launches_a=counts["trilinear_lookup"],
+        card_vs_cpu=_model_card_vs_cpu(
+            *_oriented_box(24, 4, T.PH_MICROFLAKE), dev,
+            "microflake box with an orientation field, 24x24 spp 4"))
+    results.setdefault("trilinear_lookup", {})["launches_models"] = counts[
+        "trilinear_lookup"]
+    scene, cfg = _oriented_box(512, 32, T.PH_RAYLEIGH, filter="box")
+    scene = scene.to(dev)
+    img, stats, wall, peak, counts = _model_render(
+        scene, cfg, dev, card,
+        "Rayleigh beam box, box filter (wavefront road), 512x512 spp 32 "
+        "depth 12", kernels=("trilinear_lookup", "megatrack"))
+    if stats["passes"][-1][3] != 0:
+        raise AssertionError("the Rayleigh wavefront render left samples "
+                             "unfinished")
+    models["rayleigh_wavefront"] = dict(
+        wall_s=wall, peak_bytes=peak, mean=img.mean().item(),
+        passes=stats["passes"], launches_c=counts["megatrack"],
+        launches_a=counts["trilinear_lookup"],
+        card_vs_cpu=_model_card_vs_cpu(
+            *_oriented_box(24, 4, T.PH_RAYLEIGH, filter="box"), dev,
+            "Rayleigh beam box on the wavefront road, 24x24 spp 4"))
+    results.setdefault("megatrack", {})["launches_models"] = counts[
+        "megatrack"]
+    small = {}
+    for kind, name in ((T.PH_VMF, "vmf"), (T.PH_MIXTURE, "mixture"),
+                       (T.PH_KKAY, "kajiya_kay")):
+        k_scene, k_cfg = _oriented_box(64, 8, kind)
+        k_img, _, k_wall, _, _ = _model_render(
+            k_scene.to(dev), k_cfg, dev, card,
+            f"{name} box, loop road, 64x64 spp 8",
+            kernels=("trilinear_lookup",))
+        small[name] = dict(wall_s=k_wall, mean=k_img.mean().item(),
+                           card_vs_cpu=_model_card_vs_cpu(
+                               *_oriented_box(16, 4, kind), dev,
+                               f"{name} box, 16x16 spp 4"))
+    models["small_kinds"] = small
+    models["phase_functions"] = _phase_kinds_card_vs_cpu(dev, card)
+    lap(32)
+
+    # ---- phase 33: every sensor kind on config 1 ----
+    sensors = {}
+    base, base_cfg = presets.cornell_box(res=64, spp=16, max_depth=40)
+    for kind in range(9):
+        sensor = dataclasses.replace(
+            base.sensor, kind=torch.tensor(kind, dtype=torch.int32),
+            aperture=torch.tensor(15.0), focus=torch.tensor(1000.0))
+        s_scene = dataclasses.replace(base, sensor=sensor)
+        s_cfg = dataclasses.replace(base_cfg, sensor_kind=kind)
+        s_img, _, s_wall, _, _ = _model_render(
+            s_scene.to(dev), s_cfg, dev, card,
+            f"cbox path, sensor kind {kind}, 64x64 spp 16 depth 40")
+        sensors[kind] = dict(wall_s=s_wall, mean=s_img.mean().item())
+    thin = dataclasses.replace(
+        base.sensor, kind=torch.tensor(T.SENSOR_THINLENS, dtype=torch.int32),
+        aperture=torch.tensor(15.0), focus=torch.tensor(1000.0))
+    # the builder sets sensor_kind from its own (perspective) sensor
+    t_scene, t_cfg = presets.cornell_box(res=256, spp=64, max_depth=40)
+    t_scene = dataclasses.replace(t_scene, sensor=thin).to(dev)
+    t_cfg = dataclasses.replace(t_cfg, sensor_kind=T.SENSOR_THINLENS)
+    t_img, t_stats, t_wall, t_peak, _ = _model_render(
+        t_scene, t_cfg, dev, card,
+        "cbox path with a thin lens (aperture 15, focus 1000; BASELINE "
+        "config 1), 256x256 spp 64 depth 40")
+    s_scene, s_cfg = presets.cornell_box(res=16, spp=8, max_depth=40)
+    s_cfg = dataclasses.replace(s_cfg, sensor_kind=T.SENSOR_THINLENS)
+    sensors["thinlens_full"] = dict(
+        wall_s=t_wall, peak_bytes=t_peak, mean=t_img.mean().item(),
+        msamples_s=256 * 256 * 64 / t_wall / 1e6,
+        card_vs_cpu=_model_card_vs_cpu(
+            dataclasses.replace(s_scene, sensor=thin), s_cfg, dev,
+            "thin-lens cbox, 16x16 spp 8"))
+    models["sensors"] = sensors
+    lap(33)
+
+    # ---- phase 34: the sky-lit scene ----
+    sky, sky_cfg = _sky_scene(256, 64)
+    sky = sky.to(dev)
+    k_img, k_stats, k_wall, k_peak, _ = _model_render(
+        sky, sky_cfg, dev, card,
+        "sky-lit floor and boxes (make_sky_envmap 128), loop road, 256x256 "
+        "spp 64 depth 40")
+    rng_u = np.random.default_rng(34)
+    img16 = (rng_u.random((16, 32, 3)) ** 2).astype(np.float32) * 3.0
+    b = build_m.SceneBuilder()
+    b.add_emitter(T.EM_ENVMAP, envmap=img16)
+    b.set_perspective_sensor(np.eye(4, dtype=np.float32), 45.0)
+    env_scene = b.build().to(dev)
+    u2 = torch.from_numpy(rng_u.random((1 << 20, 2)).astype(np.float32)
+                          ).to(dev)
+    d, pdf, val = emitter_m.sample_env_direction(env_scene, u2)
+    lum = val @ torch.tensor([0.2126, 0.7152, 0.0722], device=dev)
+    est = (lum / pdf.clamp_min(1e-9)).mean().item()
+    th = (np.arange(16) + 0.5) / 16 * np.pi
+    ref = float((img16 @ np.array([0.2126, 0.7152, 0.0722])
+                 * np.sin(th)[:, None] * (np.pi / 16) * (2 * np.pi / 32)).sum())
+    pdf2 = emitter_m.env_pdf_direction(env_scene, d)
+    agree = ((pdf - pdf2).abs() / pdf.abs().clamp_min(1e-5) < 1e-3
+             ).float().mean().item()
+    print(f"envmap sampling on the card (2^20 samples of a 16x32 map): "
+          f"E[lum / pdf] {est:.6f} against the integral {ref:.6f}, pdf of "
+          f"the sampled directions equal to the sampler's on {agree:.6f} of "
+          f"them [{card}]", flush=True)
+    if abs(est / ref - 1) > 0.05 or agree <= 0.995:
+        raise AssertionError("the envmap's sampling is off on the card")
+    w_cfg = dataclasses.replace(sky_cfg, width=128, height=128, spp=16,
+                                filter="box")
+    w_img, w_stats, w_wall, _, _ = _model_render(
+        sky, w_cfg, dev, card,
+        "sky-lit scene, wavefront road, 128x128 spp 16 depth 40", seed=7)
+    l_img = _model_render(sky, dataclasses.replace(w_cfg, engine="loop"),
+                          dev, card, "sky-lit scene, loop road, 128x128 spp "
+                          "16 depth 40", seed=7)[0]
+    lw, ll = w_img.mean(-1).flatten(), l_img.mean(-1).flatten()
+    both = (lw > 0) & (ll > 0)
+    ratio = (lw[both] / ll[both]).median().item()
+    print(f"sky-lit scene, wavefront against loop road at seed 7: median "
+          f"pixel ratio {ratio:.6f} [{card}]", flush=True)
+    if not 0.95 <= ratio <= 1.05 or w_stats["passes"][-1][3] != 0:
+        raise AssertionError("the wavefront and loop roads disagree on the "
+                             "sky-lit scene")
+    s_sky, s_cfg = _sky_scene(16, 8, sky_res=32)
+    models["sky"] = dict(
+        wall_s=k_wall, peak_bytes=k_peak, mean=k_img.mean().item(),
+        passes=k_stats["passes"], msamples_s=256 * 256 * 64 / k_wall / 1e6,
+        sampling=dict(estimate=est, integral=ref, pdf_agree=agree),
+        wavefront_wall_s=w_wall, wavefront_passes=w_stats["passes"],
+        ratio_loop=ratio,
+        card_vs_cpu=_model_card_vs_cpu(s_sky, s_cfg, dev,
+                                       "sky-lit scene, 16x16 spp 8"))
+    del sky
+    lap(34)
+
+    # ---- phase 35: the sampler modes ----
+    streams = _stream_card_vs_cpu(dev, card)
+    c1, c1_cfg = presets.cornell_box(res=256, spp=64, max_depth=40)
+    c1 = c1.to(dev)
+    walls = {}
+    for name in ("independent", "ldsampler", "ldsampler", "independent"):
+        img_s, _, wall_s, _, _ = _model_render(
+            c1, dataclasses.replace(c1_cfg, sampler=name), dev, card,
+            f"cbox path (BASELINE config 1), sampler {name}")
+        walls.setdefault(name, []).append(wall_s)
+    s_scene, s_cfg = presets.cornell_box(res=16, spp=8, max_depth=40,
+                                         sampler="ldsampler")
+    lw_cfg = dataclasses.replace(c1_cfg, width=64, height=64, spp=4,
+                                 filter="box", sampler="ldsampler")
+    lw_img, lw_stats, lw_wall, _, _ = _model_render(
+        c1, lw_cfg, dev, card, "box-filter cbox, ldsampler, wavefront road, "
+        "64x64 spp 4 depth 40")
+    if lw_stats["passes"][-1][3] != 0:
+        raise AssertionError("the ldsampler wavefront cbox left samples "
+                             "unfinished")
+    models["samplers"] = dict(
+        streams=streams, config1_walls=walls,
+        ldsampler_over_independent=(sum(walls["ldsampler"])
+                                    / sum(walls["independent"])),
+        wavefront_wall_s=lw_wall, wavefront_mean=lw_img.mean().item(),
+        card_vs_cpu=_model_card_vs_cpu(s_scene, s_cfg, dev,
+                                       "ldsampler cbox, 16x16 spp 8"))
+    print(f"config 1 with the ldsampler against independent: walls {walls},"
+          f" ratio {models['samplers']['ldsampler_over_independent']:.4f} "
+          f"[{card}]", flush=True)
+    del c1
+    lap(35)
+
+    # ---- phase 36: ao, field, multichannel, adaptive; the light image of
+    # an area, a spot and a directional emitter ----
+    misc = {}
+    m_scene, m_cfg = presets.cornell_box(res=128, spp=64, max_depth=40)
+    m_scene = m_scene.to(dev)
+    for integ, field in [("ao", "shNormal")] + [
+            ("field", f) for f in misc_m.FIELDS]:
+        f_img, _, f_wall, _, _ = _model_render(
+            m_scene, dataclasses.replace(m_cfg, integrator=integ,
+                                         field=field), dev, card,
+            f"cbox {integ} {field if integ == 'field' else ''}, 128x128 "
+            f"spp 64")
+        misc[f"{integ}_{field}"] = dict(wall_s=f_wall,
+                                        mean=f_img.mean().item())
+    s_scene, s_cfg = presets.cornell_box(res=16, spp=8, max_depth=40,
+                                         integrator="ao")
+    misc["ao_card_vs_cpu"] = _model_card_vs_cpu(s_scene, s_cfg, dev,
+                                                "cbox ao, 16x16 spp 8")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mc = misc_m.render_multichannel(m_scene, m_cfg, device=dev)
+    torch.cuda.synchronize()
+    mc_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ad = misc_m.render_adaptive(m_scene, m_cfg, base_spp=16,
+                                max_sample_factor=4, device=dev)
+    torch.cuda.synchronize()
+    ad_wall = time.perf_counter() - t0
+    if (tuple(mc.shape) != (m_cfg.height, m_cfg.width, 9)
+            or not bool(torch.isfinite(mc).all())
+            or not bool(torch.isfinite(ad).all()) or not ad.mean() > 0):
+        raise AssertionError("multichannel or adaptive: a bad image")
+    print(f"multichannel (radiance, shNormal, distance) 128x128 spp 64: wall "
+          f"{mc_wall:.3f} s; adaptive (4 passes of spp 16 at most): wall "
+          f"{ad_wall:.3f} s, mean {ad.mean().item():.6f} [{card}]",
+          flush=True)
+    misc.update(multichannel_wall_s=mc_wall, adaptive_wall_s=ad_wall,
+                adaptive_mean=ad.mean().item())
+    del m_scene
+    d_row = results.setdefault("er_trace", {})
+    e_row = results.setdefault("er_sens", {})
+    lights = {}
+    for kind in ("area", "spot", "directional"):
+        l_scene, l_cfg = _light_scene(presets, 96, 0.5)
+        if kind == "area":
+            l_scene = presets.refractive_sphere(
+                res=96, spp=1, max_depth=4, rif_kind=2,
+                rif_params=(1.33, 0.5, 0.5, 0.0, 0.0, 0.0), er_stepsize=0.02,
+                emitter="area_behind", backdrop=False, filter="box")[0]
+        else:
+            b = build_m.SceneBuilder()
+            if kind == "spot":
+                b.add_emitter(T.EM_SPOT, radiance=(400.0,) * 3,
+                              position=(0, 3, 0), direction=(0, -1, 0),
+                              cutoff_deg=30.0)
+            else:
+                b.add_emitter(T.EM_DIRECTIONAL, radiance=(20.0,) * 3,
+                              direction=(0.2, -1, 0.1))
+            l_scene = dataclasses.replace(l_scene,
+                                          emitters=b.build().emitters)
+        trace, sens_march = ermarch.trace, ermarch.sens_march
+        d_calls, e_calls = {}, {}
+        ermarch.trace = _capture_calls(trace, d_calls, (0,))
+        ermarch.sens_march = _capture_calls(sens_march, e_calls, (0,))
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            film = er_m.render_er_light_image(l_scene, l_cfg, seed=0,
+                                              n_passes=2, device=dev)
+            torch.cuda.synchronize()
+            l_wall = time.perf_counter() - t0
+            launches = (ermarch.trace.launches, ermarch.sens_march.launches)
+        finally:
+            ermarch.trace, ermarch.sens_march = trace, sens_march
+        total = film.sum().item()
+        print(f"light image, {kind} emitter (96x96, 2 passes, radial RIF a "
+              f"0.5): wall {l_wall:.3f} s, film sum {total:.6f}, launches "
+              f"of D and E {launches} [{card}]", flush=True)
+        if not bool(torch.isfinite(film).all()) or not total > 0:
+            raise AssertionError(f"the {kind}-lit light image is black")
+        if min(launches) < 1:
+            raise AssertionError(f"the {kind}-lit light image skipped a "
+                                 f"kernel: {launches}")
+        lights[kind] = dict(wall_s=l_wall, film_sum=total,
+                            launches=launches)
+        d_row[f"light_image_{kind}"] = dict(
+            launches=launches[0], wall_s=l_wall,
+            calls=_check_d_calls(d_calls, card, f"the {kind}-lit light "
+                                 "image"))
+        e_row[f"light_image_{kind}"] = dict(
+            launches=launches[1],
+            calls=_check_e_calls(e_calls, card, f"the {kind}-lit light "
+                                 "image"))
+        del d_calls, e_calls
+    misc["light_image"] = lights
+    models["misc"] = misc
+    lap(36)
+    print(json.dumps({"models": models}))
 
 
 if __name__ == "__main__":

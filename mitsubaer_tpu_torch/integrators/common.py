@@ -63,12 +63,13 @@ def scene_epsilon(scene):
 
 
 def camera_samples(scene, cfg: RenderConfig, sppc: int, seed: int,
-                   pass_idx: int):
+                   pass_idx: int, mode: int = rng.INDEPENDENT):
     """The camera prologue of one spp chunk (render.py:109-124): lane
     s * npix + pixel is sample pass_idx * sppc + s of its pixel; it draws
-    its jitter inside the pixel, then the thin-lens aperture sample (which
-    the ported pinhole camera does not read). Returns (rays, (N, 2) jitter,
-    the sampler after both draws)."""
+    its jitter inside the pixel, then the thin-lens aperture sample, from a
+    sampler in `mode` (the loop road's cfg.sampler; the eikonal road keeps
+    the independent one, as in the JAX package). Returns (rays, (N, 2)
+    jitter, the sampler after both draws)."""
     H, W = cfg.height, cfg.width
     npix = H * W
     dev = scene.aabb_min.device
@@ -76,9 +77,12 @@ def camera_samples(scene, cfg: RenderConfig, sppc: int, seed: int,
     sample_index = torch.repeat_interleave(
         pass_idx * sppc + torch.arange(sppc, dtype=torch.int64, device=dev),
         npix)
-    smp = rng.make_sampler(seed, pixel, sample_index, n_samples=cfg.spp)
+    smp = rng.make_sampler(seed, pixel, sample_index, mode=mode,
+                           n_samples=cfg.spp)
     jitter, smp = rng.next_2d(smp)
-    _, smp = rng.next_2d(smp)
+    u_lens, smp = rng.next_2d(smp)
     px = (pixel % W).to(torch.float32) + jitter[:, 0]
     py = (pixel // W).to(torch.float32) + jitter[:, 1]
-    return sensor_m.sample_rays(scene.sensor, px, py, W, H), jitter, smp
+    rays = sensor_m.sample_rays(scene.sensor, px, py, W, H, u_lens=u_lens,
+                                kind_hint=cfg.sensor_kind)
+    return rays, jitter, smp

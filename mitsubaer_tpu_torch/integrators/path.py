@@ -141,9 +141,6 @@ def check_supported(scene: Scene, cfg: RenderConfig) -> None:
     """Raise for what the path integrator does not port yet."""
     if cfg.n_frames != 1 or cfg.modulation != "none":
         raise not_ported("transient and CW-ToF sinks", 10)
-    if rng.mode_of(cfg.sampler) != rng.INDEPENDENT:
-        raise not_ported(f"the {cfg.sampler!r} sampler", 1)
-    emitter_m.check_supported(scene)
 
 
 def li(scene: Scene, cfg: RenderConfig, o, d, sampler: rng.Sampler,

@@ -4,7 +4,8 @@ Four roads are ported, chosen as the JAX render() chooses them:
 - loop: the loop engines, taken by integrators "volpath" and "path" with
   any film filter but box (the default is gaussian) or with
   engine="loop", by "volpath_simple" unless engine="wavefront", and by
-  "direct" (the path tracer at max_depth 2); each spp chunk runs camera
+  "direct" (the path tracer at max_depth 2), and by "ao" and "field"
+  (misc.py); each spp chunk runs camera
   rays, the host-driven bounce loop (`volpath.li` or `path.li`) and the
   filtered film splat (`render_pass`), then, for volpath, the
   collimated-beam splat where the scene has a beam.
@@ -40,19 +41,20 @@ from ..models import phase as phase_m
 from ..models import sensor as sensor_m
 from ..scene.types import EM_COLLIMATED, MED_HETEROGENEOUS, RenderConfig, Scene
 from . import boxwalk, common
+from . import misc as misc_m
 from . import path as path_m
 from . import volpath as volpath_m
 from . import volpath_er as er_m
 from . import wavefront as wf_m
 
 _NOT_PORTED = {
-    "ao": 9, "field": 9,
     "ptracer": 12, "vpl": 12, "bdpt": 12, "pssmlt": 12, "pssmlt_volpath": 12,
     "mlt": 12, "erpt": 12, "singlescatter": 12, "singlescatter_mesh": 12,
     "dipole": 12, "photonmapper": 12, "ppm": 12, "sppm": 12, "bre": 12,
     "irrcache": 12,
 }
-_PORTED = ("volpath", "volpath_simple", "volpath_er", "path", "direct")
+_PORTED = ("volpath", "volpath_simple", "volpath_er", "path", "direct",
+           "ao", "field")
 
 
 def _use_wavefront(cfg: RenderConfig) -> bool:
@@ -95,14 +97,22 @@ def render_pass_wavefront(scene: Scene, accum_L, cfg: RenderConfig,
 def render_pass(scene: Scene, accum, cfg: RenderConfig, sppc: int,
                 seed: int, pass_idx: int):
     """One spp chunk through a loop engine (render.py:106-148): camera
-    samples, `volpath.li` or `path.li` ("direct" is path at max_depth 2)
-    and the splat with cfg.filter. Returns the accumulator and [bounces,
-    Woodcock tracking iterations] (volpath) or [bounces] (path)."""
+    samples from cfg.sampler's mode, `volpath.li`, `path.li` ("direct" is
+    path at max_depth 2), `misc.ao_li` or `misc.field_li`, and the splat
+    with cfg.filter. Returns the accumulator and [bounces, Woodcock
+    tracking iterations] (volpath), [bounces] (path) or [] (ao, field)."""
     rays, jitter, smp = common.camera_samples(scene, cfg, sppc, seed,
-                                              pass_idx)
+                                              pass_idx,
+                                              rng.mode_of(cfg.sampler))
     if cfg.integrator == "direct":
         cfg = replace(cfg, max_depth=2, integrator="path")
-    if cfg.integrator == "path":
+    if cfg.integrator in ("ao", "field"):
+        sink, _ = (misc_m.ao_li(scene, cfg, rays.o, rays.d, smp)
+                   if cfg.integrator == "ao" else
+                   misc_m.field_li(scene, cfg, rays.o, rays.d, smp,
+                                   field=cfg.field))
+        counts = []
+    elif cfg.integrator == "path":
         sink, _, counts = path_m.li(scene, cfg, rays.o, rays.d, smp)
     else:
         sink, _, counts = volpath_m.li(
@@ -176,9 +186,10 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
     boxwalk class and the wavefront engine on any other; "volpath" or
     "path" with another filter or engine="loop", "volpath_simple" unless
     engine="wavefront", and "direct" take a loop engine.
-    The JAX package's other integrators raise NotImplementedError naming
-    their ROADMAP Queue 1 step: "ao" and "field" (step 9), the transient
-    sinks (step 10) and the other integrators (step 12). A name the JAX
+    "ao" and "field" take the loop road's camera rays (misc.py). The JAX
+    package's other integrators raise NotImplementedError naming their
+    ROADMAP Queue 1 step: the transient sinks (step 10) and the other
+    integrators (step 12). A name the JAX
     package does not know raises ValueError, as its get_integrator does.
 
     If `stats` is a dict it receives, per pass, "passes" ([segments, taps,

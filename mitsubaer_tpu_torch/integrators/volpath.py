@@ -24,9 +24,9 @@ a stateless hash, so a recomputed bounce draws the same numbers and its
 host-synced trip counts come out the same. Surfaces read every BSDF
 kind (only the lobes of cfg.bsdf_kinds run) and their textures where
 cfg.has_textures; as in the JAX `li`, normal and bump maps are not read
-here. Transient and CW-ToF sinks (step 10), phase kinds other than
-isotropic and HG and the environment-map emitter (step 9) raise
-`not_ported` with their ROADMAP Queue 1 step.
+here. Every phase kind runs (only those of cfg.phase_kinds), turned by
+the orientation field's axes where cfg.phase_orient is set. Transient
+and CW-ToF sinks (ROADMAP Queue 1 step 10) raise `not_ported`.
 """
 from __future__ import annotations
 
@@ -215,10 +215,6 @@ def check_supported(scene: Scene, cfg: RenderConfig) -> None:
     """Raise for what the loop engine does not port yet."""
     if cfg.n_frames != 1 or cfg.modulation != "none":
         raise not_ported("transient and CW-ToF sinks", 10)
-    phase_m.check_supported(scene.media.phase)
-    if rng.mode_of(cfg.sampler) != rng.INDEPENDENT:
-        raise not_ported(f"the {cfg.sampler!r} sampler", 1)
-    emitter_m.check_supported(scene)
 
 
 @dataclass(frozen=True)
@@ -364,7 +360,12 @@ def body(scene: Scene, cfg: RenderConfig, s: State, tabs: PassTables,
                         refl_scale=rscale, active=act)
     pdf_srf = bsdf_m.pdf(scene.bsdfs, b_idx, wi_srf, wo_srf,
                          refl_scale=rscale, active=act)
-    pdf_med = phase_m.eval(media.phase, s.medium, s.d, ds.d)
+    pact = cfg.phase_kinds or None
+    # the orientation field's axis at the scatter vertex
+    ax_ov = (medium_m.orientation_axis(media, s.medium, m_p)
+             if cfg.phase_orient else None)
+    pdf_med = phase_m.eval(media.phase, s.medium, s.d, ds.d, active=pact,
+                           axis_override=ax_ov)
     f_vtx = _w3(scattered, pdf_med.unsqueeze(-1), f_srf)
     pdf_vtx = torch.where(scattered, pdf_med, pdf_srf)
     # medium vertices stay in their medium; surface shadow rays start in
@@ -415,7 +416,8 @@ def body(scene: Scene, cfg: RenderConfig, s: State, tabs: PassTables,
         f_srf_b = bsdf_m.eval(scene.bsdfs, b_idx, wi_srf,
                               frame.to_local(-d_yp), refl_scale=rscale,
                               active=act)
-        f_med_b = phase_m.eval(media.phase, s.medium, s.d, -d_yp)
+        f_med_b = phase_m.eval(media.phase, s.medium, s.d, -d_yp,
+                               active=pact)
         f_b = _w3(scattered, f_med_b.unsqueeze(-1), f_srf_b)
         sink = common.add_contribution(sink, throughput * f_b * bval,
                                        nee_active, log_p)
@@ -423,7 +425,8 @@ def body(scene: Scene, cfg: RenderConfig, s: State, tabs: PassTables,
     # =========== direction sampling ===========
     u2p, smp = rng.next_2d(smp)
     u1p, smp = rng.next_1d(smp)
-    ps = phase_m.sample(media.phase, s.medium, s.d, u2p)
+    ps = phase_m.sample(media.phase, s.medium, s.d, u2p, active=pact,
+                        axis_override=ax_ov)
     bs = bsdf_m.sample(scene.bsdfs, b_idx, wi_srf, u2p, u1p,
                        refl_scale=rscale, active=act)
     new_d = _w3(scattered, ps.wo, frame.to_world(bs.wo))

@@ -26,8 +26,8 @@ with that strategy's pdfs. `cfg.er_f64` runs the eikonal core (the march,
 the boundary refinement and the BVP solve) in float64 through the plain
 loops, and casts its results back to the float32 path state once an event,
 where the JAX package does. The light image (`render_er_light_image`,
-`trace_er_particles`) traces light particles from a point or collimated
-emitter through the medium and joins every scatter vertex to the camera by
+`trace_er_particles`) traces light particles from any emitter kind
+through the medium and joins every scatter vertex to the camera by
 the sensor-side BVP. Transient sinks are not ported (ROADMAP Queue 1 step
 10).
 """
@@ -77,8 +77,6 @@ def check_supported(scene: Scene, cfg: RenderConfig) -> None:
     """Raise for what the eikonal road does not port yet."""
     if cfg.n_frames != 1 or cfg.modulation != "none":
         raise not_ported("transient and CW-ToF sinks", 10)
-    phase_m.check_supported(scene.media.phase)
-    emitter_m.check_supported(scene)
 
 
 def _refractive_params(scene: Scene):
@@ -459,7 +457,6 @@ def trace_er_particles(scene: Scene, cfg: RenderConfig, n_particles: int,
     ends. JAX runs all 2 max_depth + 6 trips; a trip after the last
     particle ended splats nothing, so the loop stops there. The splat adds
     with index_add_, in a varying order on CUDA."""
-    phase_m.check_supported(scene.media.phase)
     H, W = cfg.height, cfg.width
     n = n_particles
     dev = scene.aabb_min.device

@@ -116,12 +116,8 @@ class WFState:
 
 def check_supported(scene: Scene, cfg: RenderConfig) -> None:
     """Raise for what the wavefront road does not port yet."""
-    phase_m.check_supported(scene.media.phase)
-    if rng.mode_of(cfg.sampler) != rng.INDEPENDENT:
-        raise not_ported(f"the {cfg.sampler!r} sampler", 1)
     if cfg.n_frames != 1 or cfg.modulation != "none":
         raise not_ported("transient and CW-ToF sinks", 10)
-    emitter_m.check_supported(scene)
 
 
 def _w3(cond, a, b):
@@ -188,6 +184,7 @@ def make_engine(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
     stride = 104729 % npix
     max_super = sppc * (6 * cfg.max_depth + 16) + 64
     act = cfg.bsdf_kinds or None
+    pact = cfg.phase_kinds or None
 
     lane = torch.arange(n, dtype=torch.int64, device=dev)
     f0 = torch.zeros((n,), dtype=torch.float32, device=dev)
@@ -207,7 +204,8 @@ def make_engine(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
         pix=i0, sample_open=b0, L=f3,
         pend=torch.zeros((sppc, n, 3), dtype=torch.float32, device=dev),
         tap_ctr=i0, sampler=rng.make_sampler(seed, lane, i0,
-                                             mode=rng.mode_of(cfg.sampler)),
+                                             mode=rng.mode_of(cfg.sampler),
+                                             n_samples=cfg.spp),
         n_segments=torch.zeros((), dtype=torch.int64, device=dev),
         n_taps=torch.zeros((), dtype=torch.int64, device=dev),
         it=0, pending=torch.ones((), dtype=torch.bool, device=dev))
@@ -296,8 +294,11 @@ def make_engine(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
                                 active=act)
             pdf_srf = bsdf_m.pdf(scene.bsdfs, b_idx, wi_srf, wo_srf,
                                  active=act)
-            f_med = phase_m.eval(media.phase, st.medium, st.d,
-                                 ds.d).unsqueeze(-1)
+            ax_ov = (medium_m.orientation_axis(media, st.medium, m_p)
+                     if cfg.phase_orient else None)
+            f_med = phase_m.eval(media.phase, st.medium, st.d, ds.d,
+                                 active=pact, axis_override=ax_ov
+                                 ).unsqueeze(-1)
             f_vtx = _w3(scattered, f_med, f_srf)
             pdf_vtx = torch.where(scattered, f_med[..., 0], pdf_srf)
             w_nee = torch.where(ds.delta, 1.0,
@@ -333,8 +334,8 @@ def make_engine(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
                                                1e-12)).unsqueeze(-1))
             f_srf_b = bsdf_m.eval(scene.bsdfs, b_idx, wi_srf,
                                   frame.to_local(-d_yp), active=act)
-            f_med_b = phase_m.eval(media.phase, st.medium, st.d,
-                                   -d_yp).unsqueeze(-1)
+            f_med_b = phase_m.eval(media.phase, st.medium, st.d, -d_yp,
+                                   active=pact).unsqueeze(-1)
             val_b = tp * _w3(scattered, f_med_b, f_srf_b) * bval * fam_w
             ok_b = nee_ok & use_beam & torch.any(val_b > 0, dim=-1)
             new_sh_active = new_sh_active | ok_b
@@ -365,7 +366,10 @@ def make_engine(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
         else:
             u_dir2, smp = rng.next_2d(smp)
             u_dir1, smp = rng.next_1d(smp)
-            ps = phase_m.sample(media.phase, st.medium, st.d, u_dir2)
+            ax_ov = (medium_m.orientation_axis(media, st.medium, m_p)
+                     if cfg.phase_orient else None)
+            ps = phase_m.sample(media.phase, st.medium, st.d, u_dir2,
+                                active=pact, axis_override=ax_ov)
             bs = bsdf_m.sample(scene.bsdfs, b_idx, wi_srf, u_dir2, u_dir1,
                                active=act)
             new_d = _w3(scattered, ps.wo, frame.to_world(bs.wo))
@@ -436,7 +440,9 @@ def make_engine(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
         u_lens, smp = rng.next_2d(smp)
         px = (pix % W).to(torch.float32) + u_jit[:, 0]
         py = (pix // W).to(torch.float32) + u_jit[:, 1]
-        rays = sensor_m.sample_rays(scene.sensor, px, py, W, H)
+        rays = sensor_m.sample_rays(scene.sensor, px, py, W, H,
+                                    u_lens=u_lens,
+                                    kind_hint=cfg.sensor_kind)
         o = _w3(want, rays.o, o)
         d = _w3(want, rays.d, d)
         throughput = _w3(want, 1.0, throughput)

@@ -1,6 +1,7 @@
 """Participating media on the ported paths (port of
 mitsubaer_tpu/models/medium.py): medium parameters, the heterogeneous density
-lookup (kernel A) and its gradient (kernel A', `TrilinearLookup`), Woodcock
+lookup (kernel A) and its gradient (kernel A', `TrilinearLookup`), the
+orientation field's per-lane axes, Woodcock
 distance sampling, ratio-tracking transmittance and homogeneous distance
 sampling under the four strategies of homogeneous.cpp, each with the
 differentiable mode of the JAX package (detached sampling decisions,
@@ -284,6 +285,23 @@ class DensityGrid:
 def density_at(media: Media, p):
     """Heterogeneous density at (N, 3) world points, zero outside the grid."""
     return DensityGrid(media).lookup(p)
+
+
+def orientation_axis(media: Media, idx, p):
+    """Per-lane fiber / flake axis at (N, 3) points from the orientation
+    field (heterogeneous.cpp:164): a trilinear lookup of each of its three
+    channels, normalised, and the medium's table axis where the field is
+    (near) zero, outside its box, or absent."""
+    ax = media.phase.axis
+    base = take_rows(ax, torch.clamp(idx, 0, ax.shape[0] - 1).to(torch.int64))
+    o = media.orient
+    if o.data.shape[:3] == (1, 1, 1):
+        return base
+    v = torch.stack([spline.trilinear(o.data[..., c], o.aabb_min,
+                                      o.aabb_max, p) for c in range(3)],
+                    dim=-1)
+    nrm = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    return torch.where(nrm > 1e-6, v / torch.clamp_min(nrm, 1e-12), base)
 
 
 def eval_transmittance_homogeneous(sigma_a, sigma_s, dist):

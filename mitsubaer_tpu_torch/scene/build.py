@@ -2,13 +2,15 @@
 
 Accumulates shapes, BSDFs, textures, media and emitters in numpy and
 freezes them into tensors at `build()`: triangle meshes (with texture
-coordinates) and analytic spheres, either of them an area emitter; every
+coordinates; rectangles, disks, cylinders, height fields and instances
+are meshes) and analytic spheres, either of them an area emitter; every
 BSDF kind and texture kind; homogeneous, heterogeneous and refractive
-media (analytic or B-spline RIF and SDF, the spline samples prefiltered
-here); point, spot, directional, collimated and constant emitters; a
-perspective sensor. A scene of _BVH_MIN_TRIS triangles or more gets a BVH
-(scene/bvh.py); the area emitters get their triangles' cdf table. The
-environment-map emitter is not ported (ROADMAP Queue 1 step 9).
+media (every phase kind, an orientation field, analytic or B-spline RIF
+and SDF, the spline samples prefiltered here); point, spot, directional,
+collimated, constant and environment-map emitters; every sensor kind. A
+scene of _BVH_MIN_TRIS triangles or more gets a BVH (scene/bvh.py); the
+area emitters get their triangles' cdf table, the environment map its
+importance-sampling tables.
 """
 from __future__ import annotations
 
@@ -18,7 +20,6 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import not_ported
 from ..core import spline
 from . import bvh as bvh_m
 from . import types as T
@@ -57,6 +58,9 @@ class _Emitter:
     shape_id: int = -1
     cutoff_deg: float = 20.0
     beam_width_deg: float = 15.0
+    envmap: Optional[np.ndarray] = None   # (He, We, 3) lat-long radiance
+    to_world: Optional[np.ndarray] = None
+    scale: float = 1.0
 
 
 @dataclass
@@ -80,9 +84,16 @@ class _Medium:
     manual_density: float = 1.0
     phase_kind: int = T.PH_ISOTROPIC
     g: float = 0.0
+    g2: float = 0.0
+    phase_mix: float = 1.0
+    kappa: float = 4.0
+    fiber_axis: tuple = (0.0, 0.0, 1.0)
     scale: float = 1.0
     density: Optional[np.ndarray] = None   # (nz, ny, nx)
     density_aabb: Optional[tuple] = None
+    # accepted as the JAX builder does; no JAX function reads the grid
+    albedo_grid: Optional[np.ndarray] = None   # (nz, ny, nx, 3)
+    orientation: Optional[np.ndarray] = None   # (nz, ny, nx, 3) local axes
     # refractive: RIF and SDF (models/eikonal.py RIF_* / SDF_*), analytic
     # from their params or B-spline grids of (nz, ny, nx) samples
     rif_kind: int = 0
@@ -135,10 +146,9 @@ class SceneBuilder:
 
     def add_emitter(self, kind, **kw) -> int:
         """A point, spot (cutoff_deg, beam_width_deg), directional,
-        collimated or constant emitter; area emitters come with their
-        shape (`emitter_radiance`)."""
-        if kind == T.EM_ENVMAP:
-            raise not_ported("the environment-map emitter (EM_ENVMAP)", 9)
+        collimated, constant or environment-map (envmap, to_world, scale)
+        emitter; area emitters come with their shape
+        (`emitter_radiance`)."""
         self._emitters.append(_Emitter(kind=kind, **kw))
         return len(self._emitters) - 1
 
@@ -181,6 +191,67 @@ class SceneBuilder:
                               shape_id))
         return shape_id
 
+    def add_rectangle(self, to_world, **kw) -> int:
+        """Unit rectangle [-1,1]^2 in the XY plane (shapes/rectangle.cpp)."""
+        v = np.array([[-1, -1, 0], [1, -1, 0], [1, 1, 0], [-1, 1, 0]],
+                     np.float32)
+        f = np.array([[0, 1, 2], [0, 2, 3]], np.int32)
+        return self.add_mesh(v, f, to_world=to_world, **kw)
+
+    def add_disk(self, to_world, segments: int = 64, **kw) -> int:
+        """Unit disk in the XY plane (shapes/disk.cpp), a fan of
+        `segments` triangles."""
+        ang = np.linspace(0, 2 * np.pi, segments, endpoint=False)
+        rim = np.stack([np.cos(ang), np.sin(ang), np.zeros_like(ang)], -1)
+        v = np.concatenate([[[0.0, 0.0, 0.0]], rim]).astype(np.float32)
+        ring = np.arange(1, segments + 1, dtype=np.int32)
+        f = np.stack([np.zeros(segments, np.int32), ring,
+                      np.roll(ring, -1)], -1)
+        return self.add_mesh(v, f, to_world=to_world, **kw)
+
+    def add_cylinder(self, p0, p1, radius, segments: int = 64, **kw) -> int:
+        """Open cylinder between p0 and p1 (shapes/cylinder.cpp)."""
+        p0 = np.asarray(p0, np.float32)
+        p1 = np.asarray(p1, np.float32)
+        axis = p1 - p0
+        w = axis / max(np.linalg.norm(axis), 1e-9)
+        a = np.array([1.0, 0, 0]) if abs(w[0]) < 0.9 else np.array([0, 1.0, 0])
+        u = np.cross(w, a)
+        u /= np.linalg.norm(u)
+        vv = np.cross(w, u)
+        ang = np.linspace(0, 2 * np.pi, segments, endpoint=False)
+        ring = (np.cos(ang)[:, None] * u + np.sin(ang)[:, None] * vv) * radius
+        verts = np.concatenate([p0 + ring, p1 + ring]).astype(np.float32)
+        f = []
+        for i in range(segments):
+            j = (i + 1) % segments
+            f += [[i, j, segments + j], [i, segments + j, segments + i]]
+        return self.add_mesh(verts, np.asarray(f, np.int32), **kw)
+
+    def add_heightfield(self, heights, to_world=None, uv_tile=(1.0, 1.0),
+                        **kw) -> int:
+        """A grid over [-1,1]^2 in XY displaced to z = heights (Hh, Wh)
+        (shapes/heightfield.cpp, tessellated), with uv over the grid."""
+        h = np.asarray(heights, np.float32)
+        Hh, Wh = h.shape
+        X, Y = np.meshgrid(np.linspace(-1.0, 1.0, Wh, dtype=np.float32),
+                           np.linspace(-1.0, 1.0, Hh, dtype=np.float32))
+        verts = np.stack([X, Y, h], axis=-1).reshape(-1, 3)
+        i = (np.arange(Hh - 1)[:, None] * Wh
+             + np.arange(Wh - 1)[None, :]).reshape(-1)
+        faces = np.concatenate([np.stack([i, i + 1, i + Wh + 1], axis=-1),
+                                np.stack([i, i + Wh + 1, i + Wh], axis=-1)]
+                               ).astype(np.int32)
+        uv = np.stack([(X + 1) * 0.5 * uv_tile[0], (Y + 1) * 0.5 * uv_tile[1]],
+                      axis=-1).reshape(-1, 2)
+        return self.add_mesh(verts, faces, to_world=to_world, uv=uv, **kw)
+
+    def add_instances(self, verts, faces, to_worlds, **kw) -> list:
+        """One mesh under each of `to_worlds` (shapes/instance.cpp),
+        flattened into the scene's triangles; returns the shape ids."""
+        return [self.add_mesh(verts, faces, to_world=m, **kw)
+                for m in to_worlds]
+
     def add_cube(self, to_world, **kw) -> int:
         """Unit cube [-1,1]^3 (shapes/cube.cpp), outward normals."""
         v = np.array([[-1, -1, -1], [1, -1, -1], [1, 1, -1], [-1, 1, -1],
@@ -192,10 +263,23 @@ class SceneBuilder:
         return self.add_mesh(v, f, to_world=to_world, **kw)
 
     def set_perspective_sensor(self, to_world, fov_deg, fov_axis="x",
-                               near=1e-2):
+                               near=1e-2, far=1e4, width=None, height=None,
+                               kind=T.SENSOR_PERSPECTIVE, aperture=0.0,
+                               focus=1.0):
         self._sensor = dict(to_world=np.asarray(to_world, np.float32),
                             fov_deg=float(fov_deg), fov_axis=fov_axis,
-                            near=near)
+                            near=near, far=far, kind=kind,
+                            aperture=float(aperture), focus=float(focus))
+        if width:
+            self.config = replace(self.config, width=width)
+        if height:
+            self.config = replace(self.config, height=height)
+
+    def set_sensor(self, kind, to_world, **kw):
+        """A sensor of any kind (thinlens, orthographic, spherical, ...;
+        src/sensors/*.cpp) with the perspective sensor's settings."""
+        self.set_perspective_sensor(to_world, kw.pop("fov_deg", 45.0),
+                                    kind=kind, **kw)
 
     def build(self) -> T.Scene:
         if self._verts:
@@ -278,7 +362,12 @@ class SceneBuilder:
             has_textures=any(b.texture >= 0 for b in bs),
             has_normal_tex=any(b.normal_tex >= 0 for b in bs),
             medium_strategies=any(
-                m.strategy != T.STRAT_BALANCE for m in self._media))
+                m.strategy != T.STRAT_BALANCE for m in self._media),
+            phase_kinds=tuple(sorted({m.phase_kind for m in self._media}))
+            or (T.PH_ISOTROPIC,),
+            phase_orient=any(m.orientation is not None for m in self._media),
+            sensor_kind=int((self._sensor or {}).get(
+                "kind", T.SENSOR_PERSPECTIVE)))
         return T.Scene(
             geo=geo, shapes=shapes, bsdfs=bsdfs,
             emitters=self._build_emitters(tri_shape, areas2),
@@ -329,7 +418,34 @@ class SceneBuilder:
             tri_cdf=_t(tri_cdf, np.float32),
             tri_emitter=_t(tri_emitter, np.int32),
             tri_offset=_t(tri_offset, np.int32),
-            tri_count=_t(tri_count, np.int32))
+            tri_count=_t(tri_count, np.int32), **self._envmap_tables())
+
+    def _envmap_tables(self) -> dict:
+        """The lat-long map's importance-sampling cdfs (envmap.cpp): rows
+        by sin-weighted luminance, then a column within the row."""
+        env = next((e for e in self._emitters if e.kind == T.EM_ENVMAP
+                    and e.envmap is not None), None)
+        if env is None:
+            return dict(env_map=torch.ones((1, 1, 3)),
+                        env_cdf_rows=torch.ones((1,)),
+                        env_cdf_cond=torch.ones((1, 1)),
+                        env_to_world=torch.eye(3),
+                        env_scale=torch.tensor(1.0))
+        img = np.asarray(env.envmap, np.float32)
+        He = img.shape[0]
+        lum = img @ np.array([0.2126, 0.7152, 0.0722], np.float32)
+        theta = (np.arange(He) + 0.5) / He * np.pi
+        w = lum * np.sin(theta)[:, None] + 1e-12
+        row_w = w.sum(axis=1)
+        rot = (np.eye(3) if env.to_world is None
+               else np.asarray(env.to_world, np.float32)[:3, :3])
+        return dict(
+            env_map=_t(img, np.float32),
+            env_cdf_rows=_t(np.cumsum(row_w) / row_w.sum(), np.float32),
+            env_cdf_cond=_t(np.cumsum(w, axis=1)
+                            / w.sum(axis=1, keepdims=True), np.float32),
+            env_to_world=_t(rot, np.float32),
+            env_scale=_t(env.scale, np.float32))
 
     def _build_textures(self) -> T.Textures:
         if not self._textures:
@@ -354,7 +470,12 @@ class SceneBuilder:
                       np.float32))
 
     def _build_sensor(self) -> T.Sensor:
-        s = self._sensor
+        s = dict(self._sensor or dict(
+            to_world=np.eye(4, dtype=np.float32), fov_deg=45.0,
+            fov_axis="x", near=1e-2, far=1e4))
+        s.setdefault("kind", T.SENSOR_PERSPECTIVE)
+        s.setdefault("aperture", 0.0)
+        s.setdefault("focus", 1.0)
         aspect = self.config.width / self.config.height
         tan_half = np.tan(np.deg2rad(s["fov_deg"]) / 2)
         if s["fov_axis"] == "y":
@@ -362,13 +483,16 @@ class SceneBuilder:
         else:
             tan_x, tan_y = tan_half, tan_half / aspect
         return T.Sensor(
-            kind=_t(T.SENSOR_PERSPECTIVE, np.int32),
+            kind=_t(s["kind"], np.int32),
             to_world=_t(s["to_world"], np.float32),
             tan_x=_t(tan_x, np.float32), tan_y=_t(tan_y, np.float32),
-            near=_t(s["near"], np.float32))
+            near=_t(s["near"], np.float32), far=_t(s["far"], np.float32),
+            aperture=_t(s["aperture"], np.float32),
+            focus=_t(s["focus"], np.float32),
+            kc=_t((0.0, 0.0), np.float32))
 
     def _build_media(self) -> T.Media:
-        media = self._media or [_Medium(sampling_weight=1.0)]
+        media = self._media or [_Medium(sampling_weight=1.0, kappa=1.0)]
         sigma_a = np.array([m.sigma_a for m in media], np.float32)
         sigma_s = np.array([m.sigma_s for m in media], np.float32)
         sigma_t = sigma_a + sigma_s
@@ -382,6 +506,8 @@ class SceneBuilder:
             sw[i] = max(w, 0.5) if w > 0 else 0.0
         density = T.GridData(torch.zeros((1, 1, 1)), torch.zeros(3),
                              torch.ones(3))
+        orient = T.GridData(torch.zeros((1, 1, 1, 3)), torch.zeros(3),
+                            torch.ones(3))
         majorant = 0.0
         rif_kind, rif_params, sdf_kind, sdf_params = 0, (1.0,), 0, ()
         # the spline grids; (1, 1, 1) ones over the unit box where absent
@@ -392,6 +518,10 @@ class SceneBuilder:
                 lo, hi = m.density_aabb
                 density = T.GridData(_t(m.density, np.float32),
                                      _t(lo, np.float32), _t(hi, np.float32))
+                if m.orientation is not None:
+                    orient = T.GridData(_t(m.orientation, np.float32),
+                                        _t(lo, np.float32),
+                                        _t(hi, np.float32))
                 majorant = float(np.max(m.density) * m.scale)
             if m.kind == T.MED_REFRACTIVE:
                 rif_kind, rif_params = m.rif_kind, m.rif_params
@@ -408,10 +538,17 @@ class SceneBuilder:
             sampling_weight=_t(sw, np.float32),
             strategy=_t([m.strategy for m in media], np.int32),
             manual_density=_t([m.manual_density for m in media], np.float32),
-            phase=T.PhaseTable(kind=_t([m.phase_kind for m in media], np.int32),
-                               g=_t([m.g for m in media], np.float32)),
+            phase=T.PhaseTable(
+                kind=_t([m.phase_kind for m in media], np.int32),
+                g=_t([m.g for m in media], np.float32),
+                g2=_t([m.g2 for m in media], np.float32),
+                mix=_t([m.phase_mix for m in media], np.float32),
+                kappa=_t([m.kappa for m in media], np.float32),
+                axis=_t([np.asarray(m.fiber_axis)
+                         / max(np.linalg.norm(m.fiber_axis), 1e-9)
+                         for m in media], np.float32)),
             scale=_t([m.scale for m in media], np.float32),
-            density=density,
+            density=density, orient=orient,
             majorant=_t(majorant, np.float32),
             rif_kind=_t(rif_kind, np.int32),
             rif_params=_t(_pad8(rif_params), np.float32),

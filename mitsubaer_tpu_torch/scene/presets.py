@@ -85,7 +85,7 @@ def cornell_box(res: int = 256, spp: int = 64, max_depth: int = 40,
         b.add_mesh(*_box(_TALL_BOX_TOP), bsdf=white, exterior=med)
     b.set_perspective_sensor(
         to_world=tf.look_at([278, 273, -800], [278, 273, -799], [0, 1, 0]),
-        fov_deg=39.3077, fov_axis="x", near=10.0)
+        fov_deg=39.3077, fov_axis="x", near=10.0, far=2800.0)
     b.config = replace(b.config, width=res, height=res, spp=spp,
                        max_depth=max_depth, integrator=integrator,
                        sampler=sampler, filter=filter, **cfg_kw)

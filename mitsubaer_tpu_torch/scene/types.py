@@ -4,8 +4,8 @@ mitsubaer_tpu/scene/types.py).
 Only the fields that change the results of the ported slices are kept; the
 JAX package's TPU tuning knobs (`er_host_stepped`, `brick_map`, and the
 `wf_*` fields but the two that set the wavefront engine's pass schedule)
-have no counterpart, nor do the environment map's tables (an EM_ENVMAP
-row raises on every road, ROADMAP Queue 1 step 9). `scene_from_numpy` and `config_from_dict` take the JAX package's
+have no counterpart, nor does `Media.albedo`, which no JAX function reads.
+`scene_from_numpy` and `config_from_dict` take the JAX package's
 `Scene` / `RenderConfig` flattened to nested dicts of numpy arrays (same
 field names), so both packages can render the very same scene.
 
@@ -53,7 +53,7 @@ TEX_NORMALMAP = 5      # tangent-space normal from RGB
 TEX_BUMPMAP = 6        # height field; strength = color0[0]
 TEX_NOISE = 7          # Perlin fBm between color0 and color1
 
-# Emitter kinds (EM_ENVMAP is not ported: it raises on every road)
+# Emitter kinds
 EM_AREA = 0
 EM_POINT = 1
 EM_DIRECTIONAL = 2
@@ -74,13 +74,25 @@ STRAT_SINGLE = 1
 STRAT_MANUAL = 2
 STRAT_MAXIMUM = 3
 
-# Phase kinds (only isotropic and HG are ported; the JAX package's others,
-# Rayleigh 2, vMF 3, mixture 4, Kajiya-Kay 5 and microflake 6, raise)
+# Phase kinds
 PH_ISOTROPIC = 0
 PH_HG = 1
+PH_RAYLEIGH = 2
+PH_VMF = 3         # von Mises-Fisher lobe (vmf.cpp)
+PH_MIXTURE = 4     # two-lobe HG mixture (mixturephase.cpp)
+PH_KKAY = 5        # Kajiya-Kay fiber phase (kkay.cpp)
+PH_MICROFLAKE = 6  # vMF-distributed flakes about a fiber axis
 
-# Sensor kinds
+# Sensor kinds (models/sensor.py)
 SENSOR_PERSPECTIVE = 0
+SENSOR_THINLENS = 1
+SENSOR_ORTHOGRAPHIC = 2
+SENSOR_SPHERICAL = 3
+SENSOR_RADIANCEMETER = 4
+SENSOR_TELECENTRIC = 5        # orthographic footprint + thin lens
+SENSOR_PERSPECTIVE_RDIST = 6  # radial distortion
+SENSOR_FLUENCEMETER = 7
+SENSOR_IRRADIANCEMETER = 8
 
 
 @dataclass(frozen=True)
@@ -195,6 +207,13 @@ class Emitters(_Tensors):
     area: torch.Tensor       # (NE,) surface area of area emitters
     cutoff_cos: torch.Tensor        # (NE,) spot cutoff cosine
     beam_falloff_cos: torch.Tensor  # (NE,)
+    # the shared lat-long environment map (envmap.cpp), (1, 1, 3) when the
+    # scene has none, and its importance-sampling tables
+    env_map: torch.Tensor       # (He, We, 3)
+    env_cdf_rows: torch.Tensor  # (He,) marginal cdf over rows (sin-weighted)
+    env_cdf_cond: torch.Tensor  # (He, We) conditional cdf of each row
+    env_to_world: torch.Tensor  # (3, 3) rotation
+    env_scale: torch.Tensor     # () radiance scale
     # the area emitters' triangles, one segment an emitter
     tri_index: torch.Tensor   # (M,) int32 triangle id
     tri_cdf: torch.Tensor     # (M,) area cdf within the emitter's segment
@@ -207,20 +226,28 @@ class Emitters(_Tensors):
 class Sensor(_Tensors):
     kind: torch.Tensor       # () int32
     to_world: torch.Tensor   # (4, 4) camera-to-world
-    tan_x: torch.Tensor      # () tan(fov_x / 2)
-    tan_y: torch.Tensor
+    tan_x: torch.Tensor      # () tan(fov_x / 2), the orthographic
+    tan_y: torch.Tensor      #   half-extent
     near: torch.Tensor
+    far: torch.Tensor
+    aperture: torch.Tensor   # () thin-lens aperture radius
+    focus: torch.Tensor      # () focus distance
+    kc: torch.Tensor         # (2,) radial distortion coefficients
 
 
 @dataclass(frozen=True)
 class PhaseTable(_Tensors):
-    kind: torch.Tensor  # (NM,) int32
-    g: torch.Tensor     # (NM,) HG asymmetry
+    kind: torch.Tensor   # (NM,) int32
+    g: torch.Tensor      # (NM,) HG asymmetry (mixture: first lobe)
+    g2: torch.Tensor     # (NM,) mixture second-lobe asymmetry
+    mix: torch.Tensor    # (NM,) mixture weight of the first lobe
+    kappa: torch.Tensor  # (NM,) vMF / microflake concentration
+    axis: torch.Tensor   # (NM, 3) unit fiber axis (Kajiya-Kay, microflake)
 
 
 @dataclass(frozen=True)
 class GridData(_Tensors):
-    data: torch.Tensor      # (nz, ny, nx)
+    data: torch.Tensor      # (nz, ny, nx), or (nz, ny, nx, 3)
     aabb_min: torch.Tensor  # (3,)
     aabb_max: torch.Tensor  # (3,)
 
@@ -240,6 +267,8 @@ class Media(_Tensors):
     phase: PhaseTable
     scale: torch.Tensor     # (NM,)
     density: GridData
+    orient: GridData        # per-voxel fiber / flake axes (nz, ny, nx, 3)
+    #   over the density grid's box; (1, 1, 1, 3) zeros when absent
     majorant: torch.Tensor  # () max density * scale
     rif_kind: torch.Tensor    # () int32, models/eikonal.py RIF_*
     rif_params: torch.Tensor  # (8,) analytic RIF parameters
@@ -280,8 +309,9 @@ class RenderConfig:
     integrator: str = "path"
     filter: str = "gaussian"    # box | tent | gaussian | mitchell |
     #   catmullrom | lanczos
-    sampler: str = "independent"  # only the independent mode is ported;
-    #   names that are not sampler modes mean it too, as in the JAX package
+    sampler: str = "independent"  # core/rng.py MODES; names that are not
+    #   sampler modes mean the independent one, as in the JAX package. Only
+    #   the loop and wavefront roads read it (others draw independently)
     spp: int = 16
     decomposition: str = "steadystate"
     min_bound: float = 0.0
@@ -314,6 +344,13 @@ class RenderConfig:
     #   sets it); only their lobes run (() = all, models/bsdf.py _on)
     has_textures: bool = False  # some BSDF carries a texture
     has_normal_tex: bool = False  # some BSDF carries a normal or bump map
+    field: str = "shNormal"     # the "field" integrator's output
+    phase_kinds: tuple = ()     # the phase kinds of the scene (the builder
+    #   sets it); only their lobes run (() = all, models/phase.py _on)
+    phase_orient: bool = False  # a medium carries an orientation field:
+    #   Kajiya-Kay and microflake turn about its per-voxel axes
+    sensor_kind: int = -1       # the sensor kind (the builder sets it);
+    #   only its camera model runs (-1 = all, models/sensor.py)
 
     @property
     def n_frames(self) -> int:
@@ -332,6 +369,7 @@ _ABSENT = {
 }
 
 
+
 def _from_numpy(cls, tree, device):
     kw = {}
     for f in fields(cls):
@@ -348,8 +386,8 @@ def _from_numpy(cls, tree, device):
 
 def scene_from_numpy(tree: dict, device="cpu") -> Scene:
     """A Scene from nested dicts of numpy arrays named as the JAX Scene's
-    fields; fields the port does not keep (the environment map's tables,
-    the TPU layouts) are ignored."""
+    fields; fields the port does not keep (the TPU layouts, the albedo
+    grid) are ignored."""
     return _from_numpy(Scene, tree, device)
 
 

@@ -2,7 +2,8 @@
 trace_er_particles: light particles through the refractive body, each
 scatter vertex joined to the camera by the sensor-side BVP,
 heterogeneousrefractive.cpp:960-992) and its emission sampler
-(ptracer.sample_emitter_ray, the point and collimated branches) in the
+(ptracer.sample_emitter_ray, the point and collimated branches; the
+others are in tests/test_torch_misc.py) in the
 port against the JAX package on the CPU.
 
 The scene is tests/test_volpath_er.py::TestSensorSideConnections's: the
@@ -103,12 +104,20 @@ def test_emission_rays_match_jax():
 
 
 def test_other_emitters_raise():
+    """The constant emitter's branch, which used to raise, samples its
+    rays now (tests/test_torch_misc.py holds every branch against JAX):
+    from the bounding sphere's disk, finite, with weight L 4 pi^2 R^2."""
     b = tbuild.SceneBuilder()
     b.add_emitter(T.EM_CONSTANT, radiance=(1.0, 1.0, 1.0))
+    b.add_sphere([0, 0, 0], 1.0)
     b.set_perspective_sensor(np.eye(4, dtype=np.float32), 45.0)
-    with pytest.raises(NotImplementedError, match="step 9"):
-        tpt.sample_emitter_ray(b.build(), trng.make_sampler(
-            0, torch.arange(4), 0))
+    o, d, w, _, _, _, kind = tpt.sample_emitter_ray(
+        b.build(), trng.make_sampler(0, torch.arange(4), 0))
+    assert bool((kind == T.EM_CONSTANT).all())
+    assert bool(torch.isfinite(o).all() & torch.isfinite(d).all())
+    R = 0.5 * np.sqrt(12.0) * 1.01
+    np.testing.assert_allclose(w.numpy(), 4 * np.pi ** 2 * R * R,
+                               rtol=1e-5)
 
 
 def _scenes(P, a):

@@ -99,7 +99,9 @@ def test_spp_per_pass_follows_render_budget():
 
 
 @pytest.mark.parametrize("kw,step", [
-    pytest.param(dict(filter="gaussian", sampler="ldsampler"), "step 1",
+    # step 1's sampler modes, ported since: the ldsampler renders on the
+    # loop road (tests/test_torch_sampler.py)
+    pytest.param(dict(filter="gaussian", sampler="ldsampler"), None,
                  id="kw0-step 1"),
     pytest.param(dict(filter="gaussian", decomposition="transient",
                       max_bound=4.0), "step 10", id="kw1-step 10"),
@@ -139,7 +141,8 @@ def _phase_box(kind, **kw):
     scene, cfg = tpresets.volumetric_box(res=16, spp=4, heterogeneous=True,
                                          density_res=8, max_depth=4, g=0.0,
                                          **kw)
-    return _with_phase_kind(scene, kind), cfg
+    return _with_phase_kind(scene, kind), dataclasses.replace(
+        cfg, phase_kinds=(kind,))
 
 
 def _road_loop(kind):
@@ -173,7 +176,7 @@ def _er_scene(kind, res=4):
         res=res, spp=1, max_depth=2, rif_kind=1, rif_params=(1.3, 0.15),
         er_stepsize=0.05, filter="box")
     return _with_phase_kind(scene, kind), dataclasses.replace(
-        cfg, er_maxsteps=32)
+        cfg, er_maxsteps=32, phase_kinds=(kind,))
 
 
 def _road_eikonal(kind):
@@ -195,11 +198,17 @@ ROADS = {"loop": _road_loop, "wavefront": _road_wavefront,
 @pytest.mark.parametrize("road", list(ROADS))
 @pytest.mark.parametrize("kind", [2, 3])
 def test_unported_phase_kinds_raise(road, kind):
-    """Rayleigh (2) and vMF (3) raise on every road that reads the phase
-    table, rather than render as isotropic (the port's phase models hold
-    isotropic and HG only)."""
-    with pytest.raises(NotImplementedError, match="phase kind.*step 9"):
-        ROADS[road](kind)
+    """Rayleigh (2) and vMF (3), which used to raise on every road that
+    reads the phase table, render there now (tests/test_torch_phase.py
+    holds each kind against JAX). The Rayleigh loop render is the JAX
+    package's Rayleigh image, mean 0.156008, not the isotropic one's
+    0.155699."""
+    out = ROADS[road](kind)
+    assert bool(torch.isfinite(out).all())
+    if road != "training":
+        assert float(out.mean()) > 0
+    if road == "loop" and kind == 2:
+        assert abs(float(out.mean()) / 0.156008 - 1) < 1e-5
 
 
 @pytest.mark.parametrize("road", list(ROADS))

@@ -93,5 +93,8 @@ def test_pass_seed_matches_render_boxwalk_mix():
 
 
 def test_other_sampler_modes_raise():
-    with pytest.raises(NotImplementedError):
-        trng.make_sampler(0, torch.arange(4), 0, mode=1)
+    """The lds mode, which used to raise, draws its stream now
+    (tests/test_torch_sampler.py holds every mode against JAX)."""
+    s = trng.make_sampler(0, torch.arange(4), 0, mode=1)
+    v, s = trng.next_2d(s)
+    assert s.mode == trng.LDS and bool(((v >= 0) & (v < 1)).all())

@@ -492,14 +492,24 @@ def test_area_lit_sphere_matches_jax(_acoustic_stub):
 
 
 # ---------------------------------------------------------------------------
-# what stays in ROADMAP Queue 1 step 9
+# the rest of ROADMAP Queue 1 step 9, ported since: the environment map and
+# the other sensor kinds on every road
 # ---------------------------------------------------------------------------
 def _with_envmap(scene):
+    """The scene's first emitter turned into a sky map, with its tables."""
+    from mitsubaer_tpu_torch.scene import build as tbuild
+    b = tbuild.SceneBuilder()
+    b.add_emitter(JT.EM_ENVMAP, envmap=temitter.make_sky_envmap(
+        (0.3, 0.5, 0.8), res=8), scale=0.2)
+    b.set_perspective_sensor(np.eye(4, dtype=np.float32), 45.0)
+    env = b.build().emitters
     em = scene.emitters
     kind = em.kind.clone()
     kind[0] = JT.EM_ENVMAP
     return dataclasses.replace(scene, emitters=dataclasses.replace(
-        em, kind=kind))
+        em, kind=kind, **{f: getattr(env, f) for f in (
+            "env_map", "env_cdf_rows", "env_cdf_cond", "env_to_world",
+            "env_scale")}))
 
 
 def _with_sensor(scene, kind):
@@ -530,20 +540,34 @@ def _small_sphere():
 @pytest.mark.parametrize("road", list(ROADS))
 @pytest.mark.parametrize("what", ["envmap", "sensor"])
 def test_step9_rest_raises(road, what):
-    """An EM_ENVMAP row and a sensor kind but perspective raise
-    not_ported(..., 9) on every road, rather than render as something
-    else; the same scene unchanged renders."""
+    """An environment-map emitter and a sensor kind but perspective (the
+    irradiance meter, named by the config's sensor_kind), which used to
+    raise not_ported(..., 9), render on every road, and differently from
+    the scene unchanged (tests/test_torch_envmap.py and
+    tests/test_torch_sensor.py hold them against JAX). The closed cbox
+    lit by the sky alone is black: no ray leaves it."""
     scene, cfg = ROADS[road]()
     img = trender.render(scene, cfg, seed=0, device="cpu")
     assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
-    bad = _with_envmap(scene) if what == "envmap" else _with_sensor(
-        scene, JT.SENSOR_ORTHOGRAPHIC)
-    with pytest.raises(NotImplementedError, match="step 9"):
-        trender.render(bad, cfg, seed=0, device="cpu")
+    if what == "envmap":
+        new, new_cfg = _with_envmap(scene), cfg
+    else:
+        new = _with_sensor(scene, JT.SENSOR_IRRADIANCEMETER)
+        new_cfg = dataclasses.replace(cfg,
+                                      sensor_kind=JT.SENSOR_IRRADIANCEMETER)
+    out = trender.render(new, new_cfg, seed=0, device="cpu")
+    assert bool(torch.isfinite(out).all())
+    if what == "sensor" or road == "eikonal":
+        assert float(out.mean()) > 0
+    assert not torch.allclose(out, img)
 
 
 @pytest.mark.parametrize("name", ["ao", "field"])
 def test_ao_and_field_raise(name):
+    """"ao" and "field", which used to raise, render on the loop road
+    (tests/test_torch_misc.py holds them against JAX): AO in [0, 1], the
+    shading normal's color in [0, 1]."""
     scene, cfg = _small_cbox(integrator=name)
-    with pytest.raises(NotImplementedError, match="step 9"):
-        trender.render(scene, cfg, device="cpu")
+    img = trender.render(scene, cfg, device="cpu")
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0
+    assert float(img.max()) <= 1.0 + 1e-6

@@ -163,9 +163,10 @@ def test_er_road_parts_not_ported_raise(kw, step):
 
 
 def test_er_scene_parts_not_ported_raise():
-    """The environment-map emitter raises on the eikonal road (step 9);
-    the area emitter of refractive_sphere(emitter="area_behind") and the
-    acoustic RIF, ported since, render (tests/test_torch_surface.py,
+    """The environment-map emitter, which used to raise on the eikonal
+    road (step 9), the area emitter of refractive_sphere(emitter=
+    "area_behind") and the acoustic RIF, ported since, render
+    (tests/test_torch_envmap.py, tests/test_torch_surface.py,
     tests/test_torch_acoustic.py)."""
     scene, cfg = tpresets.refractive_sphere(
         res=8, spp=1, max_depth=3, rif_kind=1, rif_params=(1.3, 0.15),
@@ -177,8 +178,9 @@ def test_er_scene_parts_not_ported_raise():
     kind[0] = T.EM_ENVMAP
     envmap = dataclasses.replace(scene, emitters=dataclasses.replace(
         scene.emitters, kind=kind))
-    with pytest.raises(NotImplementedError, match="step 9"):
-        trender.render(envmap, cfg, device="cpu")
+    out = trender.render(envmap, cfg, device="cpu")
+    assert bool(torch.isfinite(out).all())
+    assert not torch.allclose(out, img)
     scene, cfg = tpresets.refractive_sphere(res=4, spp=1, rif_kind=3,
                                             rif_params=(1.33, 0.03, 6.0, 0.0),
                                             filter="box", max_depth=2)
