@@ -201,9 +201,39 @@ Phases (any failure raises and the script exits non-zero):
      backdrop), a spot and a directional emitter: D and E must launch,
      their first and busiest calls held exact (_check_d_calls,
      _check_e_calls). Phases 32-36 print one {"models": ...} JSON line.
+ 37. the transient main path: the 512^2 spp 32 depth 12 volume (density
+     64^3, gaussian filter, loop road) with 128 transient frames of 0.5
+     over [0, 64) (TRANSIENT): kernel A must launch; the wall, bounces
+     and Woodcock iterations a pass, peak memory. Then, box filter and
+     engine "loop", one pass (spp 8, 2,097,152 lanes), transient and
+     steady at one seed: the frames summed
+     must equal the steady image within FRAME_SUM_TOL of its largest
+     pixel, and the energy the sink drops outside [0, 64) must be 0;
+     bounce frames 0-13 (BOUNCE) and the sine and depth-selective CW-ToF
+     weights (lambda TOF_LAMBDA) at 128^2 spp 8, the square, hamiltonian
+     and m-sequence weights at 64^2 spp 4;
+ 38. card against CPU: the transient, bounce and sine films at 16^2 spp 4
+     (phase 8's rule, signed for CW-ToF), the transient cbox path at 16^2,
+     the transient eikonal road (ER_FRAMES, single solve) at 16^2 spp 2;
+ 39. bdpt at full width: the refractive sphere (bench_er_forward's 96^2
+     spp 2 depth 6, 8 BVP restarts, 64 transient frames ER_FRAMES):
+     kernels D and E must launch, their first and busiest calls held
+     exact (_check_d_calls, _check_e_calls); the heterogeneous box lit by
+     a point emitter at 256^2 spp 8 depth 6 (kernel A must launch; its
+     first pass again with DensityGrid.lookup wrapped, every captured
+     call of A held exact against the plain version, the first and the
+     largest point counts timed) and the cbox (BASELINE config 1) at
+     256^2 spp 16 depth 8 (no kernel may launch; one pass profiled:
+     launches, busy share): walls and passes;
+     each card against CPU at 16^2, spp 1 and 2 (the sphere at 8^2 spp 1,
+     single solve);
+ 40. the particle tracer on config 1 at 256^2 spp 4: the wall; card
+     against CPU at 16^2. Phases 37-40 print one {"transient": ...} JSON
+     line (scripts/profile_bdpt_torch.py profiles a pass of each bdpt
+     path and of the particle tracer).
 With `--phases a-b[,c-d]` only those phase groups run (3-8, 9-12, 13-15,
-16-18, 19-21, 22-25, 26-31, 32-36; 1 and 2 always), for iterating on the
-card.
+16-18, 19-21, 22-25, 26-31, 32-36, 37-40; 1 and 2 always), for iterating
+on the card.
 Prints one JSON line of per-kernel results (time, bound, plain version,
 library yardstick, launches on the main paths; for A also its launches on
 the loop road and its checks and times at the loop road's point counts,
@@ -214,7 +244,10 @@ gradient, its checks and times at that gradient's calls, and the walls of
 phases 19 and 20; for D and E their launches, checks and times in the
 light image and in the area-lit sphere, and the walls of phases 22-25;
 for A and C their launches in phase 32, for D and E in phase 36's light
-images), then the contract line
+images; for A its launches on the transient main path (phase 37) and in
+bdpt's heterogeneous box, with its checks and times at bdpt's point
+counts, for D and E their launches and checks in bdpt's
+refractive sphere (phase 39)), then the contract line
 {"ok": true, "device": {...}} last.
 """
 from __future__ import annotations
@@ -760,6 +793,7 @@ def main() -> int:
     timed(22, 25, _er_rest_phases, er_img)
     timed(26, 31, _surface_phases)
     timed(32, 36, _model_phases)
+    timed(37, 40, _transient_phases)
     print(json.dumps({"phase_group_s": groups}))
 
     print(json.dumps({"kernels": list(results.values())}))
@@ -775,7 +809,7 @@ def _phase_range(argv):
     run, and a phase group runs whole where any of its phases is asked
     for."""
     if not argv:
-        return set(range(1, 37))
+        return set(range(1, 41))
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: chip_smoke.py [--phases a-b[,c-d...]]")
     phases = set()
@@ -1501,31 +1535,81 @@ def _loop_phases(dev, card, results):
                              "beam scene")
 
 
-def _loop_lookups(scene, cfg, dev, card):
-    """Kernel A at the point counts the loop road gives it: the first pass
-    of phase 13's render again (same seed, same lanes) with the lookups
-    captured. Every captured output, as the pass received it, must equal
-    the plain version on the same inputs; the kernel's grid must be f32.
-    Returns per point count its calls in the pass, the calls checked, and
-    the times through the wrapper and of the plain version with the bound.
-    These launches come after phase 13's count was read."""
-    import torch
+def _capture_lookups(calls, picks=(0, 4, 16, 64, 256, 1024)):
+    """A stand-in for DensityGrid.lookup (kernel A's caller) that calls it
+    and keeps, per point count in `calls` (in the order the counts first
+    appear), [calls, the calls numbered in `picks` (grid, points and
+    output, cloned)]."""
+    from mitsubaer_tpu_torch.models import medium
 
-    from mitsubaer_tpu_torch.integrators import render as render_m
-    from mitsubaer_tpu_torch.models import film, medium
-
-    lookup, calls = medium.DensityGrid.lookup, {}
+    lookup = medium.DensityGrid.lookup
 
     def capture(self, p):
         out = lookup(self, p)
         seen = calls.setdefault(p.shape[0], [0, []])
-        if seen[0] in (0, 4, 16, 64, 256, 1024):
+        if seen[0] in picks:
             seen[1].append((self, p.clone(), out.clone()))
         seen[0] += 1
         return out
 
+    return capture
+
+
+def _check_lookups(calls, card, where, timed):
+    """Kernel A at the calls _capture_lookups kept in `where`: every
+    captured output equal to the plain version on the same inputs, on an
+    f32 grid; the point counts in `timed` timed through the wrapper and
+    plain at their first captured call, with the bound. Returns a row per
+    timed count: its calls, the calls checked, the times."""
+    import torch
+
+    from mitsubaer_tpu_torch.models import medium
+
+    if not calls:
+        raise AssertionError(f"{where} looked up no density")
+    rows = []
+    for n in sorted(calls):
+        count, taken = calls[n]
+        for grid, p, out in taken:
+            if grid.cells.dtype != torch.float32:
+                raise AssertionError(f"the grid of {where} is "
+                                     f"{grid.cells.dtype}, not f32")
+            ref = medium.trilinear_lookup_plain(grid.grid, grid.aabb6, p)
+            if not torch.equal(out, ref):
+                err = (out - ref).abs().max().item()
+                raise AssertionError(f"kernel A differs from its plain "
+                                     f"version in {where} at {n} points: "
+                                     f"max abs err {err}")
+        if n == 0 or n not in timed:
+            continue
+        grid, p, _ = taken[0]
+        ms = _cuda_ms(lambda g=grid, q=p: g.lookup(q), 20)
+        plain_ms = _cuda_ms(lambda g=grid, q=p: medium.trilinear_lookup_plain(
+            g.grid, g.aabb6, q), 10)
+        bound = _bound(n * 16 + grid.grid.numel() * 4, n * OPS_A_POINT)
+        print(f"kernel A in {where} at {n} points: {count} calls, "
+              f"{len(taken)} captured and equal to the plain version on "
+              f"every point; {ms:.4f} ms through the wrapper, plain "
+              f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) "
+              f"[{card}]", flush=True)
+        rows.append(dict(n=n, calls=count, checked=len(taken), equal=True,
+                         ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
+                         bound_by=bound[1]))
+    return rows
+
+
+def _loop_lookups(scene, cfg, dev, card):
+    """Kernel A at the point counts the loop road gives it: the first pass
+    of phase 13's render again (same seed, same lanes) with the lookups
+    captured and held against the plain version (_check_lookups), every
+    point count timed. These launches come after phase 13's count was
+    read."""
+    from mitsubaer_tpu_torch.integrators import render as render_m
+    from mitsubaer_tpu_torch.models import film, medium
+
+    lookup, calls = medium.DensityGrid.lookup, {}
     sppc = render_m._spp_per_pass(cfg)
-    medium.DensityGrid.lookup = capture
+    medium.DensityGrid.lookup = _capture_lookups(calls)
     try:
         render_m.render_pass(scene, film.new_accumulator(cfg, dev), cfg,
                              sppc, 0, 0)
@@ -1535,35 +1619,7 @@ def _loop_lookups(scene, cfg, dev, card):
     if lanes not in calls or 2 * lanes not in calls:
         raise AssertionError(f"the loop pass looked up no {lanes} or "
                              f"{2 * lanes} points: {sorted(calls)}")
-    rows = []
-    for n in sorted(calls):
-        count, taken = calls[n]
-        for grid, p, out in taken:
-            if grid.cells.dtype != torch.float32:
-                raise AssertionError(f"the loop road's grid is "
-                                     f"{grid.cells.dtype}, not f32")
-            ref = medium.trilinear_lookup_plain(grid.grid, grid.aabb6, p)
-            if not torch.equal(out, ref):
-                err = (out - ref).abs().max().item()
-                raise AssertionError(f"kernel A differs from its plain "
-                                     f"version in the loop pass at {n} "
-                                     f"points: max abs err {err}")
-        if n == 0:
-            continue
-        grid, p, _ = taken[0]
-        ms = _cuda_ms(lambda g=grid, q=p: g.lookup(q), 20)
-        plain_ms = _cuda_ms(lambda g=grid, q=p: medium.trilinear_lookup_plain(
-            g.grid, g.aabb6, q), 10)
-        bound = _bound(n * 16 + grid.grid.numel() * 4, n * OPS_A_POINT)
-        print(f"kernel A in the loop pass at {n} points: {count} calls, "
-              f"{len(taken)} captured and equal to the plain version on "
-              f"every point; {ms:.4f} ms through the wrapper, plain "
-              f"{plain_ms:.4f} ms, bound {bound[0]:.4f} ms ({bound[1]}) "
-              f"[{card}]", flush=True)
-        rows.append(dict(n=n, calls=count, checked=len(taken), equal=True,
-                         ms=ms, plain_ms=plain_ms, bound_ms=bound[0],
-                         bound_by=bound[1]))
-    return rows
+    return _check_lookups(calls, card, "the loop pass", set(calls))
 
 
 def _training_phases(dev, card, results):
@@ -1971,7 +2027,7 @@ def _er_loss(scene, cfg, sppc, seed, dev, solves=None, **media):
                                    differentiable=True)
     finally:
         volpath_er._held_solves = None
-    return sink.mean()
+    return sink.steady.mean()
 
 
 def _er_grad_scene(res):
@@ -2078,6 +2134,22 @@ def _er_fd(scene, cfg, sppc, seed, dev, field, direction, step, what,
                              f"difference disagree")
 
 
+def _lap_clock(record=None):
+    """A lap timer: each call lap(phase) prints the seconds since the last
+    as "phase N: x s", and keeps them in record[phase] where a dict is
+    given."""
+    clock = [time.perf_counter()]
+
+    def lap(phase):
+        now = time.perf_counter()
+        print(f"phase {phase}: {now - clock[0]:.1f} s", flush=True)
+        if record is not None:
+            record[phase] = now - clock[0]
+        clock[0] = now
+
+    return lap
+
+
 def _er_grad_phases(dev, card, results):
     """Phases 19-21: the eikonal training path (volpath_er.li with
     differentiable=True)."""
@@ -2087,6 +2159,11 @@ def _er_grad_phases(dev, card, results):
     import torch
 
     from mitsubaer_tpu_torch.models import ermarch
+
+    # E's row (phase 6's), or a bare one where phases 3-8 did not run
+    e_row = results.setdefault("er_sens", {})
+
+    lap = _lap_clock()
 
     # ---- phase 19: the eikonal gradient at full width ----
     scene, cfg = _er_grad_scene(32)
@@ -2123,12 +2200,14 @@ def _er_grad_phases(dev, card, results):
                              "differentiable path")
     _er_fd(scene, cfg, sppc, 1, dev, "rif_params", scene.media.rif_params,
            step, "phase 19 along rif_params", card)
-    results["er_sens"]["launches_er_grad"] = launches[1]
-    results["er_sens"]["er_grad_shapes"] = _check_e_calls(
+    e_row["launches_er_grad"] = launches[1]
+    e_row["er_grad_shapes"] = _check_e_calls(
         captured, card, "the eikonal gradient")
-    results["er_sens"]["er_grad_step"] = dict(
+    e_row["er_grad_step"] = dict(
         first_s=first[2], wall_s=wall, samples_per_s=lanes / wall,
         peak_gib=peak / 2**30)
+
+    lap(19)
 
     # ---- phase 20: the spline RIF's voxel gradient ----
     s_scene, s_cfg = _spline_scene(64, 32)
@@ -2157,7 +2236,7 @@ def _er_grad_phases(dev, card, results):
                              "little of the gradient")
     if launches != (0, 0):
         raise AssertionError("phase 20: a spline march launched a kernel")
-    results["er_sens"]["spline_grad_step"] = dict(
+    e_row["spline_grad_step"] = dict(
         first_s=runs[0][2], wall_s=wall, samples_per_s=64 * 64 * 2 / wall,
         peak_gib=peak / 2**30)
     # at tests/test_inverse.py's own size
@@ -2171,6 +2250,8 @@ def _er_grad_phases(dev, card, results):
     _er_fd(j_scene, j_cfg, 4, 3, dev, "rif_coeff", bump, step,
            "phase 20 along the smooth bump (12^3 grid, 8x8 sppc 4, seed 3)",
            card)
+
+    lap(20)
 
     # ---- phase 21: card against CPU (the spline at phase 20's own size,
     # whose card gradient is in hand) ----
@@ -2505,6 +2586,8 @@ def _er_rest_phases(dev, card, results, er_img):
     d_row = results.setdefault("er_trace", {})
     e_row = results.setdefault("er_sens", {})
 
+    lap = _lap_clock()
+
     # ---- phase 22: the homogeneous strategies in the refractive medium,
     # at bench_er_forward's width with a chromatic sigma_s ----
     sigma_s = (0.2, 0.4, 0.8)
@@ -2535,6 +2618,8 @@ def _er_rest_phases(dev, card, results, er_img):
         rows[name] = dict(wall_s=wall, launches=launches,
                           mean=img.mean().item(), card_vs_cpu=ratio)
     d_row["strategies"] = rows
+
+    lap(22)
 
     # ---- phase 23: the light image at full width (96^2, 8 passes of
     # 9,216 particles) through the strong lens, its kernel calls captured
@@ -2590,6 +2675,8 @@ def _er_rest_phases(dev, card, results, er_img):
     if both < 6 or worst > 1e-3 or flipped > LIGHT_MAX_FLIPPED:
         raise AssertionError("card and CPU light images disagree")
 
+    lap(23)
+
     # ---- phase 24: the acoustic RIF (mode 2) through the plain loops ----
     acoustic = (1.3333, 0.03, 6.0, 2.0)
     _, e_in = _er_inputs(ek.RifField(ek.RIF_ACOUSTIC, acoustic), 0, 36_864,
@@ -2613,6 +2700,8 @@ def _er_rest_phases(dev, card, results, er_img):
     e_row["acoustic"] = dict(
         plain_ms=plain_ac, wall_s=wall, depth=ACOUSTIC_DEPTH,
         mean=img.mean().item(), plain_march_lanes=marched)
+
+    lap(24)
 
     # ---- phase 25: er_f64 through the plain loops, against phase 7's
     # float32 render ----
@@ -2729,11 +2818,12 @@ def _surface_render(scene, cfg, dev, card, what, seed=0):
 def _profile_pass(run, card, what):
     """run() (one spp chunk, ending in a synchronize) under torch.profiler,
     device activity only (host events of a wavefront pass number in the
-    millions, and their aggregation took minutes): its wall, the device
-    time and count of the kernels and copies it launched, and the busy
-    share of the wall. The profiler slows the host, so the share is a
-    floor."""
+    millions): its wall, the device time and count of the kernels and
+    copies it launched, read from the raw trace (key_averages' aggregation
+    took ~0.3 ms an event: 37 s over a bdpt pass), and the busy share of
+    the wall. The profiler slows the host, so the share is a floor."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -2742,17 +2832,15 @@ def _profile_pass(run, card, what):
         out = run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    dev_us, launches = 0.0, 0
-    for e in prof.key_averages():
-        us = getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-        if us > 0:
-            dev_us += us
-            launches += e.count
+    dev_ns = launches = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            dev_ns += e.end_ns() - e.start_ns()
+            launches += 1
     if not launches:
         raise AssertionError(f"{what}: the profiler saw no device work")
-    return out, dict(wall_s=wall, device_s=dev_us / 1e6, launches=launches,
-                     busy=dev_us / 1e6 / wall)
+    return out, dict(wall_s=wall, device_s=dev_ns / 1e9, launches=launches,
+                     busy=dev_ns / 1e9 / wall)
 
 
 def _loop_pass_profile(scene, cfg, dev, card, what):
@@ -3064,13 +3152,7 @@ def _surface_phases(dev, card, results):
     from mitsubaer_tpu_torch.scene import types as T
 
     surf = {"phase_s": {}}
-    clock = [time.perf_counter()]
-
-    def lap(phase):
-        now = time.perf_counter()
-        surf["phase_s"][phase] = now - clock[0]
-        print(f"phase {phase}: {now - clock[0]:.1f} s", flush=True)
-        clock[0] = now
+    lap = _lap_clock(surf["phase_s"])
 
     # ---- phase 26: BASELINE config 1, then "direct" ----
     scene, cfg = presets.cornell_box(res=256, spp=64, max_depth=40)
@@ -3507,13 +3589,7 @@ def _model_phases(dev, card, results):
     from mitsubaer_tpu_torch.scene import types as T
 
     models = {"phase_s": {}}
-    clock = [time.perf_counter()]
-
-    def lap(phase):
-        now = time.perf_counter()
-        models["phase_s"][phase] = now - clock[0]
-        print(f"phase {phase}: {now - clock[0]:.1f} s", flush=True)
-        clock[0] = now
+    lap = _lap_clock(models["phase_s"])
 
     # ---- phase 32: the phase kinds and the orientation field ----
     scene, cfg = _oriented_box(512, 32, T.PH_MICROFLAKE)
@@ -3788,6 +3864,349 @@ def _model_phases(dev, card, results):
     models["misc"] = misc
     lap(36)
     print(json.dumps({"models": models}))
+
+
+# phases 37-40: the transient main path's film (frames of 0.5 over [0, 64):
+# every path length of the scene, PERF.md section 4), the frame-sum
+# identity's tolerance (of the steady image's largest pixel: the order of
+# the atomic adds), the CW-ToF wavelength of the full-width weights, and
+# the refractive sphere's frames for bdpt
+TRANSIENT = dict(decomposition="transient", min_bound=0.0, max_bound=64.0,
+                 bin_width=0.5)
+BOUNCE = dict(decomposition="bounce", min_bound=0.0, max_bound=14.0,
+              bin_width=1.0)
+FRAME_SUM_TOL = 1e-4
+TOF_LAMBDA = 8.0
+ER_FRAMES = dict(decomposition="transient", min_bound=2.0, max_bound=14.0,
+                 bin_width=0.1875)
+
+
+def _frames_render(scene, cfg, dev, card, what, seed=0, kernels=()):
+    """render() on the card with every kernel count at 0 just before and
+    read just after, for films whose mean may be 0 or negative (frames,
+    CW-ToF): finite, of shape (H, W, 3F), not all zero; the kernels named
+    must launch and no other. Returns (image, stats, wall s, peak device
+    bytes, counts)."""
+    import torch
+
+    from mitsubaer_tpu_torch.integrators import render as render_m
+
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    img = render_m.render(scene, cfg, seed=seed, device=dev, stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _kernel_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    if (tuple(img.shape) != (cfg.height, cfg.width, 3 * cfg.n_frames)
+            or not bool(torch.isfinite(img).all())
+            or not bool((img != 0).any())):
+        raise AssertionError(f"{what}: a non-finite, black or misshapen "
+                             f"image {tuple(img.shape)}")
+    missing = [k for k in kernels if counts[k] < 1]
+    extra = [k for k, v in counts.items() if v and k not in kernels]
+    if missing or extra:
+        raise AssertionError(f"{what}: kernels {missing} did not launch, "
+                             f"{extra} launched: {counts}")
+    print(f"{what}: wall {wall:.3f} s, {len(stats['passes'])} passes "
+          f"{stats['passes'] if len(stats['passes']) <= 8 else ''}, peak "
+          f"device memory {peak / 2**30:.3f} GiB, sum "
+          f"{img.sum().item():.6f}, launches "
+          f"{ {k: counts[k] for k in kernels} } [{card}]", flush=True)
+    return img, stats, wall, peak, counts
+
+
+def _signed_card_vs_cpu(img_g, img_c, what, rel=0.02):
+    """Phase 8's rule for images that may be negative (CW-ToF): the median
+    ratio over the pixels where the CPU's luminance is at least 1e-3 of
+    its largest magnitude within 1 +- rel, and the sum of the difference
+    within rel of the sum of magnitudes."""
+    lum_g, lum_c = img_g.mean(-1), img_c.mean(-1)
+    sel = lum_c.abs() > 1e-3 * lum_c.abs().max()
+    ratio = (lum_g[sel] / lum_c[sel]).median().item()
+    diff = abs((img_g - img_c).sum().item()) / img_c.abs().sum().item()
+    print(f"card vs CPU {what}: median pixel ratio {ratio:.6f}, summed "
+          f"difference {diff:.2e} of the summed magnitude", flush=True)
+    if not (1 - rel <= ratio <= 1 + rel and diff <= rel):
+        raise AssertionError(f"card and CPU disagree: {what}")
+    return ratio, diff
+
+
+def _bdpt_first_pass(scene, cfg, dev, seed=0):
+    """The first pass of render_bdpt(scene, cfg, seed) (bdpt._bdpt_pass,
+    one sample a pixel, the same lanes) as a function of no argument, on
+    films of its own."""
+    import torch
+
+    from mitsubaer_tpu_torch.integrators import bdpt as bdpt_m
+    from mitsubaer_tpu_torch.scene import types as T
+
+    npix = cfg.width * cfg.height
+    nF = cfg.n_frames
+    T_MAX = S_MAX = min(cfg.max_depth, 8) + 2
+    kinds = scene.media.kind
+    eye = torch.zeros((npix, 3 * nF), device=dev)
+    splat = torch.zeros((npix, 3 * nF), device=dev)
+    return lambda: bdpt_m._bdpt_pass(
+        scene, eye, splat, cfg, T_MAX, S_MAX, seed, 0,
+        any_het=bool((kinds == T.MED_HETEROGENEOUS).any()),
+        any_er=bool((kinds == T.MED_REFRACTIVE).any()))
+
+
+def _bdpt_pass_profile(scene, cfg, dev, card, what):
+    """One bdpt pass under the profiler: its wall, launches, device time
+    and busy share."""
+    _, m = _profile_pass(_bdpt_first_pass(scene, cfg, dev), card, what)
+    print(f"{what}, one pass profiled: wall {m['wall_s']:.3f} s, "
+          f"{m['launches']} device launches, device time "
+          f"{m['device_s']:.3f} s, busy share {m['busy']:.3f} [{card}]",
+          flush=True)
+    return m
+
+
+def _bdpt_scenes(presets, res, spp, dev=None):
+    """Phase 39's three bdpt paths at res^2: the refractive sphere
+    (bench_er_forward's, depth 6, transient ER_FRAMES; spp 2 at full
+    width), the heterogeneous box lit by a point emitter (density 64^3,
+    depth 6) and BASELINE config 1's cbox (depth 8), at spp."""
+    from dataclasses import replace
+
+    sphere, s_cfg = _er_bench_scene(presets, res, 2, 256)
+    s_cfg = replace(s_cfg, integrator="bdpt", **ER_FRAMES)
+    box, b_cfg = presets.volumetric_box(
+        res=res, spp=spp, heterogeneous=True, density_res=64, max_depth=6,
+        emitter_kind="point", filter="box", integrator="bdpt")
+    cbox, c_cfg = presets.cornell_box(res=res, spp=2 * spp, max_depth=8,
+                                      integrator="bdpt")
+    return dict(sphere=(sphere, s_cfg), box=(box, b_cfg),
+                cbox=(cbox, c_cfg))
+
+
+def _transient_phases(dev, card, results):
+    """Phases 37-40: transient, bounce and CW-ToF films through the ported
+    roads, bdpt and the particle tracer."""
+    from dataclasses import replace
+
+    import torch
+
+    from mitsubaer_tpu_torch.integrators import common
+    from mitsubaer_tpu_torch.integrators import render as render_m
+    from mitsubaer_tpu_torch.models import ermarch, medium
+    from mitsubaer_tpu_torch.scene import presets
+
+    out = {"phase_s": {}}
+    lap = _lap_clock(out["phase_s"])
+
+    a_row = results.setdefault("trilinear_lookup", {})
+    d_row = results.setdefault("er_trace", {})
+    e_row = results.setdefault("er_sens", {})
+
+    # ---- phase 37: the transient main path at full width ----
+    scene, cfg = presets.volumetric_box(res=512, spp=32, heterogeneous=True,
+                                        density_res=64, max_depth=12,
+                                        **TRANSIENT)
+    scene = scene.to(dev)
+    img, stats, wall, peak, counts = _frames_render(
+        scene, cfg, dev, card, f"transient loop road, 512x512 spp 32 depth "
+        f"12, {cfg.n_frames} frames, gaussian filter",
+        kernels=("trilinear_lookup",))
+    a_row["launches_transient"] = counts["trilinear_lookup"]
+    main = dict(wall_s=wall, passes=stats["passes"], peak_bytes=peak,
+                frames=cfg.n_frames, launches_a=counts["trilinear_lookup"],
+                sum=img.sum().item())
+    del img
+    # the frame-sum identity: box filter, loop engine, transient against
+    # steady at one seed; the contributions the sink drops outside
+    # [min_bound, max_bound) are counted as they pass
+    b_cfg = replace(cfg, filter="box", engine="loop", spp=8)
+    add, outside = common.add_contribution, [torch.zeros((), device=dev)]
+
+    def counting_add(sink, cfg_, value, plen, depth, active, log_p=None):
+        if cfg_.n_frames > 1:
+            key = (depth.to(torch.float32)
+                   if cfg_.decomposition == "bounce" else plen)
+            off = active & ((key < cfg_.min_bound) | (key >= cfg_.max_bound))
+            v = torch.where(torch.isfinite(value), value, 0.0)
+            outside[0] += torch.where(off.unsqueeze(-1), v, 0.0).sum()
+        return add(sink, cfg_, value, plen, depth, active, log_p)
+
+    common.add_contribution = counting_add
+    try:
+        frames, f_stats, f_wall, _, _ = _frames_render(
+            scene, b_cfg, dev, card, "transient loop road, box filter, "
+            "512x512 spp 8", seed=5, kernels=("trilinear_lookup",))
+    finally:
+        common.add_contribution = add
+    steady, _, s_wall, _, _ = _frames_render(
+        scene, replace(b_cfg, decomposition="steadystate"), dev, card,
+        "steady loop road, box filter, 512x512 spp 8", seed=5,
+        kernels=("trilinear_lookup",))
+    fsum = frames.view(cfg.height, cfg.width, cfg.n_frames, 3).sum(2)
+    scale = steady.abs().max().item()
+    err = (fsum - steady).abs().max().item() / scale
+    lost = outside[0].item()
+    print(f"frame-sum identity ({cfg.width}x{cfg.height} spp {b_cfg.spp}, "
+          f"seed 5): max |sum of the "
+          f"{cfg.n_frames} frames - steady| {err:.3e} of the largest pixel "
+          f"{scale:.6f}; image sums {fsum.sum().item():.6f} / "
+          f"{steady.sum().item():.6f}; energy outside [0, 64) {lost} "
+          f"[{card}]", flush=True)
+    if err > FRAME_SUM_TOL or lost != 0.0:
+        raise AssertionError("the transient frames do not sum to the "
+                             "steady image")
+    main.update(identity_err=err, outside_energy=lost,
+                identity_walls_s=(f_wall, s_wall))
+    del frames, steady, fsum
+    small = {}
+    for name, kw in (("bounce", BOUNCE),
+                     ("sine", dict(modulation="sine", lambda_=TOF_LAMBDA)),
+                     ("depthselective", dict(modulation="depthselective",
+                                             lambda_=TOF_LAMBDA))):
+        k_scene, k_cfg = presets.volumetric_box(
+            res=128, spp=8, heterogeneous=True, density_res=64,
+            max_depth=12, **kw)
+        k_img, k_stats, k_wall, _, _ = _frames_render(
+            k_scene.to(dev), k_cfg, dev, card, f"{name} film, loop road, "
+            "128x128 spp 8", kernels=("trilinear_lookup",))
+        small[name] = dict(wall_s=k_wall, passes=k_stats["passes"],
+                           sum=k_img.sum().item())
+    for name in ("square", "hamiltonian", "mseq"):
+        k_scene, k_cfg = presets.volumetric_box(
+            res=64, spp=4, heterogeneous=True, density_res=64,
+            max_depth=12, modulation=name, lambda_=TOF_LAMBDA)
+        k_img, _, k_wall, _, _ = _frames_render(
+            k_scene.to(dev), k_cfg, dev, card, f"{name} film, loop road, "
+            "64x64 spp 4", kernels=("trilinear_lookup",))
+        small[name] = dict(wall_s=k_wall, sum=k_img.sum().item())
+    main["small"] = small
+    out["transient_main"] = main
+    del scene
+    lap(37)
+
+    # ---- phase 38: card against CPU ----
+    cmp = {}
+    for name, kw in (("transient", TRANSIENT), ("bounce", BOUNCE),
+                     ("sine", dict(modulation="sine", lambda_=TOF_LAMBDA))):
+        c_scene, c_cfg = presets.volumetric_box(
+            res=16, spp=4, heterogeneous=True, density_res=64, max_depth=12,
+            **kw)
+        img_g = render_m.render(c_scene, c_cfg, seed=3, device=dev).cpu()
+        img_c = render_m.render(c_scene, c_cfg, seed=3, device="cpu")
+        cmp[name] = _signed_card_vs_cpu(img_g, img_c, f"{name} loop road, "
+                                        "16x16 spp 4")
+    p_scene, p_cfg = presets.cornell_box(res=16, spp=8, max_depth=40,
+                                         decomposition="transient",
+                                         min_bound=0.0, max_bound=4000.0,
+                                         bin_width=250.0)
+    cmp["path_transient"] = _card_vs_cpu(
+        render_m.render(p_scene, p_cfg, seed=3, device=dev).cpu(),
+        render_m.render(p_scene, p_cfg, seed=3, device="cpu"),
+        "transient cbox path, 16x16 spp 8")
+    e_scene, e_cfg = _er_bench_scene(presets, 16, 2, 128)
+    e_cfg = replace(e_cfg, bvp_restarts=0, **ER_FRAMES)
+    t0 = time.perf_counter()
+    cmp["er_transient"] = _card_vs_cpu(
+        render_m.render(e_scene, e_cfg, seed=3, device=dev).cpu(),
+        render_m.render(e_scene, e_cfg, seed=3, device="cpu"),
+        f"transient eikonal road, single solve, 16x16 spp 2 "
+        f"({time.perf_counter() - t0:.1f} s)")
+    out["card_vs_cpu"] = cmp
+    lap(38)
+
+    # ---- phase 39: bdpt on the refractive sphere (D, E), the
+    # heterogeneous box (A) and the cbox ----
+    bd = {}
+    paths = _bdpt_scenes(presets, 256, 8)
+    paths["sphere"] = _bdpt_scenes(presets, 96, 8)["sphere"]
+    trace, sens_march = ermarch.trace, ermarch.sens_march
+    d_calls, e_calls = {}, {}
+    ermarch.trace = _capture_calls(trace, d_calls, (0,))
+    ermarch.sens_march = _capture_calls(sens_march, e_calls, (0,))
+    try:
+        s_scene, s_cfg = paths["sphere"]
+        img, stats, wall, peak, counts = _frames_render(
+            s_scene.to(dev), s_cfg, dev, card, f"bdpt, refractive sphere "
+            f"96x96 spp 2 depth 6, {s_cfg.n_frames} frames",
+            kernels=("er_trace", "er_sens"))
+        launches = (ermarch.trace.launches, ermarch.sens_march.launches)
+    finally:
+        ermarch.trace, ermarch.sens_march = trace, sens_march
+    bd["sphere"] = dict(wall_s=wall, passes=len(stats["passes"]),
+                        peak_bytes=peak, launches=launches,
+                        sum=img.sum().item())
+    d_row["bdpt"] = dict(launches=launches[0], wall_s=wall,
+                         calls=_check_d_calls(d_calls, card, "bdpt"))
+    e_row["bdpt"] = dict(launches=launches[1],
+                         calls=_check_e_calls(e_calls, card, "bdpt"))
+    del d_calls, e_calls
+    for name, kernels in (("box", ("trilinear_lookup",)), ("cbox", ())):
+        p_scene, p_cfg = paths[name]
+        p_scene = p_scene.to(dev)
+        img, stats, wall, peak, counts = _frames_render(
+            p_scene, p_cfg, dev, card, f"bdpt, {name} {p_cfg.width}x"
+            f"{p_cfg.height} spp {p_cfg.spp} depth {p_cfg.max_depth}",
+            kernels=kernels)
+        bd[name] = dict(wall_s=wall, passes=len(stats["passes"]),
+                        peak_bytes=peak, mean=img.mean().item(),
+                        launches_a=counts["trilinear_lookup"])
+        if name == "box":
+            # the first pass again with kernel A's calls captured: each
+            # held against the plain version, the first and the largest
+            # point counts timed
+            a_row["launches_bdpt"] = counts["trilinear_lookup"]
+            lookup, a_calls = medium.DensityGrid.lookup, {}
+            medium.DensityGrid.lookup = _capture_lookups(a_calls)
+            try:
+                _bdpt_first_pass(p_scene, p_cfg, dev)()
+            finally:
+                medium.DensityGrid.lookup = lookup
+            timed = {next(iter(a_calls), 0), max(a_calls, default=0)}
+            a_row["bdpt_shapes"] = dict(
+                counts=len(a_calls),
+                calls=sum(c[0] for c in a_calls.values()),
+                checked=sum(len(c[1]) for c in a_calls.values()),
+                timed=_check_lookups(a_calls, card, "bdpt's box pass",
+                                     timed))
+            del a_calls
+        else:
+            t0 = time.perf_counter()
+            bd[name]["profile"] = _bdpt_pass_profile(
+                p_scene, p_cfg, dev, card, f"bdpt, {name}")
+            print(f"(the profiled pass and its trace: "
+                  f"{time.perf_counter() - t0:.1f} s)", flush=True)
+        del p_scene
+    for name, (c_scene, c_cfg) in _bdpt_scenes(presets, 16, 1).items():
+        if name == "sphere":
+            c_scene, c_cfg = _bdpt_scenes(presets, 8, 2)["sphere"]
+            c_cfg = replace(c_cfg, bvp_restarts=0, spp=1)
+        t0 = time.perf_counter()
+        bd[name]["card_vs_cpu"] = _card_vs_cpu(
+            render_m.render(c_scene, c_cfg, seed=3, device=dev).cpu(),
+            render_m.render(c_scene, c_cfg, seed=3, device="cpu"),
+            f"bdpt, {name}, {c_cfg.width}x{c_cfg.height} spp {c_cfg.spp} "
+            f"({time.perf_counter() - t0:.1f} s)")
+    out["bdpt"] = bd
+    lap(39)
+
+    # ---- phase 40: the particle tracer on the cbox ----
+    t_scene, t_cfg = presets.cornell_box(res=256, spp=4,
+                                         integrator="ptracer")
+    img, stats, wall, peak, _ = _frames_render(
+        t_scene.to(dev), t_cfg, dev, card, "ptracer, cbox (BASELINE config "
+        "1) 256x256 spp 4 depth 40")
+    s_scene, s_cfg = presets.cornell_box(res=16, spp=4,
+                                         integrator="ptracer")
+    out["ptracer"] = dict(
+        wall_s=wall, peak_bytes=peak, mean=img.mean().item(),
+        card_vs_cpu=_card_vs_cpu(
+            render_m.render(s_scene, s_cfg, seed=3, device=dev).cpu(),
+            render_m.render(s_scene, s_cfg, seed=3, device="cpu"),
+            "ptracer, cbox 16x16 spp 4"))
+    lap(40)
+    print(json.dumps({"transient": out}))
 
 
 if __name__ == "__main__":

@@ -14,7 +14,11 @@ JAX render() does:
   wavefront road (e.g. `volumetric_box(..., filter="box",
   emitter_kind="point")`);
 - the eikonal (refractive) road, `integrator="volpath_er"`
-  (`scene.presets.refractive_sphere(...)`).
+  (`scene.presets.refractive_sphere(...)`);
+- bidirectional path tracing and the particle tracer,
+  `integrator="bdpt"` and `"ptracer"`.
+The loop and eikonal roads and bdpt render every film decomposition:
+transient and bounce frames ((H, W, 3F) images) and CW-ToF weights.
 The training path, `diff.render` (`render_diff`, `loss_and_grad`,
 `image_grad`), differentiates the loop engine with respect to the medium
 parameters (sigma_a, sigma_s, the density grid, the HG g) and runs on the

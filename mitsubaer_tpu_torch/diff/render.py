@@ -99,9 +99,11 @@ def render_diff(scene: Scene, params: MediumParams, cfg: RenderConfig,
     px = (pixel % W).to(torch.float32) + jitter[:, 0]
     py = (pixel // W).to(torch.float32) + jitter[:, 1]
     rays = sensor_m.sample_rays(scene.sensor, px, py, W, H)
-    sink, _, _ = volpath_m.li(scene, cfg, rays.o, rays.d, smp,
+    sink, _, _ = volpath_m.li(scene, cfg, rays.o, rays.d, smp, pixel=pixel,
                               differentiable=True)
-    return sink.reshape(sppc, H, W, 3).mean(dim=0)
+    # the steady sink, as JAX's render_diff reads it: zero in transient or
+    # bounce mode, correlation-weighted under CW-ToF
+    return sink.steady.reshape(sppc, H, W, 3).mean(dim=0)
 
 
 def loss_fn(scene, params, cfg, sppc, seed, pass_idx, target, device=None):

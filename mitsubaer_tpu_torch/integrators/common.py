@@ -1,14 +1,23 @@
 """Shared integrator helpers (port of mitsubaer_tpu/integrators/common.py):
-the render device, the steady-state contribution sink, Russian roulette,
-the ray epsilon, and the camera prologue of a render pass.
-Transient, bounce and CW-ToF sinks are not ported (ROADMAP Queue 1 step 10).
+the render device, the contribution sink (steady state, transient, bounce
+and CW-ToF), Russian roulette, the ray epsilon, and the camera prologue of
+a render pass.
+
+The sink generalises the reference's ImageBlock putSample with the film's
+decomposition (bdpt_wr.cpp, bdpt_proc.cpp:452-476): every contribution
+carries its optical path length and depth, and lands in the steady image,
+in a time bin, in a bounce bin, or weighted by the CW-ToF correlation.
 """
 from __future__ import annotations
+
+from dataclasses import dataclass, replace
 
 import torch
 
 from ..core import rng
+from ..models import film as film_m
 from ..models import sensor as sensor_m
+from ..models import tof
 from ..scene.types import RenderConfig
 
 
@@ -22,25 +31,73 @@ def render_device(device) -> torch.device:
     return device
 
 
-def new_sink(n: int, device=None) -> torch.Tensor:
-    """Steady-state sink: the (N, 3) radiance of each lane."""
-    return torch.zeros((n, 3), dtype=torch.float32, device=device)
+@dataclass(frozen=True)
+class Sink:
+    """What a lane's contributions add to: `steady` (N, 3), and where the
+    film has frames (cfg.n_frames > 1) `frames` (H W, F, 3) of the pass,
+    addressed through `pixel`, the (N,) pixel of each lane."""
+    steady: torch.Tensor
+    frames: torch.Tensor | None = None
+    pixel: torch.Tensor | None = None
 
 
-def add_contribution(sink, value, active, log_p=None):
-    """sink + value where active; non-finite values carry no energy (they
-    are numerical casualties on degenerate lanes) and are dropped, before
-    the mask, so that NaN primals never reach the backward pass.
+def sync(device) -> None:
+    """Wait for the card's queued work (a timer's edge); nothing on the
+    CPU."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
-    log_p: the attached log-density of the parameter-dependent sampling
-    decisions behind the contribution (common.py:33-56). Where given, the
-    zero-valued surrogate value.detach() * (log_p - log_p.detach()) is
-    added, whose derivative is the score term value * dlog_p."""
+
+def new_sink(cfg: RenderConfig, n: int, pixel=None, device=None) -> Sink:
+    """An empty sink of n lanes; frames where cfg.n_frames > 1, which need
+    the lanes' pixels."""
+    frames = None
+    if cfg.n_frames > 1:
+        if pixel is None:
+            raise ValueError("a sink with frames needs the lanes' pixels")
+        frames = torch.zeros((cfg.height * cfg.width, cfg.n_frames, 3),
+                             dtype=torch.float32, device=device)
+    return Sink(steady=torch.zeros((n, 3), dtype=torch.float32,
+                                   device=device),
+                frames=frames, pixel=pixel)
+
+
+def add_contribution(sink: Sink, cfg: RenderConfig, value, plen, depth,
+                     active, log_p=None) -> Sink:
+    """The sink plus value (N, 3) of the lanes `active`, a contribution of
+    optical path length plen and depth `depth` (common.py:33-69), in JAX's
+    order: non-finite values carry no energy (they are numerical casualties
+    on degenerate lanes) and are dropped before the mask, so that NaN
+    primals never reach the backward pass; then the mask; then, where
+    log_p (the attached log-density of the parameter-dependent sampling
+    decisions behind the contribution) is given, the zero-valued surrogate
+    value.detach() * (log_p - log_p.detach()), whose derivative is the
+    score term value * dlog_p. Under CW-ToF the value is weighted by the
+    correlation at plen and added to `steady`; with one frame it is added
+    to `steady`; in transient (bounce) mode it lands in the floor bin of
+    plen (depth), and nowhere where that lies outside [min_bound,
+    max_bound). The frames add through index_put_ with accumulate, in a
+    varying order on CUDA; where the value carries gradients (or log_p is
+    given) the frames are added out of place, so that a checkpointed
+    bounce that runs again does not add twice."""
     value = torch.where(torch.isfinite(value), value, 0.0)
     value = torch.where(active.unsqueeze(-1), value, 0.0)
     if log_p is not None:
         value = value + value.detach() * (log_p - log_p.detach()).unsqueeze(-1)
-    return sink + value
+    if cfg.modulation != "none":
+        w = tof.correlation_function(cfg, plen)
+        return replace(sink, steady=sink.steady + value * w.unsqueeze(-1))
+    if cfg.n_frames == 1:
+        return replace(sink, steady=sink.steady + value)
+    key = depth.to(torch.float32) if cfg.decomposition == "bounce" else plen
+    b, inside = film_m.bin_index(cfg, key)
+    value = torch.where((inside & active).unsqueeze(-1), value, 0.0)
+    index = (sink.pixel.to(torch.int64), b)
+    if value.requires_grad or log_p is not None:
+        frames = sink.frames.index_put(index, value, accumulate=True)
+    else:
+        frames = sink.frames.index_put_(index, value, accumulate=True)
+    return replace(sink, frames=frames)
 
 
 def russian_roulette(throughput, eta_scale, u, depth, cfg: RenderConfig):
@@ -62,6 +119,13 @@ def scene_epsilon(scene):
     return 1e-4 * torch.clamp_min(diag, 1e-3)
 
 
+def lane_pixels(cfg: RenderConfig, sppc: int, device=None) -> torch.Tensor:
+    """The pixel of each lane of an spp chunk: lane s * npix + p is
+    pixel p."""
+    npix = cfg.height * cfg.width
+    return torch.arange(npix, dtype=torch.int64, device=device).repeat(sppc)
+
+
 def camera_samples(scene, cfg: RenderConfig, sppc: int, seed: int,
                    pass_idx: int, mode: int = rng.INDEPENDENT):
     """The camera prologue of one spp chunk (render.py:109-124): lane
@@ -73,7 +137,7 @@ def camera_samples(scene, cfg: RenderConfig, sppc: int, seed: int,
     H, W = cfg.height, cfg.width
     npix = H * W
     dev = scene.aabb_min.device
-    pixel = torch.arange(npix, dtype=torch.int64, device=dev).repeat(sppc)
+    pixel = lane_pixels(cfg, sppc, dev)
     sample_index = torch.repeat_interleave(
         pass_idx * sppc + torch.arange(sppc, dtype=torch.int64, device=dev),
         npix)

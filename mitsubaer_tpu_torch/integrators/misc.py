@@ -30,11 +30,11 @@ def _primary(scene: Scene, o, d):
 
 
 def ao_li(scene: Scene, cfg: RenderConfig, o, d, sampler: rng.Sampler,
-          ray_length_frac: float = 0.05, n_samples: int = 4):
+          pixel=None, ray_length_frac: float = 0.05, n_samples: int = 4):
     """Ambient occlusion (ao.cpp): the share of n_samples cosine-weighted
     rays from the primary hit that travel ray_length_frac of the scene's
     diagonal unblocked; 1 where the camera ray escapes. Returns (sink,
-    sampler)."""
+    sampler); a film with frames bins it at the hit distance, depth 1."""
     n = o.shape[0]
     hit, eps = _primary(scene, o, d)
     max_dist = torch.linalg.vector_norm(scene.aabb_max - scene.aabb_min
@@ -50,13 +50,23 @@ def ao_li(scene: Scene, cfg: RenderConfig, o, d, sampler: rng.Sampler,
         occ_sum = occ_sum + torch.where(blocked, 0.0, 1.0)
     vis = occ_sum / n_samples
     value = torch.where(hit.valid, vis, 1.0).unsqueeze(-1).expand(n, 3)
-    active = torch.ones((n,), dtype=torch.bool, device=o.device)
-    return common.add_contribution(common.new_sink(n, o.device), value,
-                                   active), smp
+    return _primary_sink(cfg, value, hit, pixel), smp
+
+
+def _primary_sink(cfg: RenderConfig, value, hit, pixel):
+    """A new sink holding value on every lane, at the primary hit's
+    distance (0 where the ray escaped) and depth 1 (misc.py:40-45)."""
+    n = value.shape[0]
+    dev = value.device
+    return common.add_contribution(
+        common.new_sink(cfg, n, pixel, dev), cfg, value,
+        torch.where(hit.valid, hit.t, 0.0),
+        torch.ones((n,), dtype=torch.int32, device=dev),
+        torch.ones((n,), dtype=torch.bool, device=dev))
 
 
 def field_li(scene: Scene, cfg: RenderConfig, o, d, sampler: rng.Sampler,
-             field: str = "shNormal"):
+             pixel=None, field: str = "shNormal"):
     """Field extraction (field.cpp): a geometric quantity of the primary
     hit as a color, zero where the ray escapes. Returns (sink, sampler)."""
     n = o.shape[0]
@@ -74,9 +84,7 @@ def field_li(scene: Scene, cfg: RenderConfig, o, d, sampler: rng.Sampler,
     else:
         raise ValueError(f"unknown field {field}")
     value = torch.where(hit.valid.unsqueeze(-1), value, 0.0)
-    active = torch.ones((n,), dtype=torch.bool, device=o.device)
-    return common.add_contribution(common.new_sink(n, o.device), value,
-                                   active), sampler
+    return _primary_sink(cfg, value, hit, pixel), sampler
 
 
 def render_multichannel(scene: Scene, cfg: RenderConfig, fields=None,
@@ -99,8 +107,9 @@ def render_multichannel(scene: Scene, cfg: RenderConfig, fields=None,
     rays = sensor_m.sample_rays(scene.sensor, px, py, W, H)
     chans = [img]
     for f in fields:
-        sink, _ = field_li(scene, cfg, rays.o, rays.d, smp, field=f)
-        chans.append(sink.reshape(H, W, 3))
+        sink, _ = field_li(scene, cfg, rays.o, rays.d, smp, pixel=pixel,
+                           field=f)
+        chans.append(sink.steady.reshape(H, W, 3))
     return torch.cat(chans, dim=-1)
 
 

@@ -10,7 +10,9 @@ device sync a bounce. A bounce draws NEE's 2D and 1D numbers, the BSDF's
 2D and 1D, then roulette's, on every lane. Textures and normal or bump
 maps are read where the config says the scene has them
 (cfg.has_textures, cfg.has_normal_tex), and only the lobes of the scene's
-BSDF kinds run (cfg.bsdf_kinds).
+BSDF kinds run (cfg.bsdf_kinds). Each lane carries its path length and
+depth into the sink (common.Sink), for transient, bounce and CW-ToF
+films.
 """
 from __future__ import annotations
 
@@ -18,7 +20,6 @@ from dataclasses import dataclass
 
 import torch
 
-from .. import not_ported
 from ..core import rng
 from ..core.math import Frame, mis_weight_power, normalize
 from ..models import bsdf as bsdf_m
@@ -34,9 +35,10 @@ class State:
     o: torch.Tensor
     d: torch.Tensor
     throughput: torch.Tensor
-    sink: torch.Tensor         # (N, 3) steady-state radiance
+    sink: common.Sink
     active: torch.Tensor
     depth: torch.Tensor        # starts at 1
+    plen: torch.Tensor         # path length so far
     eta_scale: torch.Tensor
     last_pdf: torch.Tensor     # pdf of the previous BSDF sample
     last_delta: torch.Tensor   # the previous bounce was a delta lobe
@@ -55,6 +57,7 @@ def body(scene: Scene, cfg: RenderConfig, s: State, eps) -> State:
                           need_uv=cfg.has_textures)
     hide = (s.depth == 1) if cfg.hide_emitters else torch.zeros_like(
         s.active)
+    plen_at_hit = s.plen + torch.where(hit.valid, hit.t, 0.0)
 
     # escaped rays: the environment
     escaped = s.active & ~hit.valid
@@ -63,7 +66,8 @@ def body(scene: Scene, cfg: RenderConfig, s: State, eps) -> State:
     w_env = torch.where(s.last_delta, 1.0, mis_weight_power(s.last_pdf,
                                                             env_pdf))
     sink = common.add_contribution(
-        s.sink, s.throughput * env * w_env.unsqueeze(-1), escaped & ~hide)
+        s.sink, cfg, s.throughput * env * w_env.unsqueeze(-1), s.plen,
+        s.depth, escaped & ~hide)
 
     # emitter hits
     sh = scene.shapes
@@ -75,8 +79,8 @@ def body(scene: Scene, cfg: RenderConfig, s: State, eps) -> State:
     w_hit = torch.where(s.last_delta, 1.0, mis_weight_power(s.last_pdf,
                                                             lum_pdf))
     sink = common.add_contribution(
-        sink, s.throughput * le * w_hit.unsqueeze(-1),
-        s.active & hit.valid & (shape_em >= 0) & ~hide)
+        sink, cfg, s.throughput * le * w_hit.unsqueeze(-1), plen_at_hit,
+        s.depth, s.active & hit.valid & (shape_em >= 0) & ~hide)
 
     active = s.active & hit.valid & (s.depth < cfg.max_depth)
 
@@ -107,9 +111,9 @@ def body(scene: Scene, cfg: RenderConfig, s: State, eps) -> State:
                              (eps * 0.1).expand(n), ds.dist - 2 * eps)
     w_nee = torch.where(ds.delta, 1.0, mis_weight_power(ds.pdf, pdf_dir))
     sink = common.add_contribution(
-        sink, s.throughput * f_nee * ds.value
+        sink, cfg, s.throughput * f_nee * ds.value
         * (w_nee / torch.clamp_min(ds.pdf, 1e-12)).unsqueeze(-1),
-        vis_needed & ~blocked)
+        plen_at_hit + ds.dist, s.depth + 1, vis_needed & ~blocked)
 
     # BSDF sampling
     u2b, smp = rng.next_2d(smp)
@@ -131,31 +135,26 @@ def body(scene: Scene, cfg: RenderConfig, s: State, eps) -> State:
         d=_w3(active, wo_world, s.d),
         throughput=_w3(active, throughput, s.throughput), sink=sink,
         active=active, depth=torch.where(active, s.depth + 1, s.depth),
+        plen=torch.where(active, plen_at_hit, s.plen),
         eta_scale=torch.where(active, eta_scale, s.eta_scale),
         last_pdf=torch.where(active, bs.pdf, s.last_pdf),
         last_delta=torch.where(active, bs.delta, s.last_delta),
         sampler=smp)
 
 
-def check_supported(scene: Scene, cfg: RenderConfig) -> None:
-    """Raise for what the path integrator does not port yet."""
-    if cfg.n_frames != 1 or cfg.modulation != "none":
-        raise not_ported("transient and CW-ToF sinks", 10)
-
-
 def li(scene: Scene, cfg: RenderConfig, o, d, sampler: rng.Sampler,
        pixel=None):
-    """Radiance along the (N, 3) rays (o, d). Returns the (N, 3) sink, the
-    sampler after the last bounce and [bounces]. `pixel` is the JAX
-    signature's (the transient sinks' lane-to-pixel map), unread here."""
-    check_supported(scene, cfg)
+    """Radiance along the (N, 3) rays (o, d). Returns the sink
+    (common.Sink), the sampler after the last bounce and [bounces].
+    `pixel` is each lane's pixel, which a film with frames needs."""
     n = o.shape[0]
     dev = o.device
     s = State(
         o=o, d=d, throughput=torch.ones((n, 3), device=dev),
-        sink=common.new_sink(n, dev),
+        sink=common.new_sink(cfg, n, pixel, dev),
         active=torch.ones((n,), dtype=torch.bool, device=dev),
         depth=torch.ones((n,), dtype=torch.int32, device=dev),
+        plen=torch.zeros((n,), device=dev),
         eta_scale=torch.ones((n,), device=dev),
         last_pdf=torch.zeros((n,), device=dev),
         last_delta=torch.ones((n,), dtype=torch.bool, device=dev),

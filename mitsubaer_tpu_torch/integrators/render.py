@@ -1,6 +1,9 @@
 """Render entry point (port of mitsubaer_tpu/integrators/render.py::render).
 
-Four roads are ported, chosen as the JAX render() chooses them:
+Integrators "bdpt" and "ptracer" go to `bdpt.render_bdpt` and
+`ptracer.render_ptracer` before any film or engine is chosen, as in the
+JAX render(). Four roads are ported for the others, chosen as the JAX
+render() chooses them:
 - loop: the loop engines, taken by integrators "volpath" and "path" with
   any film filter but box (the default is gaussian) or with
   engine="loop", by "volpath_simple" unless engine="wavefront", and by
@@ -17,10 +20,16 @@ Four roads are ported, chosen as the JAX render() chooses them:
   emitters, every BSDF kind, homogeneous and heterogeneous media), through
   `wavefront.render_wavefront` and kernel C, plus the beam splat where the
   scene has a collimated emitter.
-- volpath_er: the eikonal (refractive) integrator, forward and steady-state,
-  with any film filter; each spp chunk runs camera rays, the host-driven
-  bounce loop and the film splat, as the JAX render's host-stepped ER
-  branch.
+- volpath_er: the eikonal (refractive) integrator, forward, with any film
+  filter; each spp chunk runs camera rays, the host-driven bounce loop and
+  the film splat, as the JAX render's host-stepped ER branch.
+
+The loop and eikonal roads render every film decomposition: steady state,
+transient and bounce frames (an (H, W, 3F) image; the frames bypass the
+film filter and are divided by the steady splat's weights, render.py:
+137-148) and CW-ToF weights. The fast engines (boxwalk, wavefront) keep a
+steady film: "auto" takes them only there, and engine="wavefront" with
+frames or a modulation raises ValueError.
 
 Renders run on the CUDA card unless the caller passes device="cpu", where
 the plain PyTorch versions of the kernels run instead. Every other road
@@ -40,21 +49,22 @@ from ..models import medium as medium_m
 from ..models import phase as phase_m
 from ..models import sensor as sensor_m
 from ..scene.types import EM_COLLIMATED, MED_HETEROGENEOUS, RenderConfig, Scene
+from . import bdpt as bdpt_m
 from . import boxwalk, common
 from . import misc as misc_m
 from . import path as path_m
+from . import ptracer as ptracer_m
 from . import volpath as volpath_m
 from . import volpath_er as er_m
 from . import wavefront as wf_m
 
 _NOT_PORTED = {
-    "ptracer": 12, "vpl": 12, "bdpt": 12, "pssmlt": 12, "pssmlt_volpath": 12,
-    "mlt": 12, "erpt": 12, "singlescatter": 12, "singlescatter_mesh": 12,
-    "dipole": 12, "photonmapper": 12, "ppm": 12, "sppm": 12, "bre": 12,
-    "irrcache": 12,
+    "vpl": 12, "pssmlt": 12, "pssmlt_volpath": 12, "mlt": 12, "erpt": 12,
+    "singlescatter": 12, "singlescatter_mesh": 12, "dipole": 12,
+    "photonmapper": 12, "ppm": 12, "sppm": 12, "bre": 12, "irrcache": 12,
 }
 _PORTED = ("volpath", "volpath_simple", "volpath_er", "path", "direct",
-           "ao", "field")
+           "ao", "field", "bdpt", "ptracer")
 
 
 def _use_wavefront(cfg: RenderConfig) -> bool:
@@ -104,24 +114,36 @@ def render_pass(scene: Scene, accum, cfg: RenderConfig, sppc: int,
     rays, jitter, smp = common.camera_samples(scene, cfg, sppc, seed,
                                               pass_idx,
                                               rng.mode_of(cfg.sampler))
+    pixel = common.lane_pixels(cfg, sppc, rays.o.device)
     if cfg.integrator == "direct":
         cfg = replace(cfg, max_depth=2, integrator="path")
     if cfg.integrator in ("ao", "field"):
-        sink, _ = (misc_m.ao_li(scene, cfg, rays.o, rays.d, smp)
+        sink, _ = (misc_m.ao_li(scene, cfg, rays.o, rays.d, smp, pixel)
                    if cfg.integrator == "ao" else
-                   misc_m.field_li(scene, cfg, rays.o, rays.d, smp,
+                   misc_m.field_li(scene, cfg, rays.o, rays.d, smp, pixel,
                                    field=cfg.field))
         counts = []
     elif cfg.integrator == "path":
-        sink, _, counts = path_m.li(scene, cfg, rays.o, rays.d, smp)
+        sink, _, counts = path_m.li(scene, cfg, rays.o, rays.d, smp, pixel)
     else:
         sink, _, counts = volpath_m.li(
-            scene, cfg, rays.o, rays.d, smp,
+            scene, cfg, rays.o, rays.d, smp, pixel,
             simple=cfg.integrator == "volpath_simple")
+    return _splat_sink(accum, cfg, sink, jitter, sppc), counts
+
+
+def _splat_sink(accum, cfg: RenderConfig, sink: common.Sink, jitter,
+                sppc: int):
+    """A pass's sink into the film (render.py:135-148): the steady values
+    through the filter into frame 0 and the weight channel, then the
+    frames, unfiltered, onto the 3F frame channels."""
     H, W = cfg.height, cfg.width
-    accum = film_m.splat(accum, sink.reshape(sppc, H, W, 3),
+    accum = film_m.splat(accum, sink.steady.reshape(sppc, H, W, 3),
                          jitter.reshape(sppc, H, W, 2), cfg.filter)
-    return accum, counts
+    if sink.frames is not None:
+        accum[..., :3 * cfg.n_frames] += sink.frames.reshape(
+            H, W, 3 * cfg.n_frames)
+    return accum
 
 
 def beam_splat_pass(scene: Scene, splat, cfg: RenderConfig, n_samples: int,
@@ -129,9 +151,10 @@ def beam_splat_pass(scene: Scene, splat, cfg: RenderConfig, n_samples: int,
     """Single-scatter light-tracing splat for a collimated beam: sample y
     on the beam equiangularly w.r.t. the camera, project it to the film and
     add power * Tr(o_b, y) * sigma_s(y) * rho * Tr(y, cam) / (d^2 pdf(s)).
-    Accumulates into `splat` (H, W, 3) in place and returns it."""
-    if cfg.n_frames != 1:
-        raise not_ported("the transient beam splat", 10)
+    Accumulates into `splat` (H, W, 3F) in place and returns it: with
+    frames, into the bin of the path length s + d (render.py:218-226; the
+    constant 2.0 in bounce mode), nothing outside [min_bound, max_bound).
+    Under CW-ToF the splat is not weighted, as in the JAX package."""
     H, W = cfg.height, cfg.width
     dev = splat.device
     beam = volpath_m.get_beam(scene)
@@ -168,7 +191,15 @@ def beam_splat_pass(scene: Scene, splat, cfg: RenderConfig, n_samples: int,
     px = torch.clamp(torch.nan_to_num(fs.px).to(torch.int64), 0, W - 1)
     py = torch.clamp(torch.nan_to_num(fs.py).to(torch.int64), 0, H - 1)
     # scatter-add: on CUDA the order of the adds, and so the rounding, varies
-    splat.view(H * W, 3).index_add_(0, py * W + px, value)
+    if cfg.n_frames == 1:
+        splat.view(H * W, 3).index_add_(0, py * W + px, value)
+        return splat
+    key = (sdist + dist if cfg.decomposition != "bounce"
+           else torch.full_like(sdist, 2.0))
+    b, inside = film_m.bin_index(cfg, key)
+    value = torch.where((inside & ok).unsqueeze(-1), value, 0.0)
+    splat.view(H * W, cfg.n_frames, 3).index_put_((py * W + px, b), value,
+                                                  accumulate=True)
     return splat
 
 
@@ -181,23 +212,26 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
     default (it raises where there is none), the CPU only when
     device="cpu" is passed.
 
-    Roads: integrator "volpath_er" takes the eikonal road (steady state);
-    "volpath" or "path" with a box filter takes boxwalk on a scene of the
-    boxwalk class and the wavefront engine on any other; "volpath" or
-    "path" with another filter or engine="loop", "volpath_simple" unless
-    engine="wavefront", and "direct" take a loop engine.
-    "ao" and "field" take the loop road's camera rays (misc.py). The JAX
-    package's other integrators raise NotImplementedError naming their
-    ROADMAP Queue 1 step: the transient sinks (step 10) and the other
-    integrators (step 12). A name the JAX
-    package does not know raises ValueError, as its get_integrator does.
+    Roads: integrators "bdpt" and "ptracer" render through their own
+    passes (bdpt.render_bdpt, ptracer.render_ptracer); "volpath_er" takes
+    the eikonal road; "volpath" or "path" with a box filter and a steady
+    film takes boxwalk on a scene of the boxwalk class and the wavefront
+    engine on any other; "volpath" or "path" with another filter, a film
+    with frames or a CW-ToF modulation, or engine="loop",
+    "volpath_simple" unless engine="wavefront", and "direct" take a loop
+    engine. "ao" and "field" take the loop road's camera rays (misc.py).
+    With frames the image is (H, W, 3F). engine="wavefront" with frames or
+    a modulation raises ValueError. The JAX package's other integrators
+    raise NotImplementedError naming their ROADMAP Queue 1 step (step 12).
+    A name the JAX package does not know raises ValueError, as its
+    get_integrator does.
 
     If `stats` is a dict it receives, per pass, "passes" ([segments, taps,
     iters, unfinished] on the boxwalk and wavefront roads, [bounces,
     Woodcock tracking iterations] on the volpath loop road, [bounces] on
     the path loop road and the eikonal road) and the seconds of the
     passes, timed with a device synchronize around each, as "boxwalk_s",
-    "wavefront_s", "loop_s" or "er_s"."""
+    "wavefront_s", "loop_s", "er_s", "bdpt_s" or "ptracer_s"."""
     if spp is not None:
         cfg = replace(cfg, spp=spp)
     if cfg.integrator in _NOT_PORTED:
@@ -205,17 +239,19 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
                           _NOT_PORTED[cfg.integrator])
     if cfg.integrator not in _PORTED:
         raise ValueError(f"unknown integrator {cfg.integrator}")
+    if cfg.integrator in ("bdpt", "ptracer"):
+        fn = (bdpt_m.render_bdpt if cfg.integrator == "bdpt"
+              else ptracer_m.render_ptracer)
+        return fn(scene.to(_device(device)), cfg, seed=seed, stats=stats)
     if cfg.integrator == "volpath_er":
-        er_m.check_supported(scene, cfg)
         return _render_film(scene.to(_device(device)), cfg, seed, stats,
                             "er_s", _er_pass)
     if not _use_wavefront(cfg):
         scene = scene.to(_device(device))
         img = _render_film(scene, cfg, seed, stats, "loop_s", render_pass)
         return _add_beam_splat(scene, cfg, img, seed)
+    wf_m.check_supported(scene, cfg)
     use_bw = boxwalk.supported(scene, cfg)
-    if not use_bw:
-        wf_m.check_supported(scene, cfg)
     scene = scene.to(_device(device))
     dev = scene.aabb_min.device
     npix = cfg.width * cfg.height
@@ -231,7 +267,7 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
     while done < cfg.spp:
         sppc = min(spp_per_pass, cfg.spp - done)
         if stats is not None:
-            _sync(dev)
+            common.sync(dev)
             t0 = time.perf_counter()
         if use_bw:
             Lb, st = boxwalk.render_boxwalk(scene, cfg, sppc, seed, pass_idx)
@@ -241,7 +277,7 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
                                           pass_idx, has_direct=hd,
                                           any_het=het)
         if stats is not None:
-            _sync(dev)
+            common.sync(dev)
             stats[timer] += time.perf_counter() - t0
             stats["passes"].append(st.tolist())
         done += sppc
@@ -252,13 +288,14 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
 
 def _add_beam_splat(scene: Scene, cfg: RenderConfig, img, seed: int):
     """img plus 4 beam-splat passes of 4 npix samples each, where the
-    scene has a collimated emitter (render.py:380-389, 420-429)."""
+    scene has a collimated emitter (render.py:380-389, 420-429); frame by
+    frame where the film has frames."""
     if not (cfg.integrator.startswith("volpath") and _has_beam(scene)):
         return img
     n_splat = 4 * cfg.width * cfg.height
     n_passes = 4
-    splat = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
-                        device=img.device)
+    splat = torch.zeros((cfg.height, cfg.width, 3 * cfg.n_frames),
+                        dtype=torch.float32, device=img.device)
     for i in range(n_passes):
         beam_splat_pass(scene, splat, cfg, n_splat, seed, i)
     return img + splat / float(n_splat * n_passes)
@@ -287,11 +324,11 @@ def _render_film(scene: Scene, cfg: RenderConfig, seed: int, stats,
     while done < cfg.spp:
         sppc = min(spp_per_pass, cfg.spp - done)
         if stats is not None:
-            _sync(dev)
+            common.sync(dev)
             t0 = time.perf_counter()
         accum, counts = pass_fn(scene, accum, cfg, sppc, seed, pass_idx)
         if stats is not None:
-            _sync(dev)
+            common.sync(dev)
             stats[timer] += time.perf_counter() - t0
             stats["passes"].append(counts)
         done += sppc
@@ -305,12 +342,5 @@ def _er_pass(scene: Scene, accum, cfg: RenderConfig, sppc: int, seed: int,
     accumulator and [bounces]."""
     sink, jitter, bounces = er_m.render_er_pass(scene, cfg, sppc, seed,
                                                 pass_idx)
-    H, W = cfg.height, cfg.width
-    accum = film_m.splat(accum, sink.reshape(sppc, H, W, 3),
-                         jitter.reshape(sppc, H, W, 2), cfg.filter)
-    return accum, [bounces]
+    return _splat_sink(accum, cfg, sink, jitter, sppc), [bounces]
 
-
-def _sync(device):
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)

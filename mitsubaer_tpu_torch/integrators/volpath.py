@@ -25,8 +25,10 @@ host-synced trip counts come out the same. Surfaces read every BSDF
 kind (only the lobes of cfg.bsdf_kinds run) and their textures where
 cfg.has_textures; as in the JAX `li`, normal and bump maps are not read
 here. Every phase kind runs (only those of cfg.phase_kinds), turned by
-the orientation field's axes where cfg.phase_orient is set. Transient
-and CW-ToF sinks (ROADMAP Queue 1 step 10) raise `not_ported`.
+the orientation field's axes where cfg.phase_orient is set. Each lane
+carries its optical path length and depth into the sink, so transient,
+bounce and CW-ToF films (common.Sink) take its contributions as the JAX
+`li`'s do.
 """
 from __future__ import annotations
 
@@ -36,7 +38,6 @@ from dataclasses import dataclass
 import torch
 import torch.utils.checkpoint
 
-from .. import not_ported
 from ..core import rng
 from ..core.math import Frame, dot, length, mis_weight_power
 from ..models import bsdf as bsdf_m
@@ -46,7 +47,8 @@ from ..models import phase as phase_m
 from ..models import texture as texture_m
 from ..scene import intersect as isect
 from ..scene.types import (BSDF_NULL, EM_COLLIMATED, MED_HETEROGENEOUS,
-                           MED_HOMOGENEOUS, RenderConfig, Scene)
+                           MED_HOMOGENEOUS, MED_REFRACTIVE, RenderConfig,
+                           Scene)
 from . import common
 
 
@@ -85,10 +87,14 @@ def segment_transmittance(scene: Scene, medium_idx, o, d, dist, smp, active,
 
 def attenuated_visibility(scene: Scene, eps, o, d, dist, medium_idx, smp,
                           active, max_crossings: int = 4, bricks=None,
-                          differentiable: bool = False):
+                          differentiable: bool = False,
+                          block_refractive: bool = False):
     """Transmittance along shadow segments, walking through null medium
     boundaries (Scene::evalTransmittanceAll); opaque surfaces give 0. At
-    most max_crossings segments a lane, in either mode."""
+    most max_crossings segments a lane, in either mode. With
+    block_refractive a boundary with a refractive medium on either side
+    blocks too: the curved connection owns such segments (edge.cpp:473,
+    volpath.py:86-130)."""
     n = o.shape[0]
 
     def crossing_trip(state):
@@ -101,6 +107,13 @@ def attenuated_visibility(scene: Scene, eps, o, d, dist, medium_idx, smp,
         tr = torch.where(running.unsqueeze(-1), tr * tr_seg, tr)
         b_idx, _, m_in, m_ex = _shape_tables(scene, hit.shape_id)
         is_null = _is_null_surface(scene, b_idx)
+        if block_refractive:
+            kinds = scene.media.kind
+            nm = kinds.shape[0]
+            for m in (m_in, m_ex):
+                ref = kinds[torch.clamp(m, 0, nm - 1).to(torch.int64)] \
+                    == MED_REFRACTIVE
+                is_null = is_null & ~((m >= 0) & ref)
         blocked = running & hit.valid & ~is_null
         tr = torch.where(blocked.unsqueeze(-1), 0.0, tr)
         crossing = running & hit.valid & is_null
@@ -211,12 +224,6 @@ def beam_transmittance(beam: Beam, tau_table, s, with_density: bool = False):
 # ---------------------------------------------------------------------------
 # The loop engine
 # ---------------------------------------------------------------------------
-def check_supported(scene: Scene, cfg: RenderConfig) -> None:
-    """Raise for what the loop engine does not port yet."""
-    if cfg.n_frames != 1 or cfg.modulation != "none":
-        raise not_ported("transient and CW-ToF sinks", 10)
-
-
 @dataclass(frozen=True)
 class PassTables:
     """What `li` builds once a pass: the f32 density grid every lookup
@@ -236,9 +243,10 @@ class State:
     o: torch.Tensor
     d: torch.Tensor
     throughput: torch.Tensor
-    sink: torch.Tensor          # (N, 3) steady-state radiance
+    sink: common.Sink
     active: torch.Tensor
     depth: torch.Tensor
+    plen: torch.Tensor          # optical path length so far
     eta_scale: torch.Tensor
     last_pdf: torch.Tensor
     last_delta: torch.Tensor
@@ -314,6 +322,8 @@ def body(scene: Scene, cfg: RenderConfig, s: State, tabs: PassTables,
     throughput = s.throughput * m_weight
     m_p = s.o + m_t.unsqueeze(-1) * s.d
     reached = s.active & ~scattered            # surface and escaped lanes
+    plen_here = s.plen + torch.where(scattered, m_t,
+                                     torch.where(hit.valid, hit.t, 0.0))
 
     # ---------- escaped lanes: environment ----------
     escaped = reached & ~hit.valid
@@ -322,8 +332,9 @@ def body(scene: Scene, cfg: RenderConfig, s: State, tabs: PassTables,
     w_env = torch.where(s.last_delta, 1.0,
                         0.0 if simple else mis_weight_power(s.last_pdf,
                                                             env_pdf))
-    sink = common.add_contribution(s.sink, throughput * env
-                                   * w_env.unsqueeze(-1), escaped, log_p)
+    sink = common.add_contribution(s.sink, cfg, throughput * env
+                                   * w_env.unsqueeze(-1), s.plen, s.depth,
+                                   escaped, log_p)
 
     # ---------- surface tables ----------
     b_idx, e_idx, m_in, m_ex = _shape_tables(scene, hit.shape_id)
@@ -338,9 +349,9 @@ def body(scene: Scene, cfg: RenderConfig, s: State, tabs: PassTables,
                         0.0 if simple else mis_weight_power(s.last_pdf,
                                                             lum_pdf))
     shown = ~(s.depth == 1) if cfg.hide_emitters else True
-    sink = common.add_contribution(sink, throughput * le
-                                   * w_hit.unsqueeze(-1), hit_emitter & shown,
-                                   log_p)
+    sink = common.add_contribution(sink, cfg, throughput * le
+                                   * w_hit.unsqueeze(-1), plen_here, s.depth,
+                                   hit_emitter & shown, log_p)
 
     depth_ok = s.depth < cfg.max_depth
 
@@ -399,7 +410,8 @@ def body(scene: Scene, cfg: RenderConfig, s: State, tabs: PassTables,
         w_nee = torch.ones_like(w_nee)
     contrib = (throughput * f_vtx * ds.value * tr_all[:n]
                * (w_nee / torch.clamp_min(ds.pdf, 1e-12)).unsqueeze(-1))
-    sink = common.add_contribution(sink, contrib, vis_needed, log_p)
+    sink = common.add_contribution(sink, cfg, contrib, plen_here + ds.dist,
+                                   s.depth + 1, vis_needed, log_p)
 
     # =========== beam NEE ===========
     if cfg.has_beam:
@@ -419,7 +431,8 @@ def body(scene: Scene, cfg: RenderConfig, s: State, tabs: PassTables,
         f_med_b = phase_m.eval(media.phase, s.medium, s.d, -d_yp,
                                active=pact)
         f_b = _w3(scattered, f_med_b.unsqueeze(-1), f_srf_b)
-        sink = common.add_contribution(sink, throughput * f_b * bval,
+        sink = common.add_contribution(sink, cfg, throughput * f_b * bval,
+                                       plen_here + s_b + dist_b, s.depth + 2,
                                        nee_active, log_p)
 
     # =========== direction sampling ===========
@@ -470,6 +483,7 @@ def body(scene: Scene, cfg: RenderConfig, s: State, tabs: PassTables,
         o=_w3(active, new_o, s.o), d=_w3(active, torch.nan_to_num(new_d), s.d),
         throughput=_w3(active, throughput2, s.throughput), sink=sink,
         active=active, depth=torch.where(inc_depth, s.depth + 1, s.depth),
+        plen=torch.where(active, plen_here, s.plen),
         eta_scale=torch.where(active, eta_scale, s.eta_scale),
         last_pdf=torch.where(active, new_pdf, s.last_pdf),
         last_delta=torch.where(active, new_delta, s.last_delta),
@@ -487,23 +501,24 @@ def _checkpointed(step, s: State):
 
 
 def li(scene: Scene, cfg: RenderConfig, o, d, sampler: rng.Sampler,
-       simple: bool = False, differentiable: bool = False):
+       pixel=None, simple: bool = False, differentiable: bool = False):
     """Radiance along the (N, 3) camera rays (o, d): the bounce loop of the
-    JAX `li` on the host. `simple` is volpath_simple (no MIS: emitters seen
-    by a non-delta bounce count 0, NEE counts in full). `differentiable`
-    is the JAX `li(differentiable=True)`: the sink carries gradients to the
+    JAX `li` on the host. `pixel` is each lane's pixel, which a film with
+    frames needs. `simple` is volpath_simple (no MIS: emitters seen by a
+    non-delta bounce count 0, NEE counts in full). `differentiable` is the
+    JAX `li(differentiable=True)`: the sink carries gradients to the
     scene's medium parameters, each bounce under a checkpoint. Returns the
-    (N, 3) sink, the sampler after the last bounce and [bounces, Woodcock
-    tracking iterations]."""
-    check_supported(scene, cfg)
+    sink (common.Sink), the sampler after the last bounce and [bounces,
+    Woodcock tracking iterations]."""
     n = o.shape[0]
     dev = o.device
     tabs = pass_tables(scene, cfg)
     s = State(
         o=o, d=d, throughput=torch.ones((n, 3), device=dev),
-        sink=common.new_sink(n, dev),
+        sink=common.new_sink(cfg, n, pixel, dev),
         active=torch.ones((n,), dtype=torch.bool, device=dev),
         depth=torch.ones((n,), dtype=torch.int32, device=dev),
+        plen=torch.zeros((n,), device=dev),
         eta_scale=torch.ones((n,), device=dev),
         last_pdf=torch.zeros((n,), device=dev),
         last_delta=torch.ones((n,), dtype=torch.bool, device=dev),

@@ -1,6 +1,6 @@
 """Refractive radiative transfer: volumetric path tracing with curved rays
 through a refractive-index field (port of
-mitsubaer_tpu/integrators/volpath_er.py, steady-state).
+mitsubaer_tpu/integrators/volpath_er.py).
 
 Camera paths travel straight outside the refractive body, refract into it
 through an h-dielectric boundary (Fresnel by the RIF at the hit point),
@@ -28,8 +28,8 @@ loops, and casts its results back to the float32 path state once an event,
 where the JAX package does. The light image (`render_er_light_image`,
 `trace_er_particles`) traces light particles from any emitter kind
 through the medium and joins every scatter vertex to the camera by
-the sensor-side BVP. Transient sinks are not ported (ROADMAP Queue 1 step
-10).
+the sensor-side BVP. Each lane carries its optical path length and depth
+into the sink (common.Sink), for transient, bounce and CW-ToF films.
 """
 from __future__ import annotations
 
@@ -39,7 +39,6 @@ from dataclasses import dataclass, fields, replace
 import torch
 import torch.utils.checkpoint
 
-from .. import not_ported
 from ..core import rng
 from ..core.math import (Frame, dot, fresnel_dielectric, mis_weight_power,
                          normalize)
@@ -61,7 +60,7 @@ class State:
     v: torch.Tensor            # scaled velocity: |v| = n(p) inside, 1 outside
     inside: torch.Tensor       # (N,) bool: inside the refractive medium
     throughput: torch.Tensor
-    sink: torch.Tensor         # (N, 3) steady-state radiance
+    sink: common.Sink
     active: torch.Tensor
     depth: torch.Tensor
     plen: torch.Tensor         # optical path length
@@ -71,12 +70,6 @@ class State:
     #   medium scatter; its transport to area emitters belongs to curved NEE
     iters: int
     sampler: rng.Sampler
-
-
-def check_supported(scene: Scene, cfg: RenderConfig) -> None:
-    """Raise for what the eikonal road does not port yet."""
-    if cfg.n_frames != 1 or cfg.modulation != "none":
-        raise not_ported("transient and CW-ToF sinks", 10)
 
 
 def _refractive_params(scene: Scene):
@@ -89,13 +82,13 @@ def _refractive_params(scene: Scene):
             media.sampling_weight[idx], idx)
 
 
-def new_state(o, d, sampler) -> State:
+def new_state(cfg: RenderConfig, o, d, sampler, pixel=None) -> State:
     n = o.shape[0]
     dev = o.device
     falses = torch.zeros((n,), dtype=torch.bool, device=dev)
     return State(
         o=o, v=d, inside=falses, throughput=torch.ones_like(o),
-        sink=common.new_sink(n, dev), active=~falses,
+        sink=common.new_sink(cfg, n, pixel, dev), active=~falses,
         depth=torch.ones((n,), dtype=torch.int32, device=dev),
         plen=torch.zeros((n,), device=dev), last_pdf=torch.zeros((n,),
                                                                  device=dev),
@@ -154,7 +147,8 @@ def body(scene: Scene, cfg: RenderConfig, s: State, rif: ek.RifField,
     w_env = torch.where(s.last_delta, 1.0, mis_weight_power(s.last_pdf,
                                                             env_pdf))
     sink = common.add_contribution(
-        s.sink, s.throughput * env * w_env.unsqueeze(-1), escaped)
+        s.sink, cfg, s.throughput * env * w_env.unsqueeze(-1), s.plen,
+        s.depth, escaped)
 
     sh = scene.shapes
     sid = torch.clamp(hit.shape_id, 0, sh.bsdf.shape[0] - 1)
@@ -173,7 +167,8 @@ def body(scene: Scene, cfg: RenderConfig, s: State, rif: ek.RifField,
                                                             lum_pdf))
     plen_srf = s.plen + torch.where(hit.valid, hit.t, 0.0)
     sink = common.add_contribution(
-        sink, s.throughput * le * w_hit.unsqueeze(-1), hit_emitter & ~hide)
+        sink, cfg, s.throughput * le * w_hit.unsqueeze(-1), plen_srf,
+        s.depth, hit_emitter & ~hide)
 
     depth_ok = s.depth < cfg.max_depth
 
@@ -194,9 +189,9 @@ def body(scene: Scene, cfg: RenderConfig, s: State, rif: ek.RifField,
                              (eps * 0.1).expand(n), ds.dist - 2 * eps)
     w_nee = torch.where(ds.delta, 1.0, mis_weight_power(ds.pdf, pdf_dir))
     sink = common.add_contribution(
-        sink, s.throughput * f_nee * ds.value
+        sink, cfg, s.throughput * f_nee * ds.value
         * (w_nee / torch.clamp_min(ds.pdf, 1e-12)).unsqueeze(-1),
-        vis & ~blocked)
+        plen_srf + ds.dist, s.depth + 1, vis & ~blocked)
     u2b, smp = rng.next_2d(smp)
     u1b, smp = rng.next_1d(smp)
     bs = bsdf_m.sample(scene.bsdfs, b_idx, wi_l, u2b, u1b, active=act)
@@ -293,7 +288,9 @@ def body(scene: Scene, cfg: RenderConfig, s: State, rif: ek.RifField,
     contrib = (throughput * ph_val.unsqueeze(-1) * dsm.value * tr_conn
                * (nee_ratio * falloff_fix * conn_w
                   / torch.clamp_min(dsm.pdf, 1e-12)).unsqueeze(-1))
-    sink = common.add_contribution(sink, contrib, nee_in & bvp.converged)
+    sink = common.add_contribution(sink, cfg, contrib,
+                                   plen_med + bvp.opt_len, s.depth + 1,
+                                   nee_in & bvp.converged)
 
     # --- phase sampling at scatter vertices ---
     u2p, smp = rng.next_2d(smp)
@@ -404,16 +401,16 @@ _held_solves: dict | None = None
 def li(scene: Scene, cfg: RenderConfig, o, d, sampler: rng.Sampler,
        pixel=None, differentiable: bool = False):
     """Radiance along the (N, 3) camera rays (o, d) (volpath_er.py:82-127).
-    `pixel` is accepted as in the JAX `li`, whose transient sinks read it;
-    the steady sink does not. `differentiable`: each bounce under a
+    `pixel` is each lane's pixel, which a film with frames needs.
+    `differentiable`: each bounce under a
     checkpoint and the marches attached, so the sink carries gradients to
     the RIF and the medium's coefficients; the backward's recomputed
     bounce reuses the forward's solved BVP connections. JAX's
     differentiable loop is a scan of exactly max_iters(cfg) trips; a trip
     after the last lane stopped changes nothing but the sampler, so the
     loop stops there and advances the sampler by the draws of the trips
-    not run. Returns the (N, 3) sink, the sampler and the bounces run."""
-    check_supported(scene, cfg)
+    not run. Returns the sink (common.Sink), the sampler and the bounces
+    run."""
     rif = ek.rif_from_media(scene.media)
     sdf = ek.sdf_from_media(scene.media)
     solves = None
@@ -421,7 +418,7 @@ def li(scene: Scene, cfg: RenderConfig, o, d, sampler: rng.Sampler,
         solves = {} if _held_solves is None else _held_solves
     step = functools.partial(body, scene, cfg, rif=rif, sdf=sdf,
                              differentiable=differentiable, solves=solves)
-    s = new_state(o, d, sampler)
+    s = new_state(cfg, o, d, sampler, pixel)
     while s.iters < max_iters(cfg) and bool(s.active.any()):
         s = _checkpointed(step, s) if differentiable else step(s)
     smp = s.sampler
@@ -433,11 +430,13 @@ def li(scene: Scene, cfg: RenderConfig, o, d, sampler: rng.Sampler,
 
 def render_er_pass(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
                    pass_idx: int):
-    """One spp chunk through `li`; returns ((sppc * npix, 3) radiance,
-    (sppc * npix, 2) jitter, bounces run)."""
+    """One spp chunk through `li`; returns (the sink of its sppc * npix
+    lanes, their (sppc * npix, 2) jitter, bounces run)."""
     rays, jitter, smp = common.camera_samples(scene, cfg, sppc, seed,
                                               pass_idx)
-    sink, _, bounces = li(scene, cfg, rays.o, rays.d, smp)
+    sink, _, bounces = li(scene, cfg, rays.o, rays.d, smp,
+                          pixel=common.lane_pixels(cfg, sppc,
+                                                   rays.o.device))
     return sink, jitter, bounces
 
 

@@ -115,9 +115,17 @@ class WFState:
 
 
 def check_supported(scene: Scene, cfg: RenderConfig) -> None:
-    """Raise for what the wavefront road does not port yet."""
+    """Raise for what the fast engines (wavefront and boxwalk) cannot
+    render: a film with frames or a CW-ToF weight. They keep one steady
+    (H W, 3) image, so render() takes them only for steady films; the JAX
+    package's engine="wavefront" with frames or modulation gives a steady
+    image (and fails to add a beam's frames to it), so the port raises."""
     if cfg.n_frames != 1 or cfg.modulation != "none":
-        raise not_ported("transient and CW-ToF sinks", 10)
+        raise ValueError(
+            f"engine='wavefront' renders a steady film only: "
+            f"decomposition={cfg.decomposition!r} with {cfg.n_frames} "
+            f"frames and modulation={cfg.modulation!r} need engine='loop' "
+            f"or 'auto'")
 
 
 def _w3(cond, a, b):

@@ -1,11 +1,15 @@
-"""Film accumulation (port of mitsubaer_tpu/models/film.py, steady state):
-each lane knows its pixel, so filter reconstruction is a fixed set of
-shifted dense adds. For every tap offset (dx, dy) within the filter's
-radius the samples of one spp chunk are weighted, summed over the chunk and
-added, shifted by (dx, dy), into the accumulator; its last channel sums the
-weights. The six reconstruction filters of the JAX package (box, tent,
-gaussian, mitchell, catmullrom, lanczos) are ported; the time-binned
-`splat_frames` and `bin_index` are not (ROADMAP Queue 1 step 10).
+"""Film accumulation (port of mitsubaer_tpu/models/film.py): each lane
+knows its pixel, so filter reconstruction is a fixed set of shifted dense
+adds. For every tap offset (dx, dy) within the filter's radius the samples
+of one spp chunk are weighted, summed over the chunk and added, shifted by
+(dx, dy), into the accumulator; its last channel sums the weights. The six
+reconstruction filters of the JAX package (box, tent, gaussian, mitchell,
+catmullrom, lanczos) are ported. The accumulator holds F frames of RGB
+(F = cfg.n_frames: the time or bounce bins of a transient or bounce
+decomposition, film.cpp:56-80) before the weight channel; `splat` fills
+frame 0, `splat_frames` a whole (S, H, W, F, 3) block, `bin_index` gives a
+contribution's frame (bdpt_proc.cpp:455-476), and `develop` divides every
+frame by the weights.
 """
 from __future__ import annotations
 
@@ -56,9 +60,10 @@ def _filter_eval(name: str, x):
 
 
 def new_accumulator(cfg: RenderConfig, device=None):
-    """(H, W, 4) accumulator: RGB sums plus the filter weight."""
-    return torch.zeros((cfg.height, cfg.width, 4), dtype=torch.float32,
-                       device=device)
+    """(H, W, 3F + 1) accumulator: F frames of RGB sums plus the filter
+    weight."""
+    return torch.zeros((cfg.height, cfg.width, 3 * cfg.n_frames + 1),
+                       dtype=torch.float32, device=device)
 
 
 def _shift2d(plane, dx: int, dy: int):
@@ -79,19 +84,48 @@ def splat(accum, values, jitter, filter_name: str):
     (S, H, W, 2) in [0, 1)^2 (x, y), weighing each sample's contribution to
     the pixel (dx, dy) away by the filter at its offset from that pixel's
     centre; the weight channel gets the weights, for `develop`."""
+    img, wsum = _splat_planes(accum[..., :3], accum[..., -1:], values,
+                              jitter, filter_name)
+    return torch.cat([img, accum[..., 3:-1], wsum], dim=-1)
+
+
+def _splat_planes(img, wsum, values, jitter, filter_name: str):
+    """img (H, W, C) and wsum (H, W, 1) plus the filtered (S, H, W, C)
+    samples and their weights."""
     r = filter_radius(filter_name)
     jx, jy = jitter[..., 0], jitter[..., 1]
-    img, wsum = accum[..., :3], accum[..., 3:]
     for dy in range(-r, r + 1):
         wy = _filter_eval(filter_name, jy - (dy + 0.5))        # (S, H, W)
         for dx in range(-r, r + 1):
             w = _filter_eval(filter_name, jx - (dx + 0.5)) * wy
             img = img + _shift2d((w.unsqueeze(-1) * values).sum(0), dx, dy)
             wsum = wsum + _shift2d(w.sum(0).unsqueeze(-1), dx, dy)
+    return img, wsum
+
+
+def splat_frames(accum, values, jitter, filter_name: str):
+    """Add a whole decomposed (S, H, W, F, 3) block with the configured
+    filter, as `splat` adds frame 0 (film.py:111-131)."""
+    S, H, W, F, _ = values.shape
+    img, wsum = _splat_planes(accum[..., :-1], accum[..., -1:],
+                              values.reshape(S, H, W, F * 3), jitter,
+                              filter_name)
     return torch.cat([img, wsum], dim=-1)
 
 
 def develop(accum):
-    """Divide by the weight channel (ImageBlock develop)."""
-    w = accum[..., 3:]
-    return torch.where(w > 0, accum[..., :3] / torch.clamp_min(w, 1e-20), 0.0)
+    """Divide every frame by the weight channel (ImageBlock develop):
+    (H, W, 3F)."""
+    w = accum[..., -1:]
+    return torch.where(w > 0, accum[..., :-1] / torch.clamp_min(w, 1e-20),
+                       0.0)
+
+
+def bin_index(cfg: RenderConfig, path_length):
+    """(frame, inside) of a contribution of this path length (or depth):
+    the floor bin clipped to the film's F frames, and whether the length
+    lies in [min_bound, max_bound) (bdpt_proc.cpp:455-476)."""
+    f = torch.floor((path_length - cfg.min_bound) / cfg.bin_width
+                    ).to(torch.int64)
+    inside = (path_length >= cfg.min_bound) & (path_length < cfg.max_bound)
+    return torch.clamp(f, 0, cfg.n_frames - 1), inside

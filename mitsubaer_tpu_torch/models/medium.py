@@ -34,11 +34,15 @@ from ..scene.types import (STRAT_MANUAL, STRAT_MAXIMUM, STRAT_SINGLE,
 INF = 3.0e38
 UNROLL = 4      # collision tests a trip of the tracking loops, as in JAX
 MAX_STEPS = 4096        # the tracking loops' trip cap in forward mode
+SETTLE_EVERY = 8        # trips between the Woodcock loop's settled checks
+# the longest Woodcock step, in units of 1 / majorant: -log1p(-u) for the
+# largest uniform the samplers give (1 - 2^-24), 16.64, rounded up
+_MAX_STEP = 17.0
 DIFF_MAX_TESTS = 64     # the differentiable tracking loops' cap in tests
 
 
 def bounded_while(running_of, body, state, max_trips: int,
-                  differentiable: bool, skip):
+                  differentiable: bool, skip, settled_of=None):
     """The tracking loops' host loop (medium.py:37-45): body(state) while
     some lane of running_of(state) runs, at most max_trips times. Returns
     (state, trips run). The JAX package runs a while loop in forward mode
@@ -47,11 +51,19 @@ def bounded_while(running_of, body, state, max_trips: int,
     last lane stopped changes nothing but the sampler: every lane still
     draws its numbers. In differentiable mode skip(state, k) therefore
     stands for the k trips not run (it advances the samplers' dimensions),
-    so the streams that follow stay the scan's."""
+    so the streams that follow stay the scan's. settled_of(state, k), where
+    given, is checked every SETTLE_EVERY trips: true where some lane still
+    runs and the k trips left are known to change nothing but the sampler
+    and to run to the cap (the while loop's own end), which skip(state, k)
+    then stands for."""
     trips = 0
     while trips < max_trips and bool(running_of(state).any()):
         state = body(state)
         trips += 1
+        if (settled_of is not None and trips % SETTLE_EVERY == 0
+                and trips < max_trips
+                and settled_of(state, max_trips - trips)):
+            return skip(state, max_trips - trips), max_trips
     if differentiable and trips < max_trips:
         state = skip(state, max_trips - trips)
     return state, trips
@@ -511,7 +523,13 @@ def sample_distance_woodcock(media: Media, sigma_a, sigma_s, scale, o, d,
     the loop stops at 64 tests (a lane still running there reports no hit,
     dist t_max and its null-collision weights so far) and log_p is the
     attached log-density of the lane's decisions, log p_real at a real
-    collision and log(1 - p_real) at a null one; otherwise log_p is None."""
+    collision and log(1 - p_real) at a null one; otherwise log_p is None.
+    In forward mode a loop whose running lanes have all left the grid for
+    good (they meet only zero density before t_max, which lies beyond the
+    cap: a lane in a medium with no surface ahead, t_max 3e37 in bdpt's
+    walks) stops there and advances the sampler by the trips left, with
+    the cap's trip count and the same hits, distances and weights; p of
+    such a lane is its point where the loop stopped."""
     if bricks is None:
         bricks = DensityGrid(media)
     st_color = sigma_a + sigma_s
@@ -548,6 +566,24 @@ def sample_distance_woodcock(media: Media, sigma_a, sigma_s, scale, o, d,
             running = null_col
         return t, hit, running, smp, w, log_p
 
+    def settled(state, trips_left):
+        # every running lane's last tested point lies beyond the grid on an
+        # axis it moves away from (monotone in t, a cell's 1e-3 clear of
+        # the kernel's own test), so the density is 0 there and on: null
+        # collisions of weight exactly 1; and t_max lies beyond the tests
+        # left, so the lane runs to the cap, as JAX's while loop
+        t, running = state[0], state[2]
+        shape = bricks.grid.shape
+        res = torch.tensor([shape[2], shape[1], shape[0]],
+                           dtype=torch.float32, device=o.device)
+        h = (bricks.aabb6[3:] - bricks.aabb6[:3]) / torch.clamp_min(
+            res - 1.0, 1.0)
+        v = (o + t.unsqueeze(-1) * d - bricks.aabb6[:3]) / h
+        away = (((v > res - 1.0 + 1e-3) & (d >= 0))
+                | ((v < -1e-3) & (d <= 0))).any(-1)
+        far = t_max >= t + trips_left * UNROLL * _MAX_STEP / majorant
+        return bool(running.any() & (~running | (away & far)).all())
+
     zeros = torch.zeros((n,), dtype=torch.float32, device=o.device)
     state = (zeros, torch.zeros((n,), dtype=torch.bool, device=o.device),
              active, smp,
@@ -556,6 +592,7 @@ def sample_distance_woodcock(media: Media, sigma_a, sigma_s, scale, o, d,
     (t, hit, _, smp, w, log_p), it = bounded_while(
         lambda st: st[2], body, state,
         tracking_trips(max_steps, differentiable), differentiable,
-        lambda st, k: st[:3] + (skip_draws(st[3], 2 * k * UNROLL),) + st[4:])
+        lambda st, k: st[:3] + (skip_draws(st[3], 2 * k * UNROLL),) + st[4:],
+        None if differentiable else settled)
     p = o + t.unsqueeze(-1) * d
     return hit, torch.where(hit, t, t_max), w, p, smp, it, log_p

@@ -313,11 +313,20 @@ class RenderConfig:
     #   sampler modes mean the independent one, as in the JAX package. Only
     #   the loop and wavefront roads read it (others draw independently)
     spp: int = 16
+    # the film's decomposition (film.cpp:56-80): steadystate, transient
+    # (frames by optical path length) or bounce (frames by depth)
     decomposition: str = "steadystate"
     min_bound: float = 0.0
     max_bound: float = 0.0
     bin_width: float = 1.0
+    # CW-ToF (pathlengthsampler.cpp): none, sine, square, hamiltonian, mseq
+    # or depthselective, with its wavelength, phase (degrees), code length
+    # and neighbours
     modulation: str = "none"
+    lambda_: float = 1.0
+    phase: float = 0.0
+    P: int = 32
+    neighbors: int = 3
     engine: str = "auto"
     # eikonal march and curved-NEE solver (heterogeneousrefractive.cpp:208)
     er_stepsize: float = 1e-3

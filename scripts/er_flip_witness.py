@@ -154,6 +154,7 @@ def _port_forward(scene, cfg, sppc, seed, log, field):
     try:
         sink, _, _ = ter.li(scene, cfg, rays.o, rays.d, smp,
                             differentiable=True)
+        sink = sink.steady
         recording[0] = False
         (g,) = torch.autograd.grad(sink.mean(), leaf)
     finally:

@@ -164,6 +164,7 @@ def _port(scene, cfg, kind, prm, coeff):
     py = (pixel // W).to(torch.float32) + jitter[:, 1]
     rays = tsensor.sample_rays(sc.sensor, px, py, W, H)
     sink, smp, _ = ter.li(sc, cfg, rays.o, rays.d, smp, differentiable=True)
+    sink = sink.steady
     loss = sink.mean()
     grads = torch.autograd.grad(loss, (prm, coeff), allow_unused=True)
     return (loss.item(), sink.detach().reshape(SPPC, H, W, 3).mean(0).numpy(),

@@ -72,7 +72,7 @@ def test_misc_li_matches_jax(field):
         want, _ = jmisc.field_li(js, jc, jnp.asarray(o.numpy()),
                                  jnp.asarray(d.numpy()), js_smp, field=field)
         got, _ = tmisc.field_li(ts, tc, o, d, ts_smp, field=field)
-    np.testing.assert_allclose(got.numpy(), np.asarray(want.steady),
+    np.testing.assert_allclose(got.steady.numpy(), np.asarray(want.steady),
                                rtol=1e-5, atol=1e-5)
 
 

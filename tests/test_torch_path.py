@@ -63,7 +63,7 @@ def test_li_matches_jax_lane_by_lane():
         js, rays.o.numpy(), rays.d.numpy(), jsmp)
     want = np.asarray(sink.steady)
     assert 2 <= bounces <= 4 and (want.sum(-1) > 0).mean() > 0.5
-    _agree(got.numpy(), want, 0.99)
+    _agree(got.steady.numpy(), want, 0.99)
 
 
 @pytest.mark.parametrize("kw", [

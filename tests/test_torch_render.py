@@ -103,14 +103,17 @@ def test_spp_per_pass_follows_render_budget():
     # loop road (tests/test_torch_sampler.py)
     pytest.param(dict(filter="gaussian", sampler="ldsampler"), None,
                  id="kw0-step 1"),
+    # step 10's transient film, ported since: it renders
+    # (tests/test_torch_transient.py)
     pytest.param(dict(filter="gaussian", decomposition="transient",
-                      max_bound=4.0), "step 10", id="kw1-step 10"),
+                      max_bound=4.0), None, id="kw1-step 10"),
     # step 9's surface integrators, ported since: "path" with a box filter
     # takes the wavefront road, as in the JAX package
     # (tests/test_torch_path.py)
     pytest.param(dict(filter="box", integrator="path"), None,
                  id="kw2-step 9"),
-    pytest.param(dict(filter="box", integrator="bdpt"), "step 12",
+    # step 12's bdpt, ported since: it renders (tests/test_torch_bdpt.py)
+    pytest.param(dict(filter="box", integrator="bdpt"), None,
                  id="kw3-step 12"),
     # step 7's medium_strategies on the wavefront road, ported since: it
     # renders (tests/test_torch_strategies.py)

@@ -248,7 +248,7 @@ def test_loop_li_matches_jax_per_lane(strat):
         smp.index.numpy().astype(np.uint32))
     np.testing.assert_array_equal(smp_t.dim.numpy(), np.asarray(dim))
     want = np.asarray(want)
-    got = got.numpy()
+    got = got.steady.numpy()
     assert np.isfinite(got).all() and (want.sum(-1) > 0).mean() > 0.03
     close = np.isclose(got, want, rtol=1e-4, atol=1e-6).all(-1)
     print(f"loop li {strat}: {int((~close).sum())} of {close.size} lanes "
@@ -257,7 +257,7 @@ def test_loop_li_matches_jax_per_lane(strat):
     # the strategy changes what the engine renders
     base, _, _ = tvp.li(_with_strategy(ts, T.STRAT_BALANCE, False), tc,
                         rays.o, rays.d, smp)
-    assert not torch.equal(base, torch.from_numpy(got))
+    assert not torch.equal(base.steady, torch.from_numpy(got))
 
 
 WF_RES, WF_SPPC = 8, 4
