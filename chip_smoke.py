@@ -69,8 +69,9 @@ Phases (any failure raises and the script exits non-zero):
      AABB faces, outside, zero and NaN output gradients, the grids
      (1, 5, 6), (5, 1, 1) and (1, 1, 1), N of 0, 1, 31, 33, 257 and
      200,000, a warp alternating between two cells), each within
-     A_BWD_TOL of the largest voxel (float atomics add in a varying order)
-     with the same NaN voxels, and within A_BWD_TOL["float64"] of the
+     A_BWD_TOL of the largest voxel (the plain version's float sums round
+     in index_add_'s order) with the same NaN voxels, a second call
+     bit-equal to the first (the kernel sums in fixed point), and within A_BWD_TOL["float64"] of the
      float64 sums of the same terms (the plain version's distance from
      them printed beside); gradcheck of TrilinearLookup in float64 on the
      CPU;
@@ -98,21 +99,23 @@ Phases (any failure raises and the script exits non-zero):
  19. the eikonal training path at full width: bench.py::bench_er_grad's
      configuration (radial RIF, 32^2 spp 2, 2,048 lanes, depth 4, h 1e-2,
      er_maxsteps 192, 8 BVP restarts), the gradient of mean(sink) of
-     volpath_er.li(differentiable=True) with respect to rif_params, twice
-     (seeds 0 and 1): finite, p0, a and w non-zero, kernel E launched (in
-     the detached BVP solves) and kernel D not; each call's wall, fwd+bwd
+     volpath_er.li(differentiable=True) with respect to rif_params, once
+     (seed 1): finite, p0, a and w non-zero, kernel E launched (in the
+     detached BVP solves) and kernel D not; the call's wall, fwd+bwd
      samples/s, peak device memory and the launches; the central
      difference of the loss along rif_params (eps 1e-3, common random
      numbers, the gradient's solved BVP connections held) against the
-     gradient at test_inverse.py's tolerance. Kernel
-     E's calls in the first run are captured (calls 0, 4, 16 and 64 of
-     each lane count, and its busiest): every output equal to its plain
-     version on the same inputs, and E timed at the busiest;
+     gradient at test_inverse.py's tolerance. Kernel E's calls are
+     captured (calls 0, 4, 16 and 64 of each lane count, and its
+     busiest): every output equal to its plain version on the same
+     inputs, and E timed at the busiest. (A second, timed call in a warm
+     process: scripts/profile_er_grad_torch.py --repeat);
  20. the spline RIF's voxel gradient: test_inverse.py's scene (a Gaussian
      index bump, sphere SDF, point light, h 0.05, er_maxsteps 96) with a
-     32^3 grid at 64^2 sppc 2, depth SPLINE_DEPTH, twice: finite, non-zero, more than
-     0.3 of its mass on the interior voxels, no kernel launched; the same
-     measures as phase 19. Then at test_inverse.py's own size (12^3, 8^2,
+     32^3 grid at 64^2 sppc 2, depth SPLINE_DEPTH, once (seed 1; a
+     second call: the profile script's --scene spline --repeat): finite,
+     non-zero, more than 0.3 of its mass on the interior voxels, no
+     kernel launched; the same measures as phase 19. Then at test_inverse.py's own size (12^3, 8^2,
      sppc 4, seed 3) its directional finite-difference check, the
      connections held as in phase 19;
  21. phase 19's configuration at 8^2 sppc 2, and phase 20's gradient at
@@ -230,10 +233,37 @@ Phases (any failure raises and the script exits non-zero):
  40. the particle tracer on config 1 at 256^2 spp 4: the wall; card
      against CPU at 16^2. Phases 37-40 print one {"transient": ...} JSON
      line (scripts/profile_bdpt_torch.py profiles a pass of each bdpt
-     path and of the particle tracer).
+     path and of the particle tracer);
+ 41. the front door: the main path written as Mitsuba XML with its 64^3
+     density grid as a .vol file (main_path_xml; the collimated beam, the
+     null-bounded cube with `interior`, the perspective sensor, the
+     filter a $define), loaded and compared field by field with the
+     preset; `python -m mitsubaer_tpu_torch.cli` renders it in a process
+     of its own at 512^2 spp 32 depth 12 with the gaussian filter (the
+     loop road, kernel A) and the box filter (the boxwalk road, kernel B)
+     while this process renders the same loaded scene: each EXR, read
+     back with the port's io, bit-equal to the in-process image; kernel A
+     held against its plain version at the loop pass's calls (as phase
+     13); two 256^2 renders with the beam and 128 frames bit-equal; the
+     beam splat's accumulation timed before (index_add_ / index_put_) and
+     after (render.add_rows);
+ 42. the render farm: the (2, 2) layout of the 512^2 spp 32 depth 12
+     volume sharded on the loop road (kernel A) and, point-lit, on the
+     wavefront road (kernel C, its first call held against its plain
+     version), at world 1 in this process and world 2 in two processes on
+     the card (gloo): bit-equal; no sample of the wavefront shards left
+     unfinished; the mean within FARM_MEAN_TOL of the unsharded render's
+     (less its beam splat, which the sharded render does not add), the
+     per-pixel difference's mean over its standard error printed;
+ 43. phase 17's training step over that layout (Adam, lr 5e-2) at world 1
+     and world 2: the loss, the density's gradient and the updated
+     parameters bit-equal, A and A' launched; at world 1 kernel A's and
+     A''s calls captured and held against their plain versions (A
+     exactly, A' as phase 17); dryrun_multiprocess(2) beside it.
+     Phases 41-43 print one {"front_door": ...} JSON line.
 With `--phases a-b[,c-d]` only those phase groups run (3-8, 9-12, 13-15,
-16-18, 19-21, 22-25, 26-31, 32-36, 37-40; 1 and 2 always), for iterating
-on the card.
+16-18, 19-21, 22-25, 26-31, 32-36, 37-40, 41-43; 1 and 2 always), for
+iterating on the card.
 Prints one JSON line of per-kernel results (time, bound, plain version,
 library yardstick, launches on the main paths; for A also its launches on
 the loop road and its checks and times at the loop road's point counts,
@@ -247,7 +277,9 @@ for A and C their launches in phase 32, for D and E in phase 36's light
 images; for A its launches on the transient main path (phase 37) and in
 bdpt's heterogeneous box, with its checks and times at bdpt's point
 counts, for D and E their launches and checks in bdpt's
-refractive sphere (phase 39)), then the contract line
+refractive sphere (phase 39); for A its launches on the XML main path
+and its checks there, and for A, A' and C their launches in the sharded
+renders and step (phases 41-43)), then the contract line
 {"ok": true, "device": {...}} last.
 """
 from __future__ import annotations
@@ -306,8 +338,9 @@ OPS_C_TAP = 160
 # addresses 24 and the 8 atomic adds
 OPS_A_BWD_POINT = 120
 # phases 16 and 17: kernel A' against its plain version, max |diff| over the
-# largest voxel. Both sum in float32 in a varying order (atomics,
-# index_add_): the spread points' voxels take ~32 terms each; the clustered
+# largest voxel. The plain version sums in float32 in index_add_'s order,
+# the kernel each warp's peers in float32 and the rest in fixed point: the
+# spread points' voxels take ~32 terms each; the clustered
 # sets' voxels thousands (one cell, two alternating cells, the grids of 1 to
 # 30 voxels) to ~300,000 (the cluster's 27); a training step's calls spread
 # as the uniform points (measured on an H100: at most 2.1e-8). On the
@@ -332,7 +365,7 @@ ER_CARD_CPU_TOL = (1e-4, 1e-4)
 # phases 19 and 20: tests/test_inverse.py's finite-difference tolerance
 ER_FD_RTOL, ER_FD_ATOL = 0.5, 5e-3
 # phase 20: the depth of the spline gradient at 64^2 (the scene's own is
-# 4: 55.5-98 s a call on an H100, two calls), cut to make room for
+# 4: 55.5-98 s a call on an H100), cut to make room for
 # phases 26-31 (at depth 2 no path reaches the light through the medium:
 # the loss and gradient are 0); its finite-difference check at
 # test_inverse.py's size keeps depth 4
@@ -488,14 +521,20 @@ def _a_bare(grid, pts, out):
 
 def _a_bwd_bare(shape, aabb6, p, grad_out, grad):
     """One bare launch of kernel A' into `grad`: the C call alone, with its
-    arguments formed once (no checks, no allocation, not counted)."""
+    arguments formed once (no checks, no allocation, not counted; the
+    kernel's int64 scratch is allocated here, once)."""
+    import torch
+
     from mitsubaer_tpu_torch import kernels
 
     nz, ny, nx = shape
+    acc = torch.empty((nz * ny * nx + 1,), dtype=torch.int64,
+                      device=p.device)
     args = (p.data_ptr(), grad_out.data_ptr(), aabb6.data_ptr(),
-            grad.data_ptr(), p.shape[0], nx, ny, nz, kernels.stream(p))
+            grad.data_ptr(), acc.data_ptr(), p.shape[0], nx, ny, nz,
+            kernels.stream(p))
     fn = kernels.library().mk_trilinear_lookup_backward
-    return lambda: fn(*args)
+    return lambda keep=acc: fn(*args)
 
 
 # kernel A''s sets: the 2^20 spread and clustered points of phase 16, then
@@ -794,6 +833,7 @@ def main() -> int:
     timed(26, 31, _surface_phases)
     timed(32, 36, _model_phases)
     timed(37, 40, _transient_phases)
+    timed(41, 43, _front_door_phases)
     print(json.dumps({"phase_group_s": groups}))
 
     print(json.dumps({"kernels": list(results.values())}))
@@ -809,7 +849,7 @@ def _phase_range(argv):
     run, and a phase group runs whole where any of its phases is asked
     for."""
     if not argv:
-        return set(range(1, 41))
+        return set(range(1, 44))
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: chip_smoke.py [--phases a-b[,c-d...]]")
     phases = set()
@@ -1390,6 +1430,7 @@ def _megatrack_phases(dev, card, results, build_log):
     if launches < len(passes):
         raise AssertionError(f"wavefront path skipped kernel C: {launches}")
     results["megatrack"]["launches"] = launches
+    IMAGES["wavefront"] = img.cpu()                   # phase 42 reads it
 
     # ---- phase 11: card against CPU ----
     s_scene, s_cfg = presets.volumetric_box(
@@ -1539,7 +1580,10 @@ def _capture_lookups(calls, picks=(0, 4, 16, 64, 256, 1024)):
     """A stand-in for DensityGrid.lookup (kernel A's caller) that calls it
     and keeps, per point count in `calls` (in the order the counts first
     appear), [calls, the calls numbered in `picks` (grid, points and
-    output, cloned)]."""
+    output, cloned; the grid a copy whose values an optimizer step that
+    updates the parameters in place leaves alone)]."""
+    import copy
+
     from mitsubaer_tpu_torch.models import medium
 
     lookup = medium.DensityGrid.lookup
@@ -1548,7 +1592,9 @@ def _capture_lookups(calls, picks=(0, 4, 16, 64, 256, 1024)):
         out = lookup(self, p)
         seen = calls.setdefault(p.shape[0], [0, []])
         if seen[0] in picks:
-            seen[1].append((self, p.clone(), out.clone()))
+            grid = copy.copy(self)
+            grid.grid = self.grid.detach().clone()
+            seen[1].append((grid, p.clone(), out.detach().clone()))
         seen[0] += 1
         return out
 
@@ -1641,6 +1687,9 @@ def _training_phases(dev, card, results):
     for name in A_BWD_CASES:
         shape, aabb6, p, grad_out, tol = _a_bwd_case(name, dev)
         got = medium.trilinear_lookup_backward(shape, aabb6, p, grad_out)
+        _bits_equal(medium.trilinear_lookup_backward(shape, aabb6, p,
+                                                     grad_out).cpu(),
+                    got.cpu(), f"kernel A' ({name}) called twice")
         want = medium.trilinear_lookup_backward_plain(shape, aabb6, p,
                                                       grad_out)
         # the same float32 weights, summed in float64
@@ -1826,19 +1875,18 @@ def _training_phases(dev, card, results):
 A_BWD_STEP_CALLS = (0, 4, 16, 64, 256)
 
 
-def _capture_a_bwd(scene, leaves, cfg, sppc, seed, it, target, dev):
-    """One loss_and_grad of phase 17 with TrilinearLookup.backward wrapped:
-    per point count, [its calls, the calls in A_BWD_STEP_CALLS with their
+@contextlib.contextmanager
+def _a_bwd_capturing(calls):
+    """TrilinearLookup.backward wrapped while the block runs: per point
+    count in `calls`, [its calls, the calls in A_BWD_STEP_CALLS with their
     shape, AABB, points, output gradients and grid gradient, each call's
-    count of non-zero output gradients, the call with the most of them].
-    The step must give A' its lanes' and twice its lanes' points."""
+    count of non-zero output gradients, the call with the most of them]."""
     import torch
 
-    from mitsubaer_tpu_torch.diff import render as diff_m
     from mitsubaer_tpu_torch.models import medium
 
     fn = medium.TrilinearLookup
-    backward, calls = vars(fn)["backward"], {}
+    backward = vars(fn)["backward"]
 
     def capture(ctx, grad_out):
         # saved tensors unpack once under checkpointing: hand them over
@@ -1858,15 +1906,53 @@ def _capture_a_bwd(scene, leaves, cfg, sppc, seed, it, target, dev):
 
     fn.backward = staticmethod(capture)
     try:
-        diff_m.loss_and_grad(scene, leaves, cfg, sppc, seed, it, target,
-                             device=dev)
+        yield calls
     finally:
         fn.backward = backward
+
+
+def _capture_a_bwd(scene, leaves, cfg, sppc, seed, it, target, dev):
+    """One loss_and_grad of phase 17 with kernel A''s calls captured
+    (_a_bwd_capturing). The step must give A' its lanes' and twice its
+    lanes' points."""
+    from mitsubaer_tpu_torch.diff import render as diff_m
+
+    with _a_bwd_capturing({}) as calls:
+        diff_m.loss_and_grad(scene, leaves, cfg, sppc, seed, it, target,
+                             device=dev)
     lanes = sppc * cfg.height * cfg.width
     if lanes not in calls or 2 * lanes not in calls:
         raise AssertionError(f"the training step's backward took no {lanes} "
                              f"or {2 * lanes} points: {sorted(calls)}")
     return calls
+
+
+def _check_a_bwd_calls(calls, where):
+    """Kernel A' at the calls _a_bwd_capturing kept in `where`: each
+    captured result within A_BWD_TOL["step"] of its largest voxel from the
+    plain version on the same inputs (a result that is zero there must be
+    zero) and within A_BWD_TOL["float64"] of the float64 sums of its terms.
+    Returns per point count (its largest error, its largest errors against
+    the float64 sums, kernel and plain)."""
+    from mitsubaer_tpu_torch.models import medium
+
+    if not calls:
+        raise AssertionError(f"{where} ran no backward of kernel A")
+    out = {}
+    for n in sorted(calls):
+        _, taken, _, busiest = calls[n]
+        worst, worst64 = 0.0, [0.0, 0.0]
+        for shape, aabb6, p, g_out, got in taken + [busiest]:
+            rel, rel64 = _a_bwd_check(
+                got, medium.trilinear_lookup_backward_plain(
+                    shape, aabb6, p, g_out), A_BWD_TOL["step"],
+                f"{n} points in {where}",
+                medium.trilinear_lookup_backward_plain(shape, aabb6, p,
+                                                       g_out.double()))
+            worst = max(worst, rel)
+            worst64 = [max(a, b) for a, b in zip(worst64, rel64)]
+        out[n] = (worst, worst64)
+    return out
 
 
 def _train_backward(scene, leaves, cfg, sppc, seed, target, dev, card):
@@ -1887,19 +1973,11 @@ def _train_backward(scene, leaves, cfg, sppc, seed, target, dev, card):
     from mitsubaer_tpu_torch.models import medium
 
     calls = _capture_a_bwd(scene, leaves, cfg, sppc, seed, 3, target, dev)
+    errs = _check_a_bwd_calls(calls, "the training step")
     rows = []
     for n in sorted(calls):
-        count, taken, nonzero, busiest = calls[n]
-        worst, worst64 = 0.0, [0.0, 0.0]
-        for shape, aabb6, p, g_out, got in taken + [busiest]:
-            rel, rel64 = _a_bwd_check(
-                got, medium.trilinear_lookup_backward_plain(
-                    shape, aabb6, p, g_out), A_BWD_TOL["step"],
-                f"{n} points in the training step",
-                medium.trilinear_lookup_backward_plain(shape, aabb6, p,
-                                                       g_out.double()))
-            worst = max(worst, rel)
-            worst64 = [max(a, b) for a, b in zip(worst64, rel64)]
+        count, taken, nonzero, _ = calls[n]
+        worst, worst64 = errs[n]
         shape, aabb6, p, g_out, _ = taken[0]
         ms = _cuda_ms(lambda: medium.trilinear_lookup_backward(
             shape, aabb6, p, g_out), 20)
@@ -2172,19 +2250,19 @@ def _er_grad_phases(dev, card, results):
     sens_march, captured = ermarch.sens_march, {}
     capture = _capture_calls(sens_march, captured, (0, 4, 16, 64))
 
-    # the first call with kernel E's calls captured (the wrapper takes the
-    # launch counts while it stands in), the second one timed
+    # one call, with kernel E's calls captured (the wrapper takes the
+    # launch counts while it stands in); a second, timed call in a warm
+    # process is scripts/profile_er_grad_torch.py --repeat's
     ermarch.sens_march = capture
     try:
-        first = _er_grad_step(scene, cfg, sppc, 0, dev, "rif_params")
+        step = _er_grad_step(scene, cfg, sppc, 1, dev, "rif_params")
     finally:
         ermarch.sens_march = sens_march
-    step = _er_grad_step(scene, cfg, sppc, 1, dev, "rif_params")
     loss, grad, wall, peak, launches, _ = step
     g = grad.cpu()
     print(f"eikonal gradient (bench_er_grad: radial RIF, 32x32 spp 2, "
           f"{lanes} lanes, depth 4, h 1e-2, er_maxsteps 192, 8 BVP "
-          f"restarts): first call {first[2]:.3f} s, second {wall:.3f} s, "
+          f"restarts): first call {wall:.3f} s (calls captured), "
           f"{lanes / wall:.1f} fwd+bwd samples/s, peak device memory "
           f"{peak / 2**30:.3f} GiB, launches of D and E {launches}, loss "
           f"{loss.item():.6e}, d loss / d rif_params {g.tolist()} [{card}]",
@@ -2204,8 +2282,7 @@ def _er_grad_phases(dev, card, results):
     e_row["er_grad_shapes"] = _check_e_calls(
         captured, card, "the eikonal gradient")
     e_row["er_grad_step"] = dict(
-        first_s=first[2], wall_s=wall, samples_per_s=lanes / wall,
-        peak_gib=peak / 2**30)
+        first_s=wall, samples_per_s=lanes / wall, peak_gib=peak / 2**30)
 
     lap(19)
 
@@ -2213,16 +2290,17 @@ def _er_grad_phases(dev, card, results):
     s_scene, s_cfg = _spline_scene(64, 32)
     s_cfg = dataclasses.replace(s_cfg, max_depth=SPLINE_DEPTH)
     s_scene = s_scene.to(dev)
-    runs = [_er_grad_step(s_scene, s_cfg, 2, seed, dev, "rif_coeff")
-            for seed in (0, 1)]
-    loss, grad, wall, peak, launches, _ = runs[1]
+    # one call; a second of a warm process is
+    # scripts/profile_er_grad_torch.py --scene spline --repeat's
+    loss, grad, wall, peak, launches, _ = _er_grad_step(
+        s_scene, s_cfg, 2, 1, dev, "rif_coeff")
     gr = grad.cpu()
     mass = gr.abs().sum().item()
     interior = gr[3:-3, 3:-3, 3:-3].abs().sum().item()
     print(f"spline RIF gradient (test_inverse's scene, 32^3 grid, 64x64 "
           f"sppc 2, {64 * 64 * 2} lanes, depth {SPLINE_DEPTH}, h 0.05, "
           f"er_maxsteps 96): "
-          f"first call {runs[0][2]:.3f} s, second {wall:.3f} s, "
+          f"first call {wall:.3f} s, "
           f"{64 * 64 * 2 / wall:.1f} fwd+bwd samples/s, peak device memory "
           f"{peak / 2**30:.3f} GiB, launches of D and E {launches}, loss "
           f"{loss.item():.6e}, max |grad| {gr.abs().max().item():.4e}, "
@@ -2237,7 +2315,7 @@ def _er_grad_phases(dev, card, results):
     if launches != (0, 0):
         raise AssertionError("phase 20: a spline march launched a kernel")
     e_row["spline_grad_step"] = dict(
-        first_s=runs[0][2], wall_s=wall, samples_per_s=64 * 64 * 2 / wall,
+        first_s=wall, samples_per_s=64 * 64 * 2 / wall,
         peak_gib=peak / 2**30)
     # at tests/test_inverse.py's own size
     j_scene, j_cfg = _spline_scene(8, 12)
@@ -4207,6 +4285,523 @@ def _transient_phases(dev, card, results):
             "ptracer, cbox 16x16 spp 4"))
     lap(40)
     print(json.dumps({"transient": out}))
+
+
+# ---------------------------------------------------------------------------
+# Phases 41-43: the front door (XML, the CLI) and the render farm
+# ---------------------------------------------------------------------------
+# the main path's configuration as XML defines, and the sharded layout
+MAIN_DEFINES = dict(res=512, spp=32, depth=12, filter="gaussian")
+FARM_LAYOUT = (2, 2)
+# phases 41-43's sizes: the main path's resolution, samples and density
+# grid, the framed pair's resolution and samples (a rehearsal on the CPU
+# shrinks them and sets the processes' device)
+FRONT = dict(res=512, spp=32, density_res=64, framed_res=256, framed_spp=8,
+             device="")
+# phase 42: the sharded image's mean against the unsharded render's (the
+# sample assignment differs, so only the mean is compared)
+FARM_MEAN_TOL = 0.02
+# images that a later phase compares with (phase 10's wavefront render)
+IMAGES = {}
+
+
+def main_path_xml(directory, density_res=64):
+    """Write the main path, presets.volumetric_box(heterogeneous=True), as a
+    Mitsuba XML scene into `directory`, its density grid (the preset's,
+    density_res^3) as density.vol beside it; returns the XML's path. The
+    cube has no BSDF (null-bounded, as the preset's), its medium by
+    `interior`; the collimated beam, the perspective sensor and the
+    independent sampler as the preset's. Defines: res, spp, depth and
+    filter (MAIN_DEFINES)."""
+    import os
+
+    from mitsubaer_tpu_torch.scene import presets
+    from mitsubaer_tpu_torch.utils import io
+
+    grid = presets.volumetric_box(res=8, spp=1, heterogeneous=True,
+                                  density_res=density_res)[0].media.density
+    io.write_vol(os.path.join(directory, "density.vol"), grid.data.numpy(),
+                 grid.aabb_min.numpy(), grid.aabb_max.numpy())
+    path = os.path.join(directory, "main.xml")
+    with open(path, "w") as f:
+        f.write("""<scene version="0.5.0">
+  <integrator type="volpath"><integer name="maxDepth" value="$depth"/></integrator>
+  <medium type="heterogeneous" id="box">
+    <volume name="density" type="gridvolume">
+      <string name="filename" value="density.vol"/>
+    </volume>
+    <rgb name="sigmaS" value="0.5, 3.5, 7.5"/>
+    <rgb name="sigmaA" value="0.05, 0.05, 0.05"/>
+    <phase type="hg"><float name="g" value="0.7"/></phase>
+  </medium>
+  <shape type="cube"><ref name="interior" id="box"/></shape>
+  <emitter type="collimated">
+    <transform name="toWorld">
+      <lookat origin="-1.1, -1.1, -1.1" target="1.1, 1.1, 1.1" up="0, 1, 0"/>
+    </transform>
+    <rgb name="power" value="100"/>
+  </emitter>
+  <sensor type="perspective">
+    <float name="fov" value="95.8402"/>
+    <string name="fovAxis" value="x"/>
+    <transform name="toWorld">
+      <lookat origin="-3, 0, 0" target="-2, 0, 0" up="0, 1, 0"/>
+    </transform>
+    <sampler type="independent"><integer name="sampleCount" value="$spp"/></sampler>
+    <film type="hdrfilm">
+      <integer name="width" value="$res"/><integer name="height" value="$res"/>
+      <rfilter type="$filter"/>
+    </film>
+  </sensor>
+</scene>
+""")
+    return path
+
+
+def _scene_diff(a, cfg_a, b, cfg_b):
+    """The config fields and scene arrays in which (a, cfg_a) and (b,
+    cfg_b) differ, by name (arrays with their largest difference)."""
+    import dataclasses
+
+    import torch
+
+    def leaves(obj, prefix=""):
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            if dataclasses.is_dataclass(v):
+                yield from leaves(v, prefix + f.name + ".")
+            else:
+                yield prefix + f.name, v
+
+    out = [f"cfg.{f.name}" for f in dataclasses.fields(cfg_a)
+           if getattr(cfg_a, f.name) != getattr(cfg_b, f.name)]
+    for (name, x), (_, y) in zip(leaves(a), leaves(b)):
+        if x.shape != y.shape:
+            out.append(f"{name} (shape)")
+        elif not torch.equal(x.cpu(), y.cpu()):
+            err = (x.cpu().double() - y.cpu().double()).abs().max().item()
+            out.append(f"{name} (max abs diff {err:.3e})")
+    return out
+
+
+def _cli(xml, out, defines):
+    """`python -m mitsubaer_tpu_torch.cli xml -o out -D k=v ...` from the
+    repo root as a process of its own; returns (wall s, its stderr)."""
+    import os
+
+    cmd = [sys.executable, "-m", "mitsubaer_tpu_torch.cli", xml, "-o", out]
+    if FRONT["device"] == "cpu":
+        cmd.append("--cpu")
+    for k, v in defines.items():
+        cmd += ["-D", f"{k}={v}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI failed ({proc.returncode}):\n"
+                             f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    return wall, proc.stderr
+
+
+def _counted(fn, *args, **kwargs):
+    """fn(*args, **kwargs) on the card with every kernel count at 0 just
+    before and read just after; returns (its result, wall s, counts)."""
+    import torch
+
+    def sync():
+        if torch.cuda.is_available():      # not in a rehearsal on the CPU
+            torch.cuda.synchronize()
+
+    sync()
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    sync()
+    return out, time.perf_counter() - t0, _kernel_counts()
+
+
+def _require(counts, kernels, what):
+    missing = [k for k in kernels if counts[k] < 1]
+    extra = [k for k, v in counts.items() if v and k not in kernels]
+    if missing or extra:
+        raise AssertionError(f"{what}: kernels {missing} did not launch, "
+                             f"{extra} launched: {counts}")
+
+
+def _bits_equal(a, b, what):
+    import numpy as np
+
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    if a.shape != b.shape or a.tobytes() != b.tobytes():
+        n = (a != b).sum() if a.shape == b.shape else "all"
+        raise AssertionError(f"{what}: not bit-equal ({n} values differ)")
+
+
+def _splat_times(scene, cfg, dev, card):
+    """The beam splat's accumulation at one pass's rows (4 npix samples),
+    captured from beam_splat_pass: the fixed-order add (render.add_rows)
+    against the index_add_ / index_put_ it replaced; and the whole pass.
+    Returns a dict of ms."""
+    import torch
+
+    from mitsubaer_tpu_torch.integrators import render as render_m
+
+    add, got = render_m.add_rows, []
+
+    def capture(flat, key, value):
+        got.append((flat.clone(), key, value))
+        return add(flat, key, value)
+
+    H, W, F = cfg.height, cfg.width, cfg.n_frames
+    n = 4 * H * W
+    splat = torch.zeros((H, W, 3 * F), device=dev)
+    render_m.add_rows = capture
+    try:
+        render_m.beam_splat_pass(scene, splat, cfg, n, 0, 0)
+    finally:
+        render_m.add_rows = add
+    flat, key, value = got[0]
+    if F == 1:
+        def before():
+            return flat.clone().index_add_(0, key, value)
+    else:
+        pix, b = key // F, key % F
+
+        def before():
+            return flat.clone().view(H * W, F, 3).index_put_(
+                (pix, b), value, accumulate=True)
+    out = dict(
+        rows=n, frames=F,
+        before_ms=_cuda_ms(before, 10),
+        after_ms=_cuda_ms(lambda: add(flat.clone(), key, value), 10),
+        clone_ms=_cuda_ms(lambda: flat.clone(), 10),
+        pass_ms=_cuda_ms(lambda: render_m.beam_splat_pass(
+            scene, torch.zeros_like(splat), cfg, n, 0, 0), 5))
+    print(f"beam splat accumulation, {n} samples into {H}x{W}x{F} frames: "
+          f"index_add_ / index_put_ (before) {out['before_ms']:.4f} ms, "
+          f"sorted segment sums (after) {out['after_ms']:.4f} ms, each with "
+          f"a {out['clone_ms']:.4f} ms copy of the film; a whole splat pass "
+          f"{out['pass_ms']:.4f} ms [{card}]", flush=True)
+    return out
+
+
+def _train_scene(res, density_res):
+    """Phase 17's scene (at res^2, density_res^3), and its target's
+    parameters (sigma_s x 1.5)."""
+    from mitsubaer_tpu_torch.diff import render as diff_m
+    from mitsubaer_tpu_torch.scene import presets
+
+    scene, cfg = presets.volumetric_box(res=res, spp=4, heterogeneous=True,
+                                        density_res=density_res,
+                                        max_depth=12)
+    p = diff_m.get_params(scene)
+    return scene, cfg, p, p._replace(sigma_s=p.sigma_s * 1.5)
+
+
+def _sharded_step(dev, target, res, density_res, card=None):
+    """One sharded Adam step (lr 5e-2) over FARM_LAYOUT on phase 17's scene
+    at sppc 4, seed 7, from this process's place in its group: returns
+    (loss, updated MediumParams and the density's gradient on the CPU,
+    wall s, counts). Given `card`, kernel A's and A''s calls are captured
+    (calls 0, 4, 16, 64, 256 and 1024 of each point count of A; those of
+    A_BWD_STEP_CALLS and the busiest of A') and held against their plain
+    versions after the step: A exactly, A' within A_BWD_TOL["step"] and
+    A_BWD_TOL["float64"]; the wall then includes the captures."""
+    import torch
+
+    from mitsubaer_tpu_torch.diff import render as diff_m
+    from mitsubaer_tpu_torch.models import medium
+    from mitsubaer_tpu_torch.parallel import driver
+
+    scene, cfg, p0, _ = _train_scene(res, density_res)
+    leaves = diff_m.MediumParams(*(t.detach().clone().to(dev)
+                                   .requires_grad_() for t in p0))
+    opt = torch.optim.Adam(leaves, lr=5e-2)
+    step = driver.make_train_step(cfg, opt, FARM_LAYOUT, sppc=4, device=dev)
+    if card is None:
+        loss, wall, counts = _counted(step, scene, leaves, target, 7)
+    else:
+        lookup, a_calls = medium.DensityGrid.lookup, {}
+        medium.DensityGrid.lookup = _capture_lookups(a_calls)
+        try:
+            with _a_bwd_capturing({}) as bwd_calls:
+                loss, wall, counts = _counted(step, scene, leaves, target, 7)
+        finally:
+            medium.DensityGrid.lookup = lookup
+        where = "the sharded training step"
+        _check_lookups(a_calls, card, where, ())
+        for n, (worst, worst64) in _check_a_bwd_calls(bwd_calls,
+                                                      where).items():
+            print(f"kernel A' in {where} at {n} points: {bwd_calls[n][0]} "
+                  f"calls, {len(bwd_calls[n][1])} captured and the busiest, "
+                  f"max |diff| / max |grad| against the plain version "
+                  f"{worst:.3e} (against the float64 sums: kernel "
+                  f"{worst64[0]:.3e}, plain {worst64[1]:.3e}) [{card}]",
+                  flush=True)
+        for n, (count, taken) in sorted(a_calls.items()):
+            print(f"kernel A in {where} at {n} points: {count} calls, "
+                  f"{len(taken)} captured and equal to the plain version "
+                  f"[{card}]", flush=True)
+    return (loss, diff_m.MediumParams(*(t.detach().cpu() for t in leaves)),
+            leaves.density.grad.cpu(), wall, counts)
+
+
+def _train_child(target_path, out_path, res, density_res, device=""):
+    """One process of phase 43's world-2 step: rank 0 writes the loss,
+    the updated parameters, the density's gradient, the wall and the
+    launch counts to out_path (.npz)."""
+    import numpy as np
+
+    from mitsubaer_tpu_torch.parallel import driver
+
+    dev = driver.init_distributed(device or None)
+    loss, params, grad, wall, counts = _sharded_step(
+        dev, np.load(target_path), int(res), int(density_res))
+    if driver.world()[0] == 0:
+        np.savez(out_path, loss=loss.numpy(), wall=wall,
+                 grad_density=grad.numpy(),
+                 launches=np.array([counts["trilinear_lookup"],
+                                    counts["trilinear_lookup_backward"]]),
+                 **{k: v.numpy() for k, v in params._asdict().items()})
+
+
+def _front_door_phases(dev, card, results):
+    """Phases 41-43: the XML scene through the CLI, the sharded renders and
+    the sharded training step."""
+    import concurrent.futures
+    import dataclasses
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mitsubaer_tpu_torch.integrators import megatrack
+    from mitsubaer_tpu_torch.integrators import render as render_m
+    from mitsubaer_tpu_torch.parallel import driver
+    from mitsubaer_tpu_torch.scene import presets
+    from mitsubaer_tpu_torch.scene import xml as xml_m
+    from mitsubaer_tpu_torch.utils import io
+
+    out = {"phase_s": {}}
+    lap = _lap_clock(out["phase_s"])
+    a_row = results.setdefault("trilinear_lookup", {})
+    pool = concurrent.futures.ThreadPoolExecutor(8)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+
+    res, spp, g_res = FRONT["res"], FRONT["spp"], FRONT["density_res"]
+    main = dict(MAIN_DEFINES, res=res, spp=spp)
+    kw = dict(res=res, spp=spp, heterogeneous=True, density_res=g_res,
+              max_depth=12)
+    cases = {"loop": (dict(kw), ("trilinear_lookup",)),
+             "wavefront": (dict(kw, filter="box", emitter_kind="point",
+                                engine="wavefront"), ("megatrack",))}
+    layout = ",".join(map(str, FARM_LAYOUT))
+
+    # ---- phase 41: the front door ----
+    xml = main_path_xml(tmp, g_res)
+    roads = {"gaussian": ("trilinear_lookup",),
+             "box": ("boxwalk", "trilinear_lookup")}
+    # the processes of their own (the CLI's two renders, phase 42's world-2
+    # renders) run on the card beside this one's work, which the group's
+    # time needs; their walls include the sharing
+    cli = {f: pool.submit(_cli, xml, os.path.join(tmp, f"main_{f}.exr"),
+                          dict(main, filter=f)) for f in roads}
+    two = {name: pool.submit(
+        driver.spawn, 2, "mitsubaer_tpu_torch.parallel.driver:render_child",
+        json.dumps(c_kw), layout, "0", FRONT["device"],
+        os.path.join(tmp, f"farm_{name}.npy"))
+        for name, (c_kw, _) in cases.items()}
+    p_scene, p_cfg = presets.volumetric_box(res=res, spp=spp,
+                                            heterogeneous=True,
+                                            density_res=g_res, max_depth=12)
+    front = {}
+    for filt, kernels in roads.items():
+        scene, cfg = xml_m.load_scene(xml, dict(main, filter=filt))
+        diff = _scene_diff(scene, cfg, p_scene,
+                           dataclasses.replace(p_cfg, filter=filt))
+        print(f"loaded main path ({filt} filter): fields that differ from "
+              f"presets.volumetric_box's: {diff or 'none'}", flush=True)
+        scene = scene.to(dev)
+        img, wall, counts = _counted(render_m.render, scene, cfg, seed=0,
+                                     device=dev)
+        _require(counts, kernels, f"main path from XML, {filt} filter")
+        cli_wall, log = cli[filt].result()
+        exr, names = io.read_exr(os.path.join(tmp, f"main_{filt}.exr"))
+        _bits_equal(exr, img.cpu(), f"the CLI's EXR ({filt}) against the "
+                    "in-process render")
+        print(f"main path from XML, {res}x{res} spp {spp} depth 12 {filt} "
+              f"filter: "
+              f"in-process wall {wall:.3f} s, launches "
+              f"{ {k: counts[k] for k in kernels} }, mean "
+              f"{img.mean().item():.6f}; the CLI's process {cli_wall:.3f} s "
+              f"({[x for x in log.splitlines() if x.startswith('[render]')]}"
+              f"), its EXR "
+              f"{names} bit-equal to the in-process image [{card}]",
+              flush=True)
+        front[filt] = dict(wall_s=wall, cli_s=cli_wall, differs=diff,
+                           launches={k: counts[k] for k in kernels},
+                           mean=img.mean().item())
+        if filt == "gaussian":
+            a_row["launches_xml"] = counts["trilinear_lookup"]
+            # kernel A at the loop road's point counts, as phase 13
+            a_row["xml_shapes"] = _loop_lookups(scene, cfg, dev, card)
+            steady = img
+    # two renders with the beam and 128 frames, bit-equal (the splat's
+    # fixed-order adds); the steady pair is the CLI's and this one
+    f_res, f_spp = FRONT["framed_res"], FRONT["framed_spp"]
+    f_scene, f_cfg = presets.volumetric_box(
+        res=f_res, spp=f_spp, heterogeneous=True, density_res=g_res,
+        max_depth=12, **TRANSIENT)
+    f_scene = f_scene.to(dev)
+    pair = [_counted(render_m.render, f_scene, f_cfg, seed=0, device=dev)
+            for _ in range(2)]
+    _bits_equal(pair[0][0].cpu(), pair[1][0].cpu(), "two framed renders")
+    _require(pair[0][2], ("trilinear_lookup",), "framed main path")
+    print(f"two renders of the main path with the beam, {f_res}x{f_res} "
+          f"spp {f_spp}, {f_cfg.n_frames} frames: "
+          f"bit-equal, walls {pair[0][1]:.3f} / {pair[1][1]:.3f} s, kernel A "
+          f"launches {pair[0][2]['trilinear_lookup']} [{card}]", flush=True)
+    front["framed"] = dict(walls_s=[pair[0][1], pair[1][1]],
+                           frames=f_cfg.n_frames)
+    del pair
+    front["splat_steady"] = _splat_times(scene, cfg, dev, card)
+    front["splat_framed"] = _splat_times(f_scene, f_cfg, dev, card)
+    out["front_door"] = front
+    lap(41)
+
+    # ---- phase 42: the sharded renders at full width ----
+    # phase 43's target first, so that its world-2 step and the dryrun
+    # run beside this phase
+    from mitsubaer_tpu_torch.diff import render as diff_m
+
+    t_scene, t_cfg, _, p_target = _train_scene(res, g_res)
+    with torch.no_grad():
+        target = diff_m.render_diff(t_scene, p_target, t_cfg, 4, 123, 0,
+                                    device=dev).cpu().numpy()
+    np.save(os.path.join(tmp, "target.npy"), target)
+    step2 = pool.submit(driver.spawn, 2, "chip_smoke:_train_child",
+                        os.path.join(tmp, "target.npy"),
+                        os.path.join(tmp, "step2.npz"), str(res),
+                        str(g_res), FRONT["device"])
+    dry = pool.submit(driver.dryrun_multiprocess, 2, FRONT["device"] or None)
+    farm = {}
+    for name, (c_kw, kernels) in cases.items():
+        scene, cfg = presets.volumetric_box(**c_kw)
+        scene = scene.to(dev)
+        calls = []
+        if name == "wavefront":
+            # kernel C's first call of the sharded run, captured
+            run = megatrack.run
+
+            def capture(*args):
+                if not calls:
+                    calls.append(args)
+                return run(*args)
+
+            # run() counts its launches on whatever megatrack.run is
+            capture.launches = 0
+            megatrack.run = capture
+        st = {}
+        try:
+            img, wall, counts = _counted(driver.render_sharded, scene, cfg,
+                                         FARM_LAYOUT, seed=0, device=dev,
+                                         stats=st)
+        finally:
+            if name == "wavefront":
+                megatrack.run = run
+                counts["megatrack"] = capture.launches
+        _require(counts, kernels, f"sharded {name} render, world 1")
+        if name == "wavefront":
+            got = megatrack.run(*calls[0])
+            _compare_mega("the sharded render's first tracking call", got,
+                          megatrack.run_plain(*calls[0]))
+        if name == "loop":
+            ref = steady - render_m._add_beam_splat(
+                scene, cfg, torch.zeros_like(steady), 0)
+            ref_what = "phase 41's render less its beam splat"
+        elif "wavefront" in IMAGES:
+            ref = IMAGES["wavefront"].to(dev)
+            ref_what = "phase 10's render()"
+        else:
+            ref, _, _ = _counted(render_m.render, scene, cfg, seed=0,
+                                 device=dev)
+            ref_what = "render()"
+        rel = abs(img.mean().item() / ref.mean().item() - 1)
+        # the two images' independent samples: the mean of their
+        # per-pixel difference over its standard error
+        d = (img - ref).mean(-1).double()
+        z = (d.mean() / (d.std() / d.numel() ** 0.5)).item()
+        passes = [x for shard in sorted(st["passes"])
+                  for x in st["passes"][shard]]
+        lines = two[name].result()
+        world2 = json.loads(lines[0].strip().splitlines()[-1])
+        _bits_equal(np.load(os.path.join(tmp, f"farm_{name}.npy")),
+                    img.cpu(), f"the sharded {name} render at world 2 against "
+                    "world 1")
+        print(f"sharded {name} render, layout {FARM_LAYOUT}, {res}x{res} spp "
+              f"{spp} depth 12: world 1 wall {wall:.3f} s, launches "
+              f"{ {k: counts[k] for k in kernels} }, mean "
+              f"{img.mean().item():.6f}; world 2 (two processes on this "
+              f"card, gloo) wall {world2['wall_s']:.3f} s, bit-equal; "
+              f"{ref_what}'s mean {ref.mean().item():.6f}, rel diff "
+              f"{rel:.2e}, z {z:+.2f} (the mean of the per-pixel "
+              f"difference over its standard error); each shard's passes "
+              f"{passes} [{card}]", flush=True)
+        if name == "wavefront" and any(x[3] != 0 for x in passes):
+            raise AssertionError("the sharded wavefront render left samples "
+                                 f"unfinished: {passes}")
+        if not rel <= FARM_MEAN_TOL:
+            raise AssertionError(f"the sharded {name} render's mean differs "
+                                 f"from the unsharded one's by {rel:.3e}")
+        farm[name] = dict(wall_1_s=wall, wall_2_s=world2["wall_s"],
+                          launches={k: counts[k] for k in kernels},
+                          mean=img.mean().item(), ref_mean=ref.mean().item(),
+                          z=z, passes=passes)
+        if name == "loop":
+            a_row["launches_sharded"] = counts["trilinear_lookup"]
+        else:
+            results.setdefault("megatrack", {})["launches_sharded"] = \
+                counts["megatrack"]
+        del img, ref
+    out["farm"] = farm
+    lap(42)
+
+    # ---- phase 43: the sharded training step ----
+    loss, params, grad, wall, counts = _sharded_step(dev, target, res,
+                                                     g_res, card)
+    _require(counts, ("trilinear_lookup", "trilinear_lookup_backward"),
+             "sharded training step, world 1")
+    step2.result()
+    w2 = np.load(os.path.join(tmp, "step2.npz"))
+    _bits_equal(w2["loss"], loss.numpy(), "the sharded step's loss")
+    _bits_equal(w2["grad_density"], grad.numpy(),
+                "the sharded step's density gradient")
+    for f in ("sigma_a", "sigma_s", "g", "density"):
+        _bits_equal(w2[f], getattr(params, f).numpy(),
+                    f"the sharded step's updated {f}")
+    print(f"sharded training step, layout {FARM_LAYOUT}, {res}x{res} sppc 4, "
+          f"Adam lr 5e-2: loss {loss.item():.6e}; world 1 wall {wall:.3f} s "
+          f"(kernel calls captured), "
+          f"A / A' launches {counts['trilinear_lookup']} / "
+          f"{counts['trilinear_lookup_backward']}; world 2 wall "
+          f"{float(w2['wall']):.3f} s, launches {w2['launches'].tolist()}; "
+          f"the loss, the density's gradient and the updated sigma_a, "
+          f"sigma_s, g and density bit-equal [{card}]", flush=True)
+    t0 = time.perf_counter()
+    print(f"{dry.result()} (its processes ran beside phases 42-43; "
+          f"{time.perf_counter() - t0:.1f} s more)", flush=True)
+    out["train"] = dict(loss=loss.item(), wall_1_s=wall,
+                        wall_2_s=float(w2["wall"]),
+                        launches=[counts["trilinear_lookup"],
+                                  counts["trilinear_lookup_backward"]])
+    a_row["launches_sharded_step"] = counts["trilinear_lookup"]
+    results.setdefault("trilinear_lookup_backward", {})[
+        "launches_sharded_step"] = counts["trilinear_lookup_backward"]
+    pool.shutdown()
+    lap(43)
+    print(json.dumps({"front_door": out}))
 
 
 if __name__ == "__main__":

@@ -28,6 +28,13 @@ from `integrators.volpath_er.li(differentiable=True)`.
 Their hand-written CUDA kernels live in csrc/ and are built by kernels.py
 at first use; on CPU tensors each kernel's plain PyTorch version runs
 instead.
+The front door: `scene.xml.load_scene` reads Mitsuba XML scenes, `utils.io`
+images, meshes and grids (OBJ and VOL3 through the native library in
+native/, built with g++ at first use), and `python -m
+mitsubaer_tpu_torch.cli scene.xml` renders one (on the card; `--cpu` for
+the CPU; `--sharded` under torchrun). `parallel.driver` renders and trains
+over torch.distributed, bit-identically at every world size for one
+layout of shards.
 """
 
 

@@ -30,6 +30,7 @@
 //
 #include <cuda_runtime.h>
 
+#include <cfloat>
 #include <climits>
 #include <cstdint>
 
@@ -114,70 +115,105 @@ __global__ void __launch_bounds__(kThreads)
 // one-voxel axis two coinciding corners add both weights to one voxel. The
 // weights are formed in the order autograd forms them through the lerps
 // ((g (1-tz)) (1-ty)) (1-tx), so each term equals models/medium.py::
-// trilinear_lookup_backward_plain's; the sums' order, and so their last
-// bits, vary from run to run. A zero output gradient adds nothing; a NaN
-// or inf one still reaches its 8 voxels.
+// trilinear_lookup_backward_plain's. A zero output gradient adds nothing; a
+// NaN or inf one still reaches its 8 voxels.
 //
 // What bounds it: 4 B of gradient a point, 12 B of position for a point
 // whose gradient is not zero, and the grid written once, at 3.35 TB/s
 // (~5.3 us at 2^20 spread points on 64^3; ~1.6 us at a training step's
 // 2^20-point call, whose gradients are almost all zero). What costs the
-// time is the float adds: a point's 8 adds go to L2 as reductions, and L2
+// time is the adds: a point's 8 adds go to L2 as reductions, and L2
 // retires them at a fixed rate, slower where many hit one address (points
 // that cluster in a few cells serialise there).
 //
-// Design: fewer L2 reductions, by three means.
+// Determinism. Float adds in the order the atomics happen to land would
+// change a voxel's last bits from run to run, and a training step's Adam
+// update lr g / (|g| + eps) magnifies those bits where |g| is small, so
+// two runs of one step would not update the grid alike. The voxels are
+// summed in fixed point instead: integer adds give the same sum in any
+// order. A first kernel finds the largest finite |grad_out| (an atomicMax
+// on its bits, exact); with n points no voxel's partial sums exceed n
+// times it in magnitude, so the scale 2^(62 - e), 2^e > n max |grad_out|,
+// keeps every partial sum inside int64 and resolves 2^-62 of that bound
+// (2^-41 of the largest gradient at 2^21 points: far below a float's
+// rounding of any voxel that holds it). Each value is rounded to the
+// nearest integer (symmetrically, so +x and -x cancel exactly). A sum
+// that is not finite (a NaN or inf gradient) adds to the float grid
+// itself instead, where NaN and +-inf add to the same value in any order.
+// A last kernel writes each voxel whose float value is still zero from its
+// fixed-point sum. The result is the same bits on every run of the same
+// inputs.
+//
+// Design: fewer L2 reductions, by two means.
 // - A block takes kBwdItems points a thread, holds their cells in
 //   registers and reduces the box of the voxels they touch. Where that box
-//   fits the shared tile and holds few voxels for its points, the block
-//   adds into the tile with shared-memory atomics and then adds each
-//   non-zero tile voxel to the grid once; else it adds to the grid itself.
+//   holds few voxels for its points, the block adds into a shared tile
+//   with shared-memory atomics and then adds each non-zero tile voxel to
+//   the grid once; else it adds to the grid itself.
 // - Before either add, the lanes of a warp that share a cell
 //   (__match_any_sync on the cell's index) sum their 8 weighted values
-//   with shuffles, and the lowest of them alone adds the sums.
-// - On the grid, a row's two x-adjacent corners go as one 16-byte vector
-//   reduction (sm_90's float4 atomicAdd, RED with no return) where both
-//   lie in one aligned group of four voxels, the other two lanes adding
-//   +0. The grid starts at +0 and a sum of floats never turns +0 into -0,
-//   so +0 leaves every voxel (NaN and inf included) as it was.
+//   with shuffles, in lane order, and the lowest of them alone adds the
+//   sums.
 // The zeroing is a cudaMemsetAsync on the same stream in the C entry.
-// Each mechanism and constant was timed against a copy without it (H100,
-// scripts/compare_kernels_torch.py --old): without the warp sums 2.6x slower
-// clustered; without the tile 18x; without the vector reductions 1.6x
-// spread; with no voxels-a-point limit on the tile 7-18% slower on a
-// training step's sparse calls; 2 points a thread 7-8% slower on the
-// step's mostly-zero calls (faster on busy ones), 8 slower everywhere.
+// Each mechanism and constant was timed against a copy without it with
+// float adds (H100, scripts/compare_kernels_torch.py --old): without the
+// warp sums 2.6x slower clustered; without the tile 18x; with no
+// voxels-a-point limit on the tile 7-18% slower on a training step's
+// sparse calls; 2 points a thread 7-8% slower on the step's mostly-zero
+// calls (faster on busy ones), 8 slower everywhere.
 constexpr int kBwdItems = 4;                  // points a thread
 constexpr int kBwdPoints = kThreads * kBwdItems;
-constexpr int kTile = 4096;                   // shared tile voxels (16 KB)
 constexpr int kTileVoxelsPerPoint = 2;        // tile if box <= 2 a point
+// the largest box the tile takes (16 KB of int64)
+constexpr int kTile = kTileVoxelsPerPoint * kBwdPoints;
+constexpr int kAmaxBlocks = 1024;
 
-// One row's two corner adds, a at flat index f (x0) and b at f + dx (x1;
-// dx is 0 on a one-voxel x axis), on the grid of `numel` voxels.
-__device__ __forceinline__ void grid_add_row(float* grid, long long f,
-                                             int dx, float a, float b,
-                                             long long numel) {
-  const int s = (int)(f & 3);
-  if (dx && s < 3 && f - s + 4 <= numel) {
-    float4 v;
-    v.x = s == 0 ? a : 0.0f;
-    v.y = s == 0 ? b : (s == 1 ? a : 0.0f);
-    v.z = s == 1 ? b : (s == 2 ? a : 0.0f);
-    v.w = s == 2 ? b : 0.0f;
-    atomicAdd(reinterpret_cast<float4*>(grid + (f - s)), v);
-  } else {
-    atomicAdd(grid + f, a);
-    atomicAdd(grid + f + dx, b);
+typedef unsigned long long u64;
+
+// The fixed-point scale of a call: 2^(62 - e) with 2^e > n amax (amax the
+// bits of the largest finite |grad_out|); 1 where every gradient is 0.
+__device__ __forceinline__ double fixed_scale(unsigned amax_bits, int n) {
+  const float amax = __uint_as_float(amax_bits);
+  if (amax == 0.0f) return 1.0;
+  int e;
+  frexp((double)amax * (double)n, &e);
+  return ldexp(1.0, 62 - e);
+}
+
+__global__ void __launch_bounds__(kThreads)
+    grad_amax_kernel(const float* __restrict__ grad_out, int n,
+                     unsigned* __restrict__ amax) {
+  unsigned m = 0;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += gridDim.x * kThreads) {
+    const float a = fabsf(grad_out[i]);
+    if (a <= FLT_MAX) m = max(m, __float_as_uint(a));   // NaN fails
   }
+  m = __reduce_max_sync(0xffffffffu, m);
+  if ((threadIdx.x & 31) == 0 && m) atomicMax(amax, m);
+}
+
+// A voxel's value a in fixed point (0 where a is 0); a value that is not
+// finite goes to the float grid at f here, and 0 comes back.
+__device__ __forceinline__ u64 to_fixed(float* grid, long long f, float a,
+                                        double scale) {
+  if (a == 0.0f) return 0;
+  if (!(fabsf(a) <= FLT_MAX)) {             // NaN or inf
+    atomicAdd(grid + f, a);
+    return 0;
+  }
+  return (u64)__double2ll_rn((double)a * scale);
 }
 
 __global__ void __launch_bounds__(kThreads)
     trilinear_backward_kernel(const float* __restrict__ p,
                               const float* __restrict__ grad_out,
                               const float* __restrict__ aabb6,
-                              float* __restrict__ grad_grid, int n, int nx,
-                              int ny, int nz) {
-  __shared__ float tile[kTile];
+                              float* __restrict__ grad_grid,
+                              u64* __restrict__ acc,
+                              const unsigned* __restrict__ amax, int n,
+                              int nx, int ny, int nz) {
+  __shared__ u64 tile[kTile];
   __shared__ int box[6];                      // lower x y z, upper x y z
   __shared__ int adding;
   const unsigned all = 0xffffffffu;
@@ -222,17 +258,17 @@ __global__ void __launch_bounds__(kThreads)
   }
   __syncthreads();
   if (adding == 0) return;
+  const double scale = fixed_scale(*amax, n);
   const int bx = box[0], by = box[1], bz = box[2];
   const int ex = box[3] - bx + 1, ey = box[4] - by + 1, ez = box[5] - bz + 1;
   const long long vol = (long long)ex * ey * ez;
   const bool use_tile = vol <= kTile && vol <= kTileVoxelsPerPoint * adding;
   if (use_tile) {
-    for (int v = threadIdx.x; v < vol; v += kThreads) tile[v] = 0.0f;
+    for (int v = threadIdx.x; v < vol; v += kThreads) tile[v] = 0;
     __syncthreads();
   }
 
   const int cx = max(nx - 1, 1), cy = max(ny - 1, 1);
-  const long long numel = (long long)nz * ny * nx;
 #pragma unroll
   for (int j = 0; j < kBwdItems; ++j) {
     const bool adds = g[j] != 0.0f;
@@ -251,7 +287,8 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     }
-    // the lanes of one cell sum their values; the lowest lane adds them
+    // the lanes of one cell sum their values in lane order; the lowest
+    // lane adds them
     float sum[8];
     for (int k = 0; k < 8; ++k) sum[k] = w[k];
     unsigned rest = adds ? peers & ~(1u << lane) : 0u;
@@ -265,19 +302,21 @@ __global__ void __launch_bounds__(kThreads)
       rest &= rest - 1;
     }
     if (!adds || lane != __ffs(peers) - 1) continue;
-    const int x0 = c[j][0], x1 = min(x0 + 1, nx - 1);
+    const int x[2] = {c[j][0], min(c[j][0] + 1, nx - 1)};
     const int y[2] = {c[j][1], min(c[j][1] + 1, ny - 1)};
     const int z[2] = {c[j][2], min(c[j][2] + 1, nz - 1)};
     for (int dz = 0; dz < 2; ++dz) {
       for (int dy = 0; dy < 2; ++dy) {
-        const float a = sum[4 * dz + 2 * dy], b = sum[4 * dz + 2 * dy + 1];
-        if (use_tile) {
-          const int row = ((z[dz] - bz) * ey + (y[dy] - by)) * ex;
-          atomicAdd(tile + row + x0 - bx, a);
-          atomicAdd(tile + row + x1 - bx, b);
-        } else {
-          grid_add_row(grad_grid, ((long long)z[dz] * ny + y[dy]) * nx + x0,
-                       x1 - x0, a, b, numel);
+        const long long f = ((long long)z[dz] * ny + y[dy]) * nx;
+        const int row = ((z[dz] - bz) * ey + (y[dy] - by)) * ex - bx;
+        for (int dx = 0; dx < 2; ++dx) {
+          const u64 q = to_fixed(grad_grid, f + x[dx],
+                                 sum[4 * dz + 2 * dy + dx], scale);
+          if (q == 0) continue;
+          if (use_tile)
+            atomicAdd(&tile[row + x[dx]], q);
+          else
+            atomicAdd(acc + f + x[dx], q);
         }
       }
     }
@@ -285,13 +324,27 @@ __global__ void __launch_bounds__(kThreads)
   if (!use_tile) return;
   __syncthreads();
   for (int v = threadIdx.x; v < vol; v += kThreads) {
-    const float a = tile[v];
-    if (a != 0.0f) {                          // NaN is flushed too
+    const u64 a = tile[v];
+    if (a != 0) {
       const int x = v % ex, yz = v / ex;
-      atomicAdd(grad_grid + ((long long)(bz + yz / ey) * ny + by + yz % ey)
-                * nx + bx + x, a);
+      atomicAdd(acc + ((long long)(bz + yz / ey) * ny + by + yz % ey) * nx
+                + bx + x, a);
     }
   }
+}
+
+// Each voxel whose float value is still zero (no NaN or inf reached it)
+// takes its fixed-point sum.
+__global__ void __launch_bounds__(kThreads)
+    fixed_to_float_kernel(float* __restrict__ grad_grid,
+                          const u64* __restrict__ acc,
+                          const unsigned* __restrict__ amax, int n,
+                          long long numel) {
+  const double unit = 1.0 / fixed_scale(*amax, n);
+  for (long long v = (long long)blockIdx.x * kThreads + threadIdx.x;
+       v < numel; v += (long long)gridDim.x * kThreads)
+    if (grad_grid[v] == 0.0f)
+      grad_grid[v] = (float)((double)(long long)acc[v] * unit);
 }
 
 }  // namespace
@@ -312,23 +365,33 @@ extern "C" int mk_trilinear_lookup(const float* p, const void* cells,
   return (int)cudaGetLastError();
 }
 
-// grad_grid: the (nz, ny, nx) float32 gradient of the grid, 16-byte
-// aligned (the vector reductions), zeroed here on the stream; each point
-// inside the AABB then adds grad_out[i] times its 8 trilinear weights.
+// grad_grid: the (nz, ny, nx) float32 gradient of the grid; acc: nz ny nx
+// + 1 int64 of scratch (the fixed-point sums, then the largest |grad_out|'s
+// bits). Both are zeroed here on the stream; each point inside the AABB
+// then adds grad_out[i] times its 8 trilinear weights.
 extern "C" int mk_trilinear_lookup_backward(const float* p,
                                             const float* grad_out,
                                             const float* aabb6,
-                                            float* grad_grid, int n, int nx,
-                                            int ny, int nz, void* stream) {
-  if (reinterpret_cast<uintptr_t>(grad_grid) % 16)
-    return (int)cudaErrorMisalignedAddress;
-  cudaError_t rc = cudaMemsetAsync(
-      grad_grid, 0, sizeof(float) * (size_t)nz * ny * nx,
-      (cudaStream_t)stream);
+                                            float* grad_grid, void* acc,
+                                            int n, int nx, int ny, int nz,
+                                            void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long numel = (long long)nz * ny * nx;
+  u64* sums = (u64*)acc;
+  unsigned* amax = (unsigned*)(sums + numel);
+  cudaError_t rc = cudaMemsetAsync(grad_grid, 0, sizeof(float) * numel, s);
+  if (rc == cudaSuccess)
+    rc = cudaMemsetAsync(sums, 0, sizeof(u64) * (numel + 1), s);
   if (rc != cudaSuccess) return (int)rc;
   const int blocks = (n + kBwdPoints - 1) / kBwdPoints;
-  trilinear_backward_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      p, grad_out, aabb6, grad_grid, n, nx, ny, nz);
+  const int amax_blocks = (n + kThreads - 1) / kThreads;
+  grad_amax_kernel<<<amax_blocks < kAmaxBlocks ? amax_blocks : kAmaxBlocks,
+                     kThreads, 0, s>>>(grad_out, n, amax);
+  trilinear_backward_kernel<<<blocks, kThreads, 0, s>>>(
+      p, grad_out, aabb6, grad_grid, sums, amax, n, nx, ny, nz);
+  const long long fin = (numel + kThreads - 1) / kThreads;
+  fixed_to_float_kernel<<<(int)(fin < 4096 ? fin : 4096), kThreads, 0, s>>>(
+      grad_grid, sums, amax, n, numel);
   return (int)cudaGetLastError();
 }
 

@@ -451,9 +451,11 @@ def blocks_per_sm() -> int:
     return blocks.value
 
 
-def pass_seed(seed: int, pass_idx: int) -> int:
-    """The per-pass seed mix of the JAX render_boxwalk."""
-    return (seed ^ ((pass_idx * 0x9E3779B9 + 0x7F4A7C15) & M32)) & M32
+def pass_seed(seed: int, pass_idx: int, row0: int = 0) -> int:
+    """The per-pass seed mix of the JAX render_boxwalk; the wavefront
+    engine's tracking seed, which mixes in a row block's first row."""
+    return (seed ^ ((pass_idx * 0x9E3779B9 + 0x7F4A7C15 + row0 * 0x85EBCA6B)
+                    & M32)) & M32
 
 
 def walk_inputs(scene: Scene, cfg: RenderConfig, sppc: int):

@@ -32,7 +32,12 @@ steady film: "auto" takes them only there, and engine="wavefront" with
 frames or a modulation raises ValueError.
 
 Renders run on the CUDA card unless the caller passes device="cpu", where
-the plain PyTorch versions of the kernels run instead. Every other road
+the plain PyTorch versions of the kernels run instead. The loop road
+checkpoints and resumes (checkpoint_path / checkpoint_every, in the JAX
+package's npz layout, utils/checkpoint.py). Every road adds its seconds
+to utils/stats.py's "render.wall", and the loop, boxwalk and wavefront
+roads count "render.passes" and "render.camera_rays", as the JAX render()
+does. Every other road
 raises NotImplementedError with the ROADMAP Queue 1 step that will port it.
 """
 from __future__ import annotations
@@ -49,6 +54,8 @@ from ..models import medium as medium_m
 from ..models import phase as phase_m
 from ..models import sensor as sensor_m
 from ..scene.types import EM_COLLIMATED, MED_HETEROGENEOUS, RenderConfig, Scene
+from ..utils import checkpoint as ckpt
+from ..utils import stats as stats_m
 from . import bdpt as bdpt_m
 from . import boxwalk, common
 from . import misc as misc_m
@@ -190,24 +197,46 @@ def beam_splat_pass(scene: Scene, splat, cfg: RenderConfig, n_samples: int,
     value = torch.where(ok.unsqueeze(-1), value, 0.0)
     px = torch.clamp(torch.nan_to_num(fs.px).to(torch.int64), 0, W - 1)
     py = torch.clamp(torch.nan_to_num(fs.py).to(torch.int64), 0, H - 1)
-    # scatter-add: on CUDA the order of the adds, and so the rounding, varies
     if cfg.n_frames == 1:
-        splat.view(H * W, 3).index_add_(0, py * W + px, value)
+        add_rows(splat.view(H * W, 3), py * W + px, value)
         return splat
     key = (sdist + dist if cfg.decomposition != "bounce"
            else torch.full_like(sdist, 2.0))
     b, inside = film_m.bin_index(cfg, key)
     value = torch.where((inside & ok).unsqueeze(-1), value, 0.0)
-    splat.view(H * W, cfg.n_frames, 3).index_put_((py * W + px, b), value,
-                                                  accumulate=True)
+    add_rows(splat.view(H * W * cfg.n_frames, 3),
+             (py * W + px) * cfg.n_frames + b, value)
     return splat
+
+
+def add_rows(flat, key, value):
+    """flat[key[i]] += value[i] for every i, in an order fixed by the data,
+    so that the result is the same bits on every run (index_add_ on CUDA
+    adds in the order its atomics land). The rows are sorted stably by key;
+    a segmented inclusive scan of log2(n) doubling steps sums each key's
+    rows in a fixed tree order; the last row of each key adds its sum to
+    `flat`, one add a key. On the CPU the result equals index_add_'s within
+    float rounding."""
+    key_s, order = torch.sort(key, stable=True)
+    v = value[order]
+    n, step = v.shape[0], 1
+    while step < n:
+        same = (key_s[step:] == key_s[:-step]).unsqueeze(-1)
+        v = torch.cat([v[:step], v[step:] + torch.where(same, v[:-step], 0.0)])
+        step *= 2
+    last = torch.ones_like(key_s, dtype=torch.bool)
+    last[:-1] = key_s[1:] != key_s[:-1]
+    flat[key_s[last]] += v[last]
+    return flat
 
 
 _device = common.render_device     # the roads' device rule
 
 
 def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
-           seed: int = 0, device=None, stats: dict | None = None):
+           seed: int = 0, device=None, stats: dict | None = None,
+           spp_per_pass: int | None = None,
+           checkpoint_path: str | None = None, checkpoint_every: int = 0):
     """Render to a developed (H, W, 3) image on `device`: the CUDA card by
     default (it raises where there is none), the CPU only when
     device="cpu" is passed.
@@ -231,7 +260,15 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
     Woodcock tracking iterations] on the volpath loop road, [bounces] on
     the path loop road and the eikonal road) and the seconds of the
     passes, timed with a device synchronize around each, as "boxwalk_s",
-    "wavefront_s", "loop_s", "er_s", "bdpt_s" or "ptracer_s"."""
+    "wavefront_s", "loop_s", "er_s", "bdpt_s" or "ptracer_s".
+
+    spp_per_pass fixes the samples of a pass (default min(spp, 2^21 //
+    npix), as in the JAX render()). checkpoint_path / checkpoint_every make
+    a loop-road render resumable, as the JAX render() does: an existing
+    state at checkpoint_path is loaded (accumulator, pass counter and seed;
+    one the JAX package wrote too), and the state is saved there after
+    every checkpoint_every-th pass. The counter-based sampler makes the
+    resumed render equal to an uninterrupted one."""
     if spp is not None:
         cfg = replace(cfg, spp=spp)
     if cfg.integrator in _NOT_PORTED:
@@ -242,46 +279,35 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
     if cfg.integrator in ("bdpt", "ptracer"):
         fn = (bdpt_m.render_bdpt if cfg.integrator == "bdpt"
               else ptracer_m.render_ptracer)
-        return fn(scene.to(_device(device)), cfg, seed=seed, stats=stats)
+        with stats_m.timed("render.wall"):
+            return fn(scene.to(_device(device)), cfg, seed=seed, stats=stats)
+    spp_per_pass = spp_per_pass or _spp_per_pass(cfg)
     if cfg.integrator == "volpath_er":
         return _render_film(scene.to(_device(device)), cfg, seed, stats,
-                            "er_s", _er_pass)
+                            "er_s", _er_pass, spp_per_pass, count=False)
     if not _use_wavefront(cfg):
         scene = scene.to(_device(device))
-        img = _render_film(scene, cfg, seed, stats, "loop_s", render_pass)
+        img = _render_film(scene, cfg, seed, stats, "loop_s", render_pass,
+                           spp_per_pass, checkpoint_path, checkpoint_every)
         return _add_beam_splat(scene, cfg, img, seed)
     wf_m.check_supported(scene, cfg)
     use_bw = boxwalk.supported(scene, cfg)
     scene = scene.to(_device(device))
     dev = scene.aabb_min.device
     npix = cfg.width * cfg.height
-    spp_per_pass = _spp_per_pass(cfg)
     hd, het = _has_direct(scene), _any_het(scene)
-    L = torch.zeros((npix, 3), dtype=torch.float32, device=dev)
-    done = 0
-    pass_idx = 0
     timer = "boxwalk_s" if use_bw else "wavefront_s"
-    if stats is not None:
-        stats.setdefault("passes", [])
-        stats.setdefault(timer, 0.0)
-    while done < cfg.spp:
-        sppc = min(spp_per_pass, cfg.spp - done)
-        if stats is not None:
-            common.sync(dev)
-            t0 = time.perf_counter()
+
+    def fast_pass(L, sppc, pass_idx):
         if use_bw:
             Lb, st = boxwalk.render_boxwalk(scene, cfg, sppc, seed, pass_idx)
-            L = L + Lb
-        else:
-            L, st = render_pass_wavefront(scene, L, cfg, sppc, seed,
-                                          pass_idx, has_direct=hd,
-                                          any_het=het)
-        if stats is not None:
-            common.sync(dev)
-            stats[timer] += time.perf_counter() - t0
-            stats["passes"].append(st.tolist())
-        done += sppc
-        pass_idx += 1
+            return L + Lb, st.tolist()
+        L, st = render_pass_wavefront(scene, L, cfg, sppc, seed, pass_idx,
+                                      has_direct=hd, any_het=het)
+        return L, st.tolist()
+
+    L = _run_passes(dev, cfg, stats, timer, spp_per_pass, fast_pass,
+                    torch.zeros((npix, 3), dtype=torch.float32, device=dev))
     img = (L / float(cfg.spp)).reshape(cfg.height, cfg.width, 3)
     return _add_beam_splat(scene, cfg, img, seed)
 
@@ -308,31 +334,66 @@ def _spp_per_pass(cfg: RenderConfig) -> int:
     return max(1, min(cfg.spp, (1 << 21) // max(cfg.width * cfg.height, 1)))
 
 
-def _render_film(scene: Scene, cfg: RenderConfig, seed: int, stats,
-                 timer: str, pass_fn):
-    """spp chunks of pass_fn(scene, accum, cfg, sppc, seed, pass_idx) ->
-    (accum, counts) into the filtered film, developed: the loop road
-    (render.py:392-418) and the eikonal road's host-stepped branch
-    (render.py:323-345)."""
-    dev = scene.aabb_min.device
-    accum = film_m.new_accumulator(cfg, dev)
-    spp_per_pass = _spp_per_pass(cfg)
+def _run_passes(dev, cfg: RenderConfig, stats, timer: str,
+                spp_per_pass: int, pass_fn, acc, pass_idx: int = 0,
+                after=None, count: bool = True):
+    """acc through pass_fn(acc, sppc, pass_idx) -> (acc, counts), chunk by
+    chunk of spp_per_pass samples, from pass pass_idx (a resumed render's)
+    to cfg.spp; after(acc, pass_idx) follows each pass where given. Feeds
+    the `stats` dict (timer, "passes") and utils/stats.py ("render.wall";
+    where `count`, "render.passes" and "render.camera_rays")."""
     if stats is not None:
         stats.setdefault("passes", [])
         stats.setdefault(timer, 0.0)
-    done = pass_idx = 0
-    while done < cfg.spp:
-        sppc = min(spp_per_pass, cfg.spp - done)
-        if stats is not None:
-            common.sync(dev)
-            t0 = time.perf_counter()
-        accum, counts = pass_fn(scene, accum, cfg, sppc, seed, pass_idx)
-        if stats is not None:
-            common.sync(dev)
-            stats[timer] += time.perf_counter() - t0
-            stats["passes"].append(counts)
-        done += sppc
-        pass_idx += 1
+    npix = cfg.width * cfg.height
+    done = min(pass_idx * spp_per_pass, cfg.spp)
+    with stats_m.timed("render.wall"):
+        while done < cfg.spp:
+            sppc = min(spp_per_pass, cfg.spp - done)
+            if stats is not None:
+                common.sync(dev)
+                t0 = time.perf_counter()
+            acc, counts = pass_fn(acc, sppc, pass_idx)
+            if stats is not None:
+                common.sync(dev)
+                stats[timer] += time.perf_counter() - t0
+                stats["passes"].append(counts)
+            done += sppc
+            pass_idx += 1
+            if count:
+                stats_m.counter_add("render.passes")
+                stats_m.counter_add("render.camera_rays", npix * sppc)
+            if after is not None:
+                after(acc, pass_idx)
+        common.sync(dev)
+    return acc
+
+
+def _render_film(scene: Scene, cfg: RenderConfig, seed: int, stats,
+                 timer: str, pass_fn, spp_per_pass: int,
+                 checkpoint_path: str | None = None,
+                 checkpoint_every: int = 0, count: bool = True):
+    """spp chunks of pass_fn(scene, accum, cfg, sppc, seed, pass_idx) ->
+    (accum, counts) into the filtered film, developed: the loop road
+    (render.py:392-418, with its checkpoints) and the eikonal road's
+    host-stepped branch (render.py:323-345, which counts no passes)."""
+    dev = scene.aabb_min.device
+    accum = film_m.new_accumulator(cfg, dev)
+    pass_idx = 0
+    if checkpoint_path:
+        st = ckpt.load_render_state(checkpoint_path)
+        if st is not None:
+            accum, pass_idx, seed, _ = st
+            accum = torch.as_tensor(accum, device=dev)
+
+    def save(acc, pass_idx):
+        if checkpoint_every and pass_idx % checkpoint_every == 0:
+            ckpt.save_render_state(checkpoint_path, acc, pass_idx, seed, cfg)
+
+    accum = _run_passes(
+        dev, cfg, stats, timer, spp_per_pass,
+        lambda acc, sppc, i: pass_fn(scene, acc, cfg, sppc, seed, i), accum,
+        pass_idx, save if checkpoint_path else None, count)
     return film_m.develop(accum)
 
 

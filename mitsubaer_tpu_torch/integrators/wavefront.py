@@ -35,8 +35,12 @@ uc_hom. `tap_seed` decorrelates the tracking streams across passes.
 Left out (TPU-only variants, ROADMAP): tracking_full, tracking_ladder,
 tracking_compact, tracking_dda / MacroMajorant, WF_ABLATE and the in-loop
 epoch drain of wf_epoch_ring < sppc (the ring always has sppc slots, so no
-barrier exists). Row-block sharding (row0 / full_height) waits for ROADMAP
-Queue 1 step 11.
+barrier exists).
+
+Row-block sharding (parallel/driver.py): with row0 and full_height the
+engine renders rows [row0, row0 + height) of a full_height-row image; its
+lanes key their samplers and camera rays by the global pixel id, and row0
+enters the tracking seed mix, as in the JAX engine (wavefront.py:205, 554).
 """
 from __future__ import annotations
 
@@ -44,7 +48,6 @@ from dataclasses import dataclass, replace
 
 import torch
 
-from .. import not_ported
 from ..core import rng
 from ..core.math import Frame, dot, mis_weight_power
 from ..core.rng import M32
@@ -172,9 +175,9 @@ def make_engine(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
     set, as in the JAX engine: `volumetric_box` sets it for its beam, the
     scene builder does not, so a builder-made beam scene renders without
     beam NEE in both packages."""
-    if row0 not in (None, 0) or full_height not in (None, cfg.height):
-        raise not_ported("row-block sharding of the wavefront engine", 11)
+    row0 = int(row0 or 0)
     H, W = cfg.height, cfg.width
+    H_full = full_height or H
     npix = H * W
     n = npix if n_lanes is None else n_lanes
     if n != npix:
@@ -188,7 +191,7 @@ def make_engine(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
         beam_tau = build_beam_tau(
             scene, beam, medium_m.DensityGrid(media, dtype=torch.bfloat16))
     mega = megatrack.MegaTable(media) if any_het else None
-    tap_seed = pass_seed(seed, pass_idx)
+    tap_seed = pass_seed(seed, pass_idx, row0)
     stride = 104729 % npix
     max_super = sppc * (6 * cfg.max_depth + 16) + 64
     act = cfg.bsdf_kinds or None
@@ -443,12 +446,13 @@ def make_engine(scene: Scene, cfg: RenderConfig, sppc: int, seed: int,
         sample_idx = torch.where(want, new_idx, st.sample_idx)
         pix = torch.where(want, (lane + new_idx * stride) % npix, st.pix)
         sample_open = sample_open | want
-        smp = rng.restart(smp, want, pix, pass_idx * sppc + sample_idx)
+        gpix = pix + row0 * W       # the global pixel id (row blocks)
+        smp = rng.restart(smp, want, gpix, pass_idx * sppc + sample_idx)
         u_jit, smp = rng.next_2d(smp)
         u_lens, smp = rng.next_2d(smp)
-        px = (pix % W).to(torch.float32) + u_jit[:, 0]
-        py = (pix // W).to(torch.float32) + u_jit[:, 1]
-        rays = sensor_m.sample_rays(scene.sensor, px, py, W, H,
+        px = (gpix % W).to(torch.float32) + u_jit[:, 0]
+        py = (gpix // W).to(torch.float32) + u_jit[:, 1]
+        rays = sensor_m.sample_rays(scene.sensor, px, py, W, H_full,
                                     u_lens=u_lens,
                                     kind_hint=cfg.sensor_kind)
         o = _w3(want, rays.o, o)

@@ -68,8 +68,10 @@ class SensIO(ctypes.Structure):
 _SIGNATURES = {
     # (points, cells, aabb6, out, n, nx, ny, nz, bf16, stream)
     "mk_trilinear_lookup": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # (points, grad_out, aabb6, grad_grid, n, nx, ny, nz, stream)
-    "mk_trilinear_lookup_backward": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # (points, grad_out, aabb6, grad_grid, acc (int64 scratch), n, nx, ny,
+    #  nz, stream)
+    "mk_trilinear_lookup_backward": [_P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                     _P],
     # (params, seed, table, beam_tab, out, npix, sppc, max_depth, rr_depth,
     #  width, height, stride, nx, ny, nz, nbx, nby, nbz, max_trips,
     #  next_lane (one int32 of scratch), stream)

@@ -188,9 +188,10 @@ def trilinear_lookup_backward(shape, aabb6, p, grad_out):
     """Kernel A' (csrc/trilinear.cu, `mk_trilinear_lookup_backward`): the
     grid gradient of kernel A's lookups, as trilinear_lookup_backward_plain
     computes it, for CUDA tensors; the plain version for CPU ones. The C
-    entry zeroes the grid on the stream and the kernel adds with float
-    atomics, so the sums' order, and their last bits, vary from run to
-    run."""
+    entry zeroes the grid on the stream, and the kernel sums each voxel in
+    fixed point (int64, scaled from the largest |grad_out|), so the result
+    has the same bits on every run of the same inputs; it lies within
+    float rounding of the plain version's float sums."""
     if p.is_cpu:
         return trilinear_lookup_backward_plain(shape, aabb6, p, grad_out)
     if not p.is_cuda:
@@ -211,10 +212,13 @@ def trilinear_lookup_backward(shape, aabb6, p, grad_out):
     if n == 0:
         return torch.zeros((nz, ny, nx), dtype=torch.float32, device=p.device)
     grad = torch.empty((nz, ny, nx), dtype=torch.float32, device=p.device)
+    acc = torch.empty((nz * ny * nx + 1,), dtype=torch.int64,
+                      device=p.device)
     with kernels.on_device(p):
         rc = kernels.library().mk_trilinear_lookup_backward(
             p.data_ptr(), grad_out.data_ptr(), aabb6.data_ptr(),
-            grad.data_ptr(), n, nx, ny, nz, kernels.stream(p))
+            grad.data_ptr(), acc.data_ptr(), n, nx, ny, nz,
+            kernels.stream(p))
     kernels.check(rc, "trilinear_lookup_backward")
     trilinear_lookup_backward.launches += 1
     return grad

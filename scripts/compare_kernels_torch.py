@@ -13,7 +13,7 @@ its own kernels, and is called only through the wrappers both trees have
 `boxwalk.walk`, `megatrack.run`, `ermarch.trace`, `ermarch.sens_march`), so
 the comparison does not depend on either tree's C interface (D's per-lane
 trip counts, which no wrapper returns, come through each tree's own
-interface; A''s bare launch through the C entry both trees share). DIR may
+interface; A''s bare launch through each tree's C entry, _a_bwd_bare). DIR may
 also be a copy of this tree with a launch constant changed, to time a
 variant of a kernel against the kernel as it stands; --kernels limits the
 run to the kernels named (default all six).
@@ -184,7 +184,7 @@ def _kernel_a_bwd(cs, dev, res):
         launches = fn.launches - before
         rel, _ = cs._a_bwd_check(got, want, cs.A_BWD_TOL[tol], label)
         m = _measure(cs, "A'", lambda: fn(shape, aabb6, p, g), 50)
-        m["bare_ms"] = cs._cuda_ms(cs._a_bwd_bare(
+        m["bare_ms"] = cs._cuda_ms(_a_bwd_bare(
             shape, aabb6, p, g, torch.zeros(shape, device=dev)), 50)
         bound = cs._a_bwd_bound(shape, g)
         m.update(launches_a_call=launches, max_rel_err=rel,
@@ -192,6 +192,25 @@ def _kernel_a_bwd(cs, dev, res):
                  points=_a_bwd_stats(shape, aabb6, p, g))
         res[f"A'_{label}"] = m
     res["A'_sass"] = _sass(KERNEL_NAMES["A'"])
+
+
+def _a_bwd_bare(shape, aabb6, p, grad_out, grad):
+    """One bare launch of this process's tree's kernel A' into `grad` (not
+    counted): with the int64 scratch argument where the tree's C entry
+    takes one (the fixed-point sums), without it where it does not."""
+    import torch
+
+    from mitsubaer_tpu_torch import kernels
+
+    nz, ny, nx = shape
+    fn = kernels.library().mk_trilinear_lookup_backward
+    acc = torch.empty((nz * ny * nx + 1,), dtype=torch.int64,
+                      device=p.device)
+    scratch = [acc.data_ptr()] if len(fn.argtypes) == 10 else []
+    args = (p.data_ptr(), grad_out.data_ptr(), aabb6.data_ptr(),
+            grad.data_ptr(), *scratch, p.shape[0], nx, ny, nz,
+            kernels.stream(p))
+    return lambda keep=acc: fn(*args)
 
 
 def _a_bwd_stats(shape, aabb6, p, grad_out):

@@ -2,13 +2,19 @@
 
     python3 scripts/profile_er_grad_torch.py [--scene radial|spline]
                                              [--res N] [--sppc K]
+                                             [--depth D] [--repeat]
                                              [--no-profile]
 
 One eikonal gradient (`integrators.volpath_er.li(differentiable=True)`,
 mean(sink), autograd.grad) as chip_smoke.py phases 19 and 20 take it:
 radial, bench.py::bench_er_grad's configuration (32^2 spp 2, gradient with
 respect to rif_params); spline, tests/test_inverse.py's scene with a 32^3
-grid (64^2 sppc 2, gradient with respect to the coefficients). After a
+grid (64^2 sppc 2, gradient with respect to the coefficients). With
+--repeat it first runs the gradient twice at that size (seeds 0 and 1),
+each timed with a synchronise, as chip_smoke.py phases 19 and 20 once
+did: the first call's wall, and the second's in a warm process (phase
+20's spline runs at --depth 3, chip_smoke.SPLINE_DEPTH; --depth replaces
+the scene's own). After a
 warm-up at 8^2 it runs:
 - one gradient with its forward (the checkpointed bounces) and its
   backward (the recomputed bounces and the rest) timed apart, and inside
@@ -24,6 +30,7 @@ It imports the package of the tree it lies in.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import subprocess
 import sys
 import time
@@ -43,6 +50,8 @@ def main() -> int:
     ap.add_argument("--scene", choices=sorted(SCENES), default="radial")
     ap.add_argument("--res", type=int)
     ap.add_argument("--sppc", type=int)
+    ap.add_argument("--depth", type=int)
+    ap.add_argument("--repeat", action="store_true")
     ap.add_argument("--no-profile", action="store_true")
     args = ap.parse_args()
     make, res, sppc, field = SCENES[args.scene]
@@ -87,6 +96,8 @@ def main() -> int:
         """(forward s, backward s, loss) of one gradient; spans, where
         given, receives the host time of each part by phase."""
         scene, cfg = make(res)
+        if args.depth:
+            cfg = dataclasses.replace(cfg, max_depth=args.depth)
         scene = scene.to(dev)
         leaf = getattr(scene.media, field).detach().clone().requires_grad_()
         phase = ["forward"]
@@ -109,6 +120,16 @@ def main() -> int:
                 setattr(mod, attr, fn)
         return t1 - t0, t2 - t1, loss.item()
 
+    if args.repeat:
+        walls = []
+        for seed in (0, 1):
+            t0 = time.perf_counter()
+            fwd, bwd, loss = gradient(res, seed)
+            walls.append(time.perf_counter() - t0)
+        print(f"eikonal gradient ({args.scene}) {res}x{res} sppc {sppc}, "
+              f"two calls: first (seed 0) {walls[0]:.3f} s, second (seed 1) "
+              f"{walls[1]:.3f} s, {res * res * sppc / walls[1]:.1f} fwd+bwd "
+              f"samples/s [{card}]", flush=True)
     gradient(8, 0)                                           # warm-up
     spans = {p: dict.fromkeys(("body", "solve", "trace", "sens"), 0.0)
              for p in ("forward", "backward")}

@@ -342,8 +342,9 @@ def cuda():
 @pytest.mark.cuda
 @pytest.mark.parametrize("points", chip_smoke.A_BWD_CASES)
 def test_backward_kernel_matches_plain_on_cuda(cuda, points):
-    """Kernel A' against its plain version. Float atomics add in a varying
-    order: within chip_smoke.A_BWD_TOL of the largest voxel, 1e-5 for
+    """Kernel A' against its plain version, and a second call bit-equal to
+    the first (the kernel sums in fixed point). The two sum in different
+    orders: within chip_smoke.A_BWD_TOL of the largest voxel, 1e-5 for
     spread points (~32 terms a voxel), 1e-4 for the clustered sets, whose
     few voxels sum up to ~300,000 terms each in float32 in either order;
     a NaN output gradient makes the same voxels NaN in both, and the kernel
@@ -357,6 +358,9 @@ def test_backward_kernel_matches_plain_on_cuda(cuda, points):
     got = tmedium.trilinear_lookup_backward(shape, aabb6, p, g)
     assert tmedium.trilinear_lookup_backward.launches == \
         before + (p.shape[0] > 0)
+    again = tmedium.trilinear_lookup_backward(shape, aabb6, p, g)
+    assert torch.equal(again.isnan(), got.isnan())
+    assert torch.equal(torch.nan_to_num(again), torch.nan_to_num(got))
     want = tmedium.trilinear_lookup_backward_plain(shape, aabb6, p, g)
     exact = tmedium.trilinear_lookup_backward_plain(shape, aabb6, p,
                                                     g.double())

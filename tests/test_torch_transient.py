@@ -1,7 +1,7 @@
 """Transient, bounce and CW-ToF films through the port's roads against the
 JAX package's, on the same rays, samplers and seeds (CPU): `volpath.li`
 on the heterogeneous box (12^2, spp 2, depth 4) with transient and bounce
-frames and the sine and m-sequence weights; `path.li` on the cbox (8^2,
+frames and the sine and m-sequence weights; `path.li` on the cbox (12^2,
 transient); `volpath_er.li` on the refractive sphere (10^2, single BVP
 solve, transient); render() of the beam-lit box with transient frames
 (the beam splat binned at s + d); and render_diff on a transient config,
@@ -48,6 +48,9 @@ from mitsubaer_tpu_torch.scene import presets as tpresets
 torch.set_num_threads(1)
 
 SEED = 5
+# every eager JAX reference runs 288 lanes (12^2 at spp 2), so that JAX's
+# one-op compiles of the first serve the others
+RES, LANES = 12, 288
 FILMS = {
     "transient": dict(decomposition="transient", min_bound=0.0,
                       max_bound=16.0, bin_width=0.25),
@@ -89,8 +92,8 @@ def _compare_sinks(got, want, frac=1.0):
 
 @pytest.mark.parametrize("film", list(FILMS))
 def test_volpath_li_matches_jax(film):
-    kw = dict(res=12, spp=2, heterogeneous=True, density_res=8, max_depth=4,
-              **FILMS[film])
+    kw = dict(res=RES, spp=2, heterogeneous=True, density_res=8,
+              max_depth=4, **FILMS[film])
     js, jc = jpresets.volumetric_box(**kw)
     ts, tc = tpresets.volumetric_box(**kw)
     rays, _, smp = tcommon.camera_samples(ts, tc, 2, SEED, 0)
@@ -109,7 +112,7 @@ def test_volpath_li_matches_jax(film):
 
 def test_path_li_transient_matches_jax():
     """The cbox's lengths are hundreds of units: frames of 150 from 500."""
-    kw = dict(res=8, spp=2, max_depth=4, boxes=False,
+    kw = dict(res=RES, spp=2, max_depth=4, boxes=False,
               decomposition="transient", min_bound=500.0, max_bound=3500.0,
               bin_width=150.0)
     js, jc = jpresets.cornell_box(**kw)
@@ -153,25 +156,26 @@ def test_volpath_er_li_transient_matches_jax(_acoustic_stub):
 def test_render_transient_beam_splat_matches_jax():
     """render() of the beam-lit box, box filter, loop engine, transient:
     the camera passes' frames and the beam splat's, binned at s + d."""
-    kw = dict(res=12, spp=2, heterogeneous=False, max_depth=3, filter="box",
-              engine="loop", decomposition="transient", min_bound=0.0,
-              max_bound=12.0, bin_width=0.5)
+    kw = dict(res=RES, spp=2, heterogeneous=False, max_depth=3,
+              filter="box", engine="loop", decomposition="transient",
+              min_bound=0.0, max_bound=12.0, bin_width=0.5)
     js, jc = jpresets.volumetric_box(**kw)
     ts, tc = tpresets.volumetric_box(**kw)
     with jax.disable_jit():
         want = np.asarray(jrender.render(js, jc, seed=SEED))
     got = trender.render(ts, tc, seed=SEED, device="cpu").numpy()
-    assert got.shape == want.shape == (12, 12, 3 * 24)
-    _agree(got.reshape(144, -1), want.reshape(144, -1))
+    npix = RES * RES
+    assert got.shape == want.shape == (RES, RES, 3 * 24)
+    _agree(got.reshape(npix, -1), want.reshape(npix, -1))
     # the beam splat alone, frame by frame
-    splat = torch.zeros((12, 12, 3 * 24))
-    trender.beam_splat_pass(ts, splat, tc, 288, SEED, 1)
+    splat = torch.zeros((RES, RES, 3 * 24))
+    trender.beam_splat_pass(ts, splat, tc, LANES, SEED, 1)
     with jax.disable_jit():
         want_s = np.asarray(jrender.beam_splat_pass(
-            js, jnp.zeros((12, 12, 3 * 24)), jc, 288, jnp.uint32(SEED),
+            js, jnp.zeros((RES, RES, 3 * 24)), jc, LANES, jnp.uint32(SEED),
             jnp.uint32(1)))
     assert (want_s != 0).any()
-    _agree(splat.numpy().reshape(144, -1), want_s.reshape(144, -1))
+    _agree(splat.numpy().reshape(npix, -1), want_s.reshape(npix, -1))
 
 
 @pytest.mark.parametrize("film", ["transient", "bounce"])
