@@ -1,5 +1,6 @@
 """Counter-based samplers (port of mitsubaer_tpu/core/rng.py): the
-independent, lds, stratified, halton, hammersley and sobol modes.
+independent, lds, stratified, halton, hammersley and sobol modes, and the
+VECTOR mode, which replays an explicit table of uniforms.
 
 Every (seed, lane, sample_index, dimension) tuple hashes to one float, so a
 render is order-independent and replayable, and the port reproduces the JAX
@@ -21,9 +22,11 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-# the JAX package's sampler modes by name (its VECTOR mode, a replay table
-# of the MLT chains, is ROADMAP Queue 1 step 12)
-INDEPENDENT, LDS, STRATIFIED, HALTON, HAMMERSLEY, SOBOL = range(6)
+# the JAX package's sampler modes; VECTOR (replayable: draws come from an
+# explicit (N, D) table of uniforms, the reference's ReplayableSampler,
+# rsampler.cpp, which the primary-sample-space MLT chains mutate) is no
+# config name
+INDEPENDENT, LDS, STRATIFIED, HALTON, HAMMERSLEY, SOBOL, VECTOR = range(7)
 MODES = {"independent": INDEPENDENT, "lds": LDS, "ldsampler": LDS,
          "stratified": STRATIFIED, "halton": HALTON,
          "hammersley": HAMMERSLEY, "sobol": SOBOL}
@@ -287,7 +290,8 @@ class Sampler:
     within it, `dim` the next dimension to draw; `key` is
     hash_combine(seed, lane, index). All int64 uint32 bits. `mode` and
     `n_samples` (the spp, which shapes the stratified and hammersley
-    modes) are static."""
+    modes) are static. `table` is the VECTOR mode's (N, D) float32
+    uniforms, row i read by the sampler's lane i."""
 
     lane: torch.Tensor
     index: torch.Tensor
@@ -296,6 +300,7 @@ class Sampler:
     key: torch.Tensor
     mode: int = INDEPENDENT
     n_samples: int = 16
+    table: torch.Tensor | None = None
 
 
 def mode_of(name: str) -> int:
@@ -305,15 +310,15 @@ def mode_of(name: str) -> int:
 
 
 def make_sampler(seed, lane, sample_index, mode: int = INDEPENDENT,
-                 n_samples: int = 16) -> Sampler:
+                 n_samples: int = 16, table=None) -> Sampler:
     """A stream in `mode`; `n_samples` (the spp) shapes the stratified and
-    hammersley modes."""
+    hammersley modes, `table` is the VECTOR mode's (N, D) uniforms."""
     lane = u32(lane)
     index = u32(sample_index, lane.device)
     seed = u32(seed, lane.device)
     return Sampler(lane=lane, index=index, dim=torch.zeros_like(lane),
                    seed=seed, key=hash_combine(seed, lane, index),
-                   mode=mode, n_samples=n_samples)
+                   mode=mode, n_samples=n_samples, table=table)
 
 
 def restart(s: Sampler, where: torch.Tensor, lane: torch.Tensor,
@@ -355,7 +360,24 @@ def _radical(s: Sampler, offset: int = 0) -> torch.Tensor:
     return radical_inverse(s.index, base, _dim_key(s, offset))
 
 
+def _vector_draw(s: Sampler, k: int):
+    """Dims [dim, dim + k) of each row of the replay table; past its D
+    columns (long paths beyond the mutated prefix) the independent hash at
+    that dim (rng.py:337-352)."""
+    D = s.table.shape[-1]
+    outs = []
+    for i in range(k):
+        idx = (s.dim + i) & M32
+        v_tab = torch.gather(s.table, -1, torch.clamp_max(idx, D - 1)
+                             .unsqueeze(-1)).squeeze(-1)
+        outs.append(torch.where(idx < D, v_tab,
+                                _u32_to_float(_independent_bits(s, i))))
+    return outs
+
+
 def next_1d(s: Sampler):
+    if s.mode == VECTOR:
+        return _vector_draw(s, 1)[0], replace(s, dim=(s.dim + 1) & M32)
     if s.mode == LDS:
         scramble = _dim_key(s)
         shuffled = _owen_scramble(_reverse_bits(s.index),
@@ -378,6 +400,9 @@ def next_1d(s: Sampler):
 
 
 def next_2d(s: Sampler):
+    if s.mode == VECTOR:
+        return (torch.stack(_vector_draw(s, 2), dim=-1),
+                replace(s, dim=(s.dim + 2) & M32))
     if s.mode == LDS:
         # Owen-shuffle the index per dimension pair, draw the (0,2)-sequence
         # point and Owen-scramble each axis; idx lives in the bit-reversed

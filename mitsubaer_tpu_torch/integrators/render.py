@@ -1,9 +1,13 @@
 """Render entry point (port of mitsubaer_tpu/integrators/render.py::render).
 
-Integrators "bdpt" and "ptracer" go to `bdpt.render_bdpt` and
-`ptracer.render_ptracer` before any film or engine is chosen, as in the
-JAX render(). Four roads are ported for the others, chosen as the JAX
-render() chooses them:
+The estimators with passes of their own go to their entries before any
+film or engine is chosen, as in the JAX render(): "bdpt" and "ptracer"
+(`bdpt.render_bdpt`, `ptracer.render_ptracer`), "pssmlt",
+"pssmlt_volpath" and "mlt" (`pssmlt.render_pssmlt`), "erpt"
+(`erpt.render_erpt`), "photonmapper", "ppm" and "sppm"
+(`photonmap.render_photonmap`) and "bre" (`bre.render_bre`); the last four
+return their (H, W, 3) image with no film filter and no beam splat. Four
+roads are ported for the others, chosen as the JAX render() chooses them:
 - loop: the loop engines, taken by integrators "volpath" and "path" with
   any film filter but box (the default is gaussian) or with
   engine="loop", by "volpath_simple" unless engine="wavefront", and by
@@ -37,11 +41,14 @@ checkpoints and resumes (checkpoint_path / checkpoint_every, in the JAX
 package's npz layout, utils/checkpoint.py). Every road adds its seconds
 to utils/stats.py's "render.wall", and the loop, boxwalk and wavefront
 roads count "render.passes" and "render.camera_rays", as the JAX render()
-does. Every other road
-raises NotImplementedError with the ROADMAP Queue 1 step that will port it.
+does. Every other integrator of the JAX package ("vpl",
+"singlescatter", "singlescatter_mesh", "dipole", "irrcache") raises
+NotImplementedError with the ROADMAP Queue 1 step that will port it.
 """
 from __future__ import annotations
 
+import functools
+import importlib
 import time
 from dataclasses import replace
 
@@ -56,22 +63,31 @@ from ..models import sensor as sensor_m
 from ..scene.types import EM_COLLIMATED, MED_HETEROGENEOUS, RenderConfig, Scene
 from ..utils import checkpoint as ckpt
 from ..utils import stats as stats_m
-from . import bdpt as bdpt_m
 from . import boxwalk, common
 from . import misc as misc_m
 from . import path as path_m
-from . import ptracer as ptracer_m
 from . import volpath as volpath_m
 from . import volpath_er as er_m
 from . import wavefront as wf_m
 
 _NOT_PORTED = {
-    "vpl": 12, "pssmlt": 12, "pssmlt_volpath": 12, "mlt": 12, "erpt": 12,
-    "singlescatter": 12, "singlescatter_mesh": 12, "dipole": 12,
-    "photonmapper": 12, "ppm": 12, "sppm": 12, "bre": 12, "irrcache": 12,
+    "vpl": 12, "singlescatter": 12, "singlescatter_mesh": 12, "dipole": 12,
+    "irrcache": 12,
+}
+# the estimators that render through their own passes, before any film
+# (render.py:272-313): module and entry, imported at the call as in the
+# JAX render() (pssmlt imports this module)
+_ESTIMATORS = {
+    "bdpt": ("bdpt", "render_bdpt"), "ptracer": ("ptracer", "render_ptracer"),
+    "pssmlt": ("pssmlt", "render_pssmlt"),
+    "pssmlt_volpath": ("pssmlt", "render_pssmlt"),
+    "mlt": ("pssmlt", "render_pssmlt"), "erpt": ("erpt", "render_erpt"),
+    "photonmapper": ("photonmap", "render_photonmap"),
+    "ppm": ("photonmap", "render_photonmap"),
+    "sppm": ("photonmap", "render_photonmap"), "bre": ("bre", "render_bre"),
 }
 _PORTED = ("volpath", "volpath_simple", "volpath_er", "path", "direct",
-           "ao", "field", "bdpt", "ptracer")
+           "ao", "field") + tuple(_ESTIMATORS)
 
 
 def _use_wavefront(cfg: RenderConfig) -> bool:
@@ -233,6 +249,26 @@ def add_rows(flat, key, value):
 _device = common.render_device     # the roads' device rule
 
 
+def get_integrator(name: str):
+    """The `li` of an integrator name (render.py:23-44): each takes
+    (scene, cfg, o, d, sampler, pixel=...) and returns the sink and the
+    sampler first (path and volpath then their counts).
+    "direct" is plain path.li here, as in the JAX package (render_pass
+    gives it max_depth 2); an unknown name raises ValueError."""
+    if name in ("path", "direct"):
+        return path_m.li
+    if name in ("volpath", "volpath_simple"):
+        return functools.partial(volpath_m.li,
+                                 simple=name.endswith("simple"))
+    if name == "volpath_er":
+        return er_m.li
+    if name == "ao":
+        return misc_m.ao_li
+    if name == "field":
+        return misc_m.field_li
+    raise ValueError(f"unknown integrator {name}")
+
+
 def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
            seed: int = 0, device=None, stats: dict | None = None,
            spp_per_pass: int | None = None,
@@ -241,8 +277,8 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
     default (it raises where there is none), the CPU only when
     device="cpu" is passed.
 
-    Roads: integrators "bdpt" and "ptracer" render through their own
-    passes (bdpt.render_bdpt, ptracer.render_ptracer); "volpath_er" takes
+    Roads: the estimators of _ESTIMATORS render through their own passes
+    (bdpt, ptracer, pssmlt, erpt, photonmap, bre); "volpath_er" takes
     the eikonal road; "volpath" or "path" with a box filter and a steady
     film takes boxwalk on a scene of the boxwalk class and the wavefront
     engine on any other; "volpath" or "path" with another filter, a film
@@ -251,7 +287,8 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
     engine. "ao" and "field" take the loop road's camera rays (misc.py).
     With frames the image is (H, W, 3F). engine="wavefront" with frames or
     a modulation raises ValueError. The JAX package's other integrators
-    raise NotImplementedError naming their ROADMAP Queue 1 step (step 12).
+    (vpl, singlescatter, dipole, irrcache) raise NotImplementedError
+    naming their ROADMAP Queue 1 step (step 12).
     A name the JAX package does not know raises ValueError, as its
     get_integrator does.
 
@@ -260,7 +297,10 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
     Woodcock tracking iterations] on the volpath loop road, [bounces] on
     the path loop road and the eikonal road) and the seconds of the
     passes, timed with a device synchronize around each, as "boxwalk_s",
-    "wavefront_s", "loop_s", "er_s", "bdpt_s" or "ptracer_s".
+    "wavefront_s", "loop_s", "er_s", "bdpt_s" or "ptracer_s"; the
+    Metropolis and photon estimators add their wall as "pssmlt_s",
+    "erpt_s", "photonmap_s" or "bre_s" and their stages' seconds (the
+    entries' docstrings).
 
     spp_per_pass fixes the samples of a pass (default min(spp, 2^21 //
     npix), as in the JAX render()). checkpoint_path / checkpoint_every make
@@ -276,9 +316,10 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
                           _NOT_PORTED[cfg.integrator])
     if cfg.integrator not in _PORTED:
         raise ValueError(f"unknown integrator {cfg.integrator}")
-    if cfg.integrator in ("bdpt", "ptracer"):
-        fn = (bdpt_m.render_bdpt if cfg.integrator == "bdpt"
-              else ptracer_m.render_ptracer)
+    if cfg.integrator in _ESTIMATORS:
+        module, entry = _ESTIMATORS[cfg.integrator]
+        fn = getattr(importlib.import_module(f".{module}", __package__),
+                     entry)
         with stats_m.timed("render.wall"):
             return fn(scene.to(_device(device)), cfg, seed=seed, stats=stats)
     spp_per_pass = spp_per_pass or _spp_per_pass(cfg)

@@ -41,12 +41,9 @@ import torch.distributed as dist
 from ..core import rng
 from ..diff import render as diff_render
 from ..integrators import common
-from ..integrators import misc as misc_m
-from ..integrators import path as path_m
 from ..integrators import volpath as volpath_m
-from ..integrators import volpath_er as er_m
 from ..integrators import wavefront as wf_m
-from ..integrators.render import _any_het, _has_direct
+from ..integrators.render import _any_het, _has_direct, get_integrator
 from ..models import film as film_m
 from ..models import sensor as sensor_m
 from ..scene.types import RenderConfig, Scene
@@ -125,21 +122,6 @@ def _in_order(tensors):
     return total
 
 
-def _integrator(name: str):
-    """The JAX driver's integrator table (render.get_integrator): "direct"
-    is path.li without render()'s max_depth=2 and "field" its default
-    field, as there."""
-    table = {
-        "path": path_m.li, "direct": path_m.li,
-        "volpath": volpath_m.li,
-        "volpath_simple": lambda *a, **k: volpath_m.li(*a, simple=True, **k),
-        "volpath_er": er_m.li, "ao": misc_m.ao_li, "field": misc_m.field_li,
-    }
-    if name not in table:
-        raise ValueError(f"unknown integrator {name}")
-    return table[name]
-
-
 def _shard_rays(scene: Scene, cfg: RenderConfig, sppc: int, rows: int,
                 row0: int, seed: int, sample0: int, mode: int):
     """The camera prologue of one shard (driver.py:60-74): sppc samples of
@@ -171,8 +153,8 @@ def _pass_shard(scene: Scene, cfg: RenderConfig, sppc: int, rows: int,
     rays, jitter, smp, pixel = _shard_rays(
         scene, cfg, sppc, rows, tile_idx * rows, seed,
         (pass_idx * n_data + data_idx) * sppc, rng.mode_of(cfg.sampler))
-    out = _integrator(cfg.integrator)(scene, cfg, rays.o, rays.d, smp,
-                                      pixel=pixel)
+    out = get_integrator(cfg.integrator)(scene, cfg, rays.o, rays.d, smp,
+                                         pixel=pixel)
     sink, st = out[0], out[2] if len(out) > 2 else []
     W = cfg.width
     accum = film_m.new_accumulator(replace(cfg, height=rows), pixel.device)

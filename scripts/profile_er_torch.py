@@ -1,11 +1,16 @@
 """Where the time of the port's eikonal render goes, on one NVIDIA GPU.
 
     python3 scripts/profile_er_torch.py [--res 96] [--spp 2] [--repeats 3]
+                                        [--acoustic]
 
 Renders bench.py::bench_er_forward's configuration (refractive_sphere,
 linear RIF, depth 6, h 1e-2, 8 BVP restarts at 4x h, box filter) with the
 PyTorch/CUDA port: once small to warm up, --repeats times at --res / --spp
 for the spread of the wall time, then once more under torch.profiler.
+With --acoustic it renders the acoustic RIF instead (mode 2, kr 6, depth
+3, 256 steps: chip_smoke.py's phase 24 scene) through the plain loops
+(kernels D and E have no acoustic field), --repeats times unprofiled,
+and prints the walls.
 Prints the wall times, the device time of kernels D and E
 and of everything else, the device's busy share of the wall, the host time
 inside the BVP solve, the Levenberg solves, the Jacobian evaluations and the
@@ -27,10 +32,14 @@ SPANS = ("solve_bvp", "_levenberg_solve", "integrate_with_sensitivities",
          "trace_curved")
 
 
-def _scene(presets, res, spp):
+def _scene(presets, res, spp, acoustic=False):
+    from mitsubaer_tpu_torch.models import eikonal as ek
+
+    kw = (dict(max_depth=3, rif_kind=ek.RIF_ACOUSTIC,
+               rif_params=(1.3333, 0.03, 6.0, 2.0)) if acoustic else
+          dict(max_depth=6, rif_kind=ek.RIF_LINEAR, rif_params=(1.3, 0.15)))
     scene, cfg = presets.refractive_sphere(
-        res=res, spp=spp, max_depth=6, rif_kind=1, rif_params=(1.3, 0.15),
-        er_stepsize=1e-2, filter="box")
+        res=res, spp=spp, er_stepsize=1e-2, filter="box", **kw)
     return scene, replace(cfg, er_maxsteps=256, bvp_restarts=8,
                           er_bvp_hscale=4.0)
 
@@ -40,6 +49,7 @@ def main() -> int:
     ap.add_argument("--res", type=int, default=96)
     ap.add_argument("--spp", type=int, default=2)
     ap.add_argument("--repeats", type=int, default=3)
+    ap.add_argument("--acoustic", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -67,18 +77,22 @@ def main() -> int:
     for name in SPANS:
         setattr(ek, name, spanned(name, getattr(ek, name)))
 
-    scene, cfg = _scene(presets, 24, 1)
+    scene, cfg = _scene(presets, 24, 1, args.acoustic)
     render_m.render(scene, cfg, seed=0, device=dev)        # warm-up
-    scene, cfg = _scene(presets, args.res, args.spp)
+    scene, cfg = _scene(presets, args.res, args.spp, args.acoustic)
     walls = []
     for _ in range(args.repeats):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        render_m.render(scene, cfg, seed=1, device=dev)
+        img = render_m.render(scene, cfg, seed=1, device=dev)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-    print(f"eikonal render {args.res}x{args.res} spp {args.spp}, unprofiled "
-          f"walls: {', '.join(f'{w:.3f}' for w in walls)} s [{card}]")
+    what = "acoustic (mode 2, depth 3)" if args.acoustic else "eikonal"
+    print(f"{what} render {args.res}x{args.res} spp {args.spp}, unprofiled "
+          f"walls: {', '.join(f'{w:.3f}' for w in walls)} s, mean "
+          f"{img.mean().item():.6f} [{card}]")
+    if args.acoustic:
+        return 0
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:

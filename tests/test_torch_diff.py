@@ -62,10 +62,13 @@ def _hg_box(B, types):
     b.add_cube(to_world=np.eye(4, dtype=np.float32), bsdf=-1, interior=med)
     b.add_emitter(types.EM_POINT, radiance=(20.0,) * 3, position=(0, 0.5, -3))
     b.set_perspective_sensor(tf.look_at([0, 0, -4], [0, 0, 0], [0, 1, 0]), 30)
+    # the config after build(), which sets the kinds the scene uses (BSDF,
+    # phase, sensor): only those lobes compile in JAX's value_and_grad
+    scene = b.build()
     kw = dict(width=6, height=6, spp=1, max_depth=4, integrator="volpath")
     cfg = (b.config._replace(**kw) if hasattr(b.config, "_replace")
            else dataclasses.replace(b.config, **kw))
-    return b.build(), cfg
+    return scene, cfg
 
 
 def _het_box(presets):

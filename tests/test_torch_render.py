@@ -119,10 +119,30 @@ def test_spp_per_pass_follows_render_budget():
     # renders (tests/test_torch_strategies.py)
     pytest.param(dict(filter="box", emitter_kind="point",
                       medium_strategies=True), None, id="kw4-step 7"),
+    # step 12a's Metropolis and photon estimators, ported since: they
+    # render (tests/test_torch_pssmlt.py, test_torch_erpt.py,
+    # test_torch_photonmap.py, test_torch_bre.py); erpt and the photon
+    # mapper on the cbox (path.li and the surface photons: the box has no
+    # surface but its null cube)
+    pytest.param(dict(integrator="pssmlt_volpath"), None,
+                 id="kw5-step 12a pssmlt"),
+    pytest.param(dict(scene="cbox", integrator="erpt"), None,
+                 id="kw6-step 12a erpt"),
+    pytest.param(dict(scene="cbox", integrator="sppm"), None,
+                 id="kw7-step 12a photon mapping"),
+    pytest.param(dict(emitter_kind="point", integrator="bre"), None,
+                 id="kw8-step 12a bre"),
+    # step 12b's many-light and subsurface integrators still raise
+    pytest.param(dict(integrator="vpl"), "step 12", id="kw9-step 12b vpl"),
 ])
 def test_other_roads_raise(kw, step):
-    scene, cfg = tpresets.volumetric_box(res=8, spp=1, heterogeneous=True,
-                                         density_res=8, **kw)
+    kw = dict(kw)
+    if kw.pop("scene", None) == "cbox":
+        scene, cfg = tpresets.cornell_box(res=8, spp=1, boxes=False, **kw)
+    else:
+        scene, cfg = tpresets.volumetric_box(res=8, spp=1,
+                                             heterogeneous=True,
+                                             density_res=8, **kw)
     if step is None:
         img = trender.render(scene, dataclasses.replace(cfg, max_depth=3),
                              device="cpu")

@@ -247,3 +247,56 @@ def test_missing_define_raises_as_jax(tmp_path):
         txml.load_scene(str(path), dict(depth=3))
     assert str(terr.value) == str(jerr.value)
     assert "$spp" in str(terr.value)
+
+
+def sppm_xml():
+    """A diffuse floor and sphere under a rectangular area light, rendered
+    by the stochastic progressive photon mapper."""
+    return """<scene version="0.5.0">
+  <integrator type="sppm"><integer name="maxDepth" value="$depth"/></integrator>
+  <shape type="rectangle">
+    <transform name="toWorld"><scale value="3"/><rotate x="1" angle="-90"/></transform>
+    <bsdf type="diffuse"><rgb name="reflectance" value="0.6, 0.5, 0.4"/></bsdf>
+  </shape>
+  <shape type="sphere">
+    <point name="center" x="0" y="0.5" z="0"/><float name="radius" value="0.5"/>
+    <bsdf type="diffuse"><rgb name="reflectance" value="0.3, 0.6, 0.3"/></bsdf>
+  </shape>
+  <shape type="rectangle">
+    <transform name="toWorld"><scale value="0.5"/><rotate x="1" angle="90"/><translate y="2"/></transform>
+    <emitter type="area"><rgb name="radiance" value="20, 20, 20"/></emitter>
+  </shape>""" + SENSOR.format(
+        fov=50, origin="0, 1.5, -4", target="0, 0.5, 0", sampler="independent",
+        film='<rfilter type="box"/>') + "\n</scene>"
+
+
+def test_sppm_scene_renders_as_jax(tmp_path, monkeypatch):
+    """<integrator type="sppm"/> through each package's loader and render():
+    the port's image by phase 8's rule of chip_smoke.py (the median pixel
+    ratio over the lit pixels and the means within 2%) against JAX's, and
+    within 1e-4 relative plus 1e-6 of the largest value on at least 98% of
+    pixels. JAX's photon pass runs op by op with its gather jitted on its
+    own (its jitted pass compiles for ~25 s)."""
+    import jax
+    from mitsubaer_tpu.integrators import photonmap as jpm
+    from mitsubaer_tpu.integrators import render as jrender
+    from mitsubaer_tpu_torch.integrators import render as trender
+
+    monkeypatch.setattr(jpm, "_pm_pass", jpm._pm_pass.__wrapped__)
+    monkeypatch.setattr(jpm, "gather_radiance", jax.jit(
+        jpm.gather_radiance, static_argnames=("n_emitted",)))
+    path = tmp_path / "sppm.xml"
+    path.write_text(sppm_xml())
+    (js, jc), (ts, tc) = _load_both(path, dict(spp=4, depth=4))
+    _assert_same((js, jc), (ts, tc))
+    assert tc.integrator == "sppm"
+    want = np.asarray(jrender.render(js, jc, seed=1))
+    got = trender.render(ts, tc, seed=1, device="cpu").numpy()
+    assert got.shape == want.shape == (16, 16, 3)
+    lum_g, lum_w = got.mean(-1), want.mean(-1)
+    lit = lum_w > 0
+    assert lit.mean() > 0.5
+    assert abs(np.median(lum_g[lit] / lum_w[lit]) - 1) <= 0.02
+    assert abs(got.mean() / want.mean() - 1) <= 0.02
+    ok = np.isclose(got, want, rtol=1e-4, atol=1e-6 * want.max()).all(-1)
+    assert ok.mean() >= 0.98, ok.mean()
