@@ -32,8 +32,8 @@ Phases (any failure raises and the script exits non-zero):
      at 4x h) on the card; both march kernels must have launched; kernel
      D's launches in it (lanes, active lanes, trips a lane) and its device
      time over them;
-  8. the same eikonal render at 24^2 on the card and on the CPU (plain
-     versions), which must agree;
+  8. the same eikonal render at 24^2 spp 4, depth ER_SMALL_DEPTH, on the
+     card and on the CPU (plain versions), which must agree;
   9. kernel C (megatrack) against its plain version on the arguments of
      the first three tracking calls of the 512^2 point-lit render's first
      pass (captured from render_wavefront), on edge cases made from them
@@ -97,7 +97,8 @@ Phases (any failure raises and the script exits non-zero):
      on the CPU: the loss within rtol 1e-4, each gradient field within
      GRAD_CARD_CPU_TOL of its largest CPU magnitude;
  19. the eikonal training path at full width: bench.py::bench_er_grad's
-     configuration (radial RIF, 32^2 spp 2, 2,048 lanes, depth 4, h 1e-2,
+     configuration (radial RIF, 32^2 spp 2, 2,048 lanes, depth
+     ER_GRAD_DEPTH, h 1e-2,
      er_maxsteps 192, 8 BVP restarts), the gradient of mean(sink) of
      volpath_er.li(differentiable=True) with respect to rif_params, once
      (seed 1): finite, p0, a and w non-zero, kernel E launched (in the
@@ -115,8 +116,9 @@ Phases (any failure raises and the script exits non-zero):
      32^3 grid at 64^2 sppc 2, depth SPLINE_DEPTH, once (seed 1; a
      second call: the profile script's --scene spline --repeat): finite,
      non-zero, more than 0.3 of its mass on the interior voxels, no
-     kernel launched; the same measures as phase 19. Then at test_inverse.py's own size (12^3, 8^2,
-     sppc 4, seed 3) its directional finite-difference check, the
+     kernel launched; the same measures as phase 19. Then at
+     test_inverse.py's own size (12^3, 8^2, sppc 4, seed 3, depth
+     SPLINE_DEPTH) its directional finite-difference check, the
      connections held as in phase 19;
  21. phase 19's configuration at 8^2 sppc 2, and phase 20's gradient at
      test_inverse.py's size, on the card and on the CPU at the card's
@@ -125,8 +127,8 @@ Phases (any failure raises and the script exits non-zero):
  22. the homogeneous distance-sampling strategies in the refractive
      medium: phase 7's render with sigma_s (0.2, 0.4, 0.8) under
      STRAT_MAXIMUM, then STRAT_MANUAL (density 0.5); kernels D and E must
-     launch; each render's wall; then each at 16^2 spp 4 on the card and
-     on the CPU, by phase 8's rule;
+     launch; each render's wall; then each at 16^2 spp 4 depth
+     ER_SMALL_DEPTH on the card and on the CPU, by phase 8's rule;
  23. the light image (volpath_er.render_er_light_image) at 96^2, 8 passes
      of 9,216 particles, through the strong radial lens of
      tests/test_volpath_er.py (a 0.5, 4 BVP restarts): D and E must
@@ -159,7 +161,8 @@ Phases (any failure raises and the script exits non-zero):
  28. BASELINE config 2: the cbox filled with a homogeneous HG medium
      (CBOX_MEDIUM), "volpath" on the loop engine, measured as phase 26;
      then card against CPU at 16^2 spp 8;
- 29. the box-filter cbox on the wavefront road at 256^2 spp 64, "path" and
+ 29. the box-filter cbox on the wavefront road at 256^2 spp CBOX_WF_SPP,
+     "path" and
      the config-2 medium: no sample left unfinished, the pixel-by-pixel
      median ratio against the loop road (engine "loop", box filter, same
      seed) within 0.95-1.05; WF_PROFILE_SUPERS super-iterations
@@ -195,9 +198,10 @@ Phases (any failure raises and the script exits non-zero):
      the wavefront road against the loop road at 128^2 spp 16, median
      pixel ratio within 0.95-1.05; card against CPU at 16^2;
  35. each sampler mode's stream at 2^20 lanes x 16 dimensions, card equal
-     to CPU bit for bit; config 1 at full width with the ldsampler and
-     the independent sampler in turns (independent, lds, lds,
-     independent); the box-filter cbox with the ldsampler on the
+     to CPU bit for bit; config 1 at full width with the independent
+     sampler and the ldsampler, once each (in turns:
+     scripts/profile_models_torch.py); the box-filter cbox with the
+     ldsampler on the
      wavefront road at 64^2 spp 4; card against CPU at 16^2;
  36. "ao" and every "field" on config 1 at 128^2 spp 64,
      render_multichannel and render_adaptive (4 passes of spp 16 at
@@ -224,11 +228,13 @@ Phases (any failure raises and the script exits non-zero):
      spp 2 depth 6, 8 BVP restarts, 64 transient frames ER_FRAMES):
      kernels D and E must launch, their first and busiest calls held
      exact (_check_d_calls, _check_e_calls); the heterogeneous box lit by
-     a point emitter at 256^2 spp 8 depth 6 (kernel A must launch; its
+     a point emitter at 256^2 spp BDPT_SPP depth 6 (kernel A must launch;
+     its
      first pass again with DensityGrid.lookup wrapped, every captured
      call of A held exact against the plain version, the first and the
      largest point counts timed) and the cbox (BASELINE config 1) at
-     256^2 spp 16 depth 8 (no kernel may launch; one pass profiled:
+     256^2 spp 2 BDPT_SPP depth 8 (no kernel may launch; one pass
+     profiled:
      launches, busy share): walls and passes;
      each card against CPU at 16^2, spp 1 and 2 (the sphere at 8^2 spp 1,
      single solve);
@@ -264,7 +270,8 @@ Phases (any failure raises and the script exits non-zero):
      exactly, A' as phase 17); dryrun_multiprocess(2) beside it.
      Phases 41-43 print one {"front_door": ...} JSON line.
  44. the Metropolis estimators: (a) "pssmlt" on BASELINE config 1
-     (256^2 spp 4 depth 40: 8,192 chains, 32 rounds, 65,536 bootstrap
+     (256^2 spp MLT_SPP depth 40: 8,192 chains, 16 rounds, 65,536
+     bootstrap
      lanes, D 120; no kernel may launch): the wall, the path.li calls,
      one round's device launches and time (profiled), the mean within
      EST_MEAN_TOL of config 1's path render (phase 26's image where it
@@ -298,9 +305,38 @@ Phases (any failure raises and the script exits non-zero):
      10's wavefront mean within BRE_RATIO; card against CPU at 16^2 spp 4
      by phase 8's rule.
      Phases 44-46 print one {"estimators": ...} JSON line.
+ 47. single scattering through a refractive boundary: tests/
+     test_singlescatter.py's eta-1 sphere at 32^2 spp 32 against its
+     quadrature (the mean within SS_ANCHOR_MEAN, the median relative error
+     under SS_ANCHOR_MEDIAN); the sphere at eta 1.33 and the subdivision-3
+     octahedron sphere (512 triangles, "singlescatter_mesh") at 256^2 spp
+     2, n_dist 4: walls, peak memory, the mesh's mean within SS_MESH_TOL of
+     the sphere's;
+ 48. the dipole BSSRDF on the subdivision-2 sphere (eta 1.3, sigma_s 2.0)
+     at 256^2 spp 2, n_cache 4096, chunk 1024, at sigma_a 0.05 and 0.8
+     (the second dimmer), R_d falling with r: walls by stage, peak memory;
+ 49. the irradiance cache on BASELINE config 1 at 256^2 spp 8 (2 passes
+     of 256 records x 32 gather rays through path.li): the wall by stage
+     (camera and NEE, record gather, Ward blend), the mean over phase 26's
+     path render within IRR_RATIO;
+ 50. VPLs on configs 1 and 2 at 256^2 spp 4 (64 VPLs, 256 shading steps):
+     walls by stage, one shading step's launches and device time
+     (profiled), config 1's mean over phase 26's path render within
+     VPL_RATIO_TOL of JAX's ratio on the CPU (VPL_JAX_RATIO).
+     No kernel may launch in phases 47-50; each runs card against CPU at
+     16^2 by phase 8's rule (the dipole at n_cache 512 and at 500 with
+     chunk 128, whose last chunk overlaps). Phases 47-50 print one
+     {"step12b": ...} JSON line.
+Every phase's seconds are printed as it ends and, at the end, as one
+{"phase_s": ...} JSON line. The depth and round cuts that made room for
+phases 47-50 are ER_GRAD_DEPTH, ER_SMALL_DEPTH, SPLINE_DEPTH (now at
+test_inverse.py's size too), CBOX_WF_SPP, MLT_SPP and BDPT_SPP; phase 35
+renders
+config 1 once with each sampler (scripts/profile_models_torch.py times
+them in turns).
 With `--phases a-b[,c-d]` only those phase groups run (3-8, 9-12, 13-15,
-16-18, 19-21, 22-25, 26-31, 32-36, 37-40, 41-43, 44-46; 1 and 2 always),
-for iterating on the card.
+16-18, 19-21, 22-25, 26-31, 32-36, 37-40, 41-43, 44-46, 47-50; 1 and 2
+always), for iterating on the card.
 Prints one JSON line of per-kernel results (time, bound, plain version,
 library yardstick, launches on the main paths; for A also its launches on
 the loop road and its checks and times at the loop road's point counts,
@@ -403,12 +439,24 @@ LOOP_FIELDS = ("sigma_a", "sigma_s", "density", "g")
 ER_CARD_CPU_TOL = (1e-4, 1e-4)
 # phases 19 and 20: tests/test_inverse.py's finite-difference tolerance
 ER_FD_RTOL, ER_FD_ATOL = 0.5, 5e-3
-# phase 20: the depth of the spline gradient at 64^2 (the scene's own is
-# 4: 55.5-98 s a call on an H100), cut to make room for
-# phases 26-31 (at depth 2 no path reaches the light through the medium:
-# the loss and gradient are 0); its finite-difference check at
-# test_inverse.py's size keeps depth 4
+# phase 20: the depth of the spline gradients (the scene's own is 4:
+# 55.5-98 s a call at 64^2 on an H100), cut to make room for phases 26-31
+# (at depth 2 no path reaches the light through the medium: the loss and
+# gradient are 0); since phases 47-50 its finite-difference check at
+# test_inverse.py's size and phase 21's CPU gradient take it too
 SPLINE_DEPTH = 3
+# phases 19 and 21: the depth of bench_er_grad's radial gradient (its own
+# is 4), and phases 8 and 22: the depth of the eikonal renders held card
+# against CPU (bench_er_forward's is 6), cut to make room for phases 47-50
+# (depth 3 still marches the medium and solves curved NEE there)
+ER_GRAD_DEPTH = 3
+ER_SMALL_DEPTH = 4
+# phase 44(a): the pssmlt renders' samples a pixel (a round each), cut
+# from 4 to make room for phases 47-50
+MLT_SPP = 2
+# phase 39: bdpt's passes (one spp each) on the heterogeneous box, and
+# twice as many on the cbox, cut from 8 to make room for phases 47-50
+BDPT_SPP = 4
 
 
 def _cuda_ms(fn, reps):
@@ -874,7 +922,9 @@ def main() -> int:
     timed(37, 40, _transient_phases)
     timed(41, 43, _front_door_phases)
     timed(44, 46, _estimator_phases)
+    timed(47, 50, _step12b_phases)
     print(json.dumps({"phase_group_s": groups}))
+    print(json.dumps({"phase_s": PHASE_S}))
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
@@ -889,7 +939,7 @@ def _phase_range(argv):
     run, and a phase group runs whole where any of its phases is asked
     for."""
     if not argv:
-        return set(range(1, 47))
+        return set(range(1, 51))
     if len(argv) != 2 or argv[0] != "--phases":
         raise SystemExit("usage: chip_smoke.py [--phases a-b[,c-d...]]")
     phases = set()
@@ -911,6 +961,8 @@ def _core_phases(dev, card, results, build_log):
     from mitsubaer_tpu_torch.models import ermarch
     from mitsubaer_tpu_torch.models import medium
     from mitsubaer_tpu_torch.scene import presets
+
+    lap = _lap_clock()
 
     # ---- phase 3: kernel A against its plain version ----
     scene, cfg = presets.volumetric_box(res=512, spp=32, heterogeneous=True,
@@ -977,6 +1029,8 @@ def _core_phases(dev, card, results, build_log):
     results["trilinear_lookup"]["bare_ms"] = bare_ms[0]
     del out
 
+    lap(3)
+
     # ---- phase 4: kernel B against its plain version, at res 64, at the
     # main path's pass shape (512^2, sppc 8), and at 100^2 (10,000 lanes,
     # not a multiple of the block) with and without a max_trips cut ----
@@ -1036,6 +1090,8 @@ def _core_phases(dev, card, results, build_log):
     results["boxwalk"].update(device_ms=b_dev, registers=regs_b,
                               blocks_per_sm=blocks_b)
 
+    lap(4)
+
     # ---- phase 5: the bounded-volume path ----
     medium.trilinear_lookup.launches = 0
     boxwalk.walk.launches = 0
@@ -1080,6 +1136,8 @@ def _core_phases(dev, card, results, build_log):
           f"{ratio:.6f}, mean rel diff {mean_rel:.2e}", flush=True)
     if not (0.99 <= ratio <= 1.01 and mean_rel <= 0.01):
         raise AssertionError("card and CPU renders disagree")
+
+    lap(5)
 
     # ---- phase 6: kernels D and E against their plain versions, at the
     # eikonal bench's shapes ----
@@ -1214,6 +1272,8 @@ def _core_phases(dev, card, results, build_log):
     results["er_sens"]["bare_ms"] = bare_e_ms
     del outs, launch
 
+    lap(6)
+
     # ---- phase 7: the eikonal path at full width ----
     er_scene, er_cfg = _er_bench_scene(presets, 96, 2, 256)
     ermarch.trace.launches = 0
@@ -1263,18 +1323,23 @@ def _core_phases(dev, card, results, build_log):
     results["er_trace"]["render_device_ms"] = d_render
     del bares, d_calls
 
+    lap(7)
+
     # ---- phase 8: the eikonal render small, card against CPU ----
     s_scene, s_cfg = _er_bench_scene(presets, 24, 4, 128)
+    s_cfg = replace(s_cfg, max_depth=ER_SMALL_DEPTH)
     img_g = render_m.render(s_scene, s_cfg, seed=3, device=dev).cpu()
     img_c = render_m.render(s_scene, s_cfg, seed=3, device="cpu")
     lum_g, lum_c = img_g.mean(-1), img_c.mean(-1)
     sel = lum_c > 0
     ratio = (lum_g[sel] / lum_c[sel]).median().item()
     mean_rel = abs(img_g.mean().item() / img_c.mean().item() - 1)
-    print(f"card vs CPU eikonal render at 24x24 spp 4: median pixel ratio "
+    print(f"card vs CPU eikonal render at 24x24 spp 4 depth "
+          f"{ER_SMALL_DEPTH}: median pixel ratio "
           f"{ratio:.6f}, mean rel diff {mean_rel:.2e}", flush=True)
     if not (0.98 <= ratio <= 1.02 and mean_rel <= 0.02):
         raise AssertionError("card and CPU eikonal renders disagree")
+    lap(8)
 
     return er_img
 
@@ -1339,6 +1404,8 @@ def _megatrack_phases(dev, card, results, build_log):
     from mitsubaer_tpu_torch.integrators import boxwalk, megatrack, wavefront
     from mitsubaer_tpu_torch.integrators import render as render_m
     from mitsubaer_tpu_torch.scene import presets
+
+    lap = _lap_clock()
 
     # ---- phase 9: kernel C against its plain version ----
     scene, cfg = presets.volumetric_box(res=512, spp=32, heterogeneous=True,
@@ -1441,6 +1508,8 @@ def _megatrack_phases(dev, card, results, build_log):
     results["megatrack"].update(device_ms=c_dev[0], registers=regs_c)
     del calls, c_rows
 
+    lap(9)
+
     # ---- phase 10: the wavefront path at full width ----
     megatrack.run.launches = 0
     stats = {}
@@ -1472,6 +1541,8 @@ def _megatrack_phases(dev, card, results, build_log):
     results["megatrack"]["launches"] = launches
     IMAGES["wavefront"] = img.cpu()                   # phase 42 reads it
 
+    lap(10)
+
     # ---- phase 11: card against CPU ----
     s_scene, s_cfg = presets.volumetric_box(
         res=24, spp=8, heterogeneous=True, density_res=32, max_depth=4,
@@ -1486,6 +1557,8 @@ def _megatrack_phases(dev, card, results, build_log):
           f"{ratio:.6f}, mean rel diff {mean_rel:.2e}", flush=True)
     if not (0.99 <= ratio <= 1.01 and mean_rel <= 0.01):
         raise AssertionError("card and CPU wavefront renders disagree")
+
+    lap(11)
 
     # ---- phase 12: wavefront against boxwalk on the beam scene ----
     from dataclasses import replace
@@ -1524,6 +1597,7 @@ def _megatrack_phases(dev, card, results, build_log):
         if not 0.95 <= ratio <= 1.05:
             raise AssertionError("wavefront and boxwalk disagree on the beam "
                                  "scene")
+    lap(12)
 
 
 def _loop_phases(dev, card, results):
@@ -1534,6 +1608,8 @@ def _loop_phases(dev, card, results):
     from mitsubaer_tpu_torch.integrators import render as render_m
     from mitsubaer_tpu_torch.models import medium
     from mitsubaer_tpu_torch.scene import presets
+
+    lap = _lap_clock()
 
     # ---- phase 13: the loop road at full width ----
     scene, cfg = presets.volumetric_box(res=512, spp=32, heterogeneous=True,
@@ -1568,6 +1644,8 @@ def _loop_phases(dev, card, results):
     results["trilinear_lookup"]["loop_shapes"] = _loop_lookups(
         scene, cfg, dev, card)
 
+    lap(13)
+
     # ---- phase 14: card against CPU ----
     s_scene, s_cfg = presets.volumetric_box(res=24, spp=4, heterogeneous=True,
                                             density_res=64, max_depth=12)
@@ -1581,6 +1659,8 @@ def _loop_phases(dev, card, results):
           f"{ratio:.6f}, mean rel diff {mean_rel:.2e}", flush=True)
     if not (0.98 <= ratio <= 1.02 and mean_rel <= 0.02):
         raise AssertionError("card and CPU loop renders disagree")
+
+    lap(14)
 
     # ---- phase 15: the loop engine against boxwalk on the beam scene ----
     from dataclasses import replace
@@ -1614,6 +1694,7 @@ def _loop_phases(dev, card, results):
     if not 0.95 <= ratio <= 1.05:
         raise AssertionError("the loop engine and boxwalk disagree on the "
                              "beam scene")
+    lap(15)
 
 
 def _capture_lookups(calls, picks=(0, 4, 16, 64, 256, 1024)):
@@ -1718,6 +1799,8 @@ def _training_phases(dev, card, results):
     from mitsubaer_tpu_torch.models import medium
     from mitsubaer_tpu_torch.scene import presets
 
+    lap = _lap_clock()
+
     # ---- phase 16: kernel A' against its plain version ----
     scene, cfg = presets.volumetric_box(res=512, spp=4, heterogeneous=True,
                                         density_res=64, max_depth=12)
@@ -1799,6 +1882,8 @@ def _training_phases(dev, card, results):
         raise AssertionError("TrilinearLookup fails gradcheck")
     print("TrilinearLookup gradcheck (float64, CPU plain versions): passed",
           flush=True)
+
+    lap(16)
 
     # ---- phase 17: the training path at full width ----
     li, counts = volpath.li, []
@@ -1887,6 +1972,8 @@ def _training_phases(dev, card, results):
              launches_a=s_["launches"][0], launches_a_bwd=s_["launches"][1],
              bounces_woodcock=s_["counts"]) for s_ in steps]
 
+    lap(17)
+
     # ---- phase 18: card against CPU ----
     s_scene, s_cfg = presets.volumetric_box(res=16, spp=4, heterogeneous=True,
                                             density_res=16, max_depth=4)
@@ -1909,6 +1996,7 @@ def _training_phases(dev, card, results):
         raise AssertionError("card and CPU losses disagree")
     if not all(v <= GRAD_CARD_CPU_TOL for v in rel.values()):
         raise AssertionError(f"card and CPU gradients disagree: {rel}")
+    lap(18)
 
 
 # the calls of each point count that phase 17 captures from a training step
@@ -2252,15 +2340,21 @@ def _er_fd(scene, cfg, sppc, seed, dev, field, direction, step, what,
                              f"difference disagree")
 
 
+# every phase's seconds, as its group's lap clock took them (main prints
+# them as one {"phase_s": ...} line)
+PHASE_S = {}
+
+
 def _lap_clock(record=None):
     """A lap timer: each call lap(phase) prints the seconds since the last
-    as "phase N: x s", and keeps them in record[phase] where a dict is
-    given."""
+    as "phase N: x s", and keeps them in PHASE_S[phase] and, where a dict
+    is given, in record[phase]."""
     clock = [time.perf_counter()]
 
     def lap(phase):
         now = time.perf_counter()
         print(f"phase {phase}: {now - clock[0]:.1f} s", flush=True)
+        PHASE_S[str(phase)] = now - clock[0]
         if record is not None:
             record[phase] = now - clock[0]
         clock[0] = now
@@ -2285,6 +2379,7 @@ def _er_grad_phases(dev, card, results):
 
     # ---- phase 19: the eikonal gradient at full width ----
     scene, cfg = _er_grad_scene(32)
+    cfg = dataclasses.replace(cfg, max_depth=ER_GRAD_DEPTH)
     scene = scene.to(dev)
     sppc, lanes = 2, 32 * 32 * 2
     sens_march, captured = ermarch.sens_march, {}
@@ -2301,7 +2396,8 @@ def _er_grad_phases(dev, card, results):
     loss, grad, wall, peak, launches, _ = step
     g = grad.cpu()
     print(f"eikonal gradient (bench_er_grad: radial RIF, 32x32 spp 2, "
-          f"{lanes} lanes, depth 4, h 1e-2, er_maxsteps 192, 8 BVP "
+          f"{lanes} lanes, depth {ER_GRAD_DEPTH}, h 1e-2, er_maxsteps "
+          f"192, 8 BVP "
           f"restarts): first call {wall:.3f} s (calls captured), "
           f"{lanes / wall:.1f} fwd+bwd samples/s, peak device memory "
           f"{peak / 2**30:.3f} GiB, launches of D and E {launches}, loss "
@@ -2316,6 +2412,7 @@ def _er_grad_phases(dev, card, results):
     if launches[0] != 0:
         raise AssertionError("phase 19: kernel D launched on the "
                              "differentiable path")
+    lap("19a")
     _er_fd(scene, cfg, sppc, 1, dev, "rif_params", scene.media.rif_params,
            step, "phase 19 along rif_params", card)
     e_row["launches_er_grad"] = launches[1]
@@ -2324,7 +2421,7 @@ def _er_grad_phases(dev, card, results):
     e_row["er_grad_step"] = dict(
         first_s=wall, samples_per_s=lanes / wall, peak_gib=peak / 2**30)
 
-    lap(19)
+    lap("19b")
 
     # ---- phase 20: the spline RIF's voxel gradient ----
     s_scene, s_cfg = _spline_scene(64, 32)
@@ -2357,8 +2454,10 @@ def _er_grad_phases(dev, card, results):
     e_row["spline_grad_step"] = dict(
         first_s=wall, samples_per_s=64 * 64 * 2 / wall,
         peak_gib=peak / 2**30)
+    lap("20a")
     # at tests/test_inverse.py's own size
     j_scene, j_cfg = _spline_scene(8, 12)
+    j_cfg = dataclasses.replace(j_cfg, max_depth=SPLINE_DEPTH)
     j_scene = j_scene.to(dev)
     step = _er_grad_step(j_scene, j_cfg, 4, 3, dev, "rif_coeff")
     zs = np.linspace(-1, 1, 12)
@@ -2369,11 +2468,12 @@ def _er_grad_phases(dev, card, results):
            "phase 20 along the smooth bump (12^3 grid, 8x8 sppc 4, seed 3)",
            card)
 
-    lap(20)
+    lap("20b")
 
     # ---- phase 21: card against CPU (the spline at phase 20's own size,
     # whose card gradient is in hand) ----
     r_scene, r_cfg = _er_grad_scene(8)
+    r_cfg = dataclasses.replace(r_cfg, max_depth=ER_GRAD_DEPTH)
     radial = _er_grad_step(r_scene.to(dev), r_cfg, 2, 5, dev, "rif_params")
     pairs = (
         ("radial, 8x8 sppc 2", radial,
@@ -2392,6 +2492,7 @@ def _er_grad_phases(dev, card, results):
                 and rel <= ER_CARD_CPU_TOL[1]):
             raise AssertionError(f"card and CPU eikonal gradients disagree "
                                  f"({name})")
+    lap(21)
 
 
 def _er_grad_at(scene, cfg, sppc, seed, field, solves):
@@ -2731,11 +2832,12 @@ def _er_rest_phases(dev, card, results, er_img):
         # the CPU: 5-15%); single-solve, 0.5%
         s_scene, s_cfg = _er_variant(presets, 16, 4, 128, strat,
                                      sigma_s=sigma_s)
-        s_cfg = dataclasses.replace(s_cfg, bvp_restarts=0)
+        s_cfg = dataclasses.replace(s_cfg, bvp_restarts=0,
+                                    max_depth=ER_SMALL_DEPTH)
         img_g = _er_render(s_scene, s_cfg, dev, seed=3)[0].cpu()
         img_c = render_m.render(s_scene, s_cfg, seed=3, device="cpu")
         ratio = _card_vs_cpu(img_g, img_c, f"eikonal render, strategy "
-                             f"{name}, 16x16 spp 4")
+                             f"{name}, 16x16 spp 4 depth {ER_SMALL_DEPTH}")
         rows[name] = dict(wall_s=wall, launches=launches,
                           mean=img.mean().item(), card_vs_cpu=ratio)
     d_row["strategies"] = rows
@@ -2861,6 +2963,7 @@ def _er_rest_phases(dev, card, results, er_img):
         plain_ms=plain64, wall_s=wall, depth=F64_DEPTH,
         max_abs_diff_f32=diff.max().item(), median_ratio_f32=ratio,
         mean_rel_f32=mean_rel)
+    lap(25)
 
 
 # ---------------------------------------------------------------------------
@@ -2880,6 +2983,10 @@ BSDF_RTOL, BSDF_ATOL_SCALE, BSDF_MAX_BAD = 1e-4, 1e-6, 0.02
 # of ~130 launches a trip (scene/bvh.py), ~350 trips, two traversals a
 # bounce (24.2 s at depth 8 on an H100)
 BVH_SUBDIV = 6
+# phase 29: the samples a pixel of the box-filter cbox renders on the
+# wavefront road and of the loop road held against them (config 1's 64
+# until phases 47-50 needed room)
+CBOX_WF_SPP = 32
 BVH_DEPTH = 2
 # phase 29: the wavefront engine profiled over WF_PROFILE_SUPERS
 # super-iterations after WF_PROFILE_SUPERS of warm-up, in a pass of sppc
@@ -2913,9 +3020,9 @@ def _zero_counts():
 
 def _surface_render(scene, cfg, dev, card, what, seed=0):
     """render() on the card with every kernel count at 0 just before and
-    read just after (the cbox roads launch none: no heterogeneous medium,
-    no refractive one); returns (image, stats, wall s, peak device
-    bytes)."""
+    read just after (the cbox roads and phases 47-50's estimators launch
+    none: no heterogeneous medium, no refractive one); returns (image,
+    stats, wall s, peak device bytes)."""
     import torch
 
     from mitsubaer_tpu_torch.integrators import render as render_m
@@ -3348,7 +3455,7 @@ def _surface_phases(dev, card, results):
     # ---- phase 29: the box-filter cbox on the wavefront road, against
     # the loop road at the same seed ----
     for name, sc, base in (("path", scene, cfg), ("medium", scene2, cfg2)):
-        w_cfg = dataclasses.replace(base, filter="box")
+        w_cfg = dataclasses.replace(base, filter="box", spp=CBOX_WF_SPP)
         w_img, w_stats, w_wall, w_peak = _surface_render(
             sc, w_cfg, dev, card, f"the wavefront cbox {name} render",
             seed=7)
@@ -3360,7 +3467,8 @@ def _surface_phases(dev, card, results):
         both = (lw > 0) & (ll > 0)
         ratio = (lw[both] / ll[both]).median().item()
         print(f"cbox {name} on the wavefront road (box filter): 256x256 spp "
-              f"64, [segments, taps, super-iterations, unfinished] a pass "
+              f"{w_cfg.spp}, [segments, taps, super-iterations, unfinished] "
+              f"a pass "
               f"{w_stats['passes']}, wall {w_wall:.3f} s, peak device "
               f"memory {w_peak / 2**30:.3f} GiB, mean "
               f"{w_img.mean().item():.6f}; against the loop road at seed 7: "
@@ -3863,7 +3971,9 @@ def _model_phases(dev, card, results):
     c1, c1_cfg = presets.cornell_box(res=256, spp=64, max_depth=40)
     c1 = c1.to(dev)
     walls = {}
-    for name in ("independent", "ldsampler", "ldsampler", "independent"):
+    # one render each; the same in turns (independent, ldsampler,
+    # ldsampler, independent) is scripts/profile_models_torch.py's
+    for name in ("independent", "ldsampler"):
         img_s, _, wall_s, _, _ = _model_render(
             c1, dataclasses.replace(c1_cfg, sampler=name), dev, card,
             f"cbox path (BASELINE config 1), sampler {name}")
@@ -4244,7 +4354,7 @@ def _transient_phases(dev, card, results):
     # ---- phase 39: bdpt on the refractive sphere (D, E), the
     # heterogeneous box (A) and the cbox ----
     bd = {}
-    paths = _bdpt_scenes(presets, 256, 8)
+    paths = _bdpt_scenes(presets, 256, BDPT_SPP)
     paths["sphere"] = _bdpt_scenes(presets, 96, 8)["sphere"]
     trace, sens_march = ermarch.trace, ermarch.sens_march
     d_calls, e_calls = {}, {}
@@ -5060,7 +5170,7 @@ def _estimator_phases(dev, card, results):
     small = EST["small_res"]
 
     # ---- phase 44(a): pssmlt on BASELINE config 1 ----
-    scene, cfg = presets.cornell_box(res=c_res, spp=4, max_depth=40,
+    scene, cfg = presets.cornell_box(res=c_res, spp=MLT_SPP, max_depth=40,
                                      integrator="pssmlt")
     scene = scene.to(dev)
     if "config1_path" in IMAGES and c_res == 256:
@@ -5088,7 +5198,7 @@ def _estimator_phases(dev, card, results):
                        f"pssmlt against {ref_what}")
     # "mlt" and a second "pssmlt" bit-equal to a first, at 32^2 (a repeat
     # at config 1's width is ~13 s of launch-bound path.li calls each)
-    p_scene, p_cfg = presets.cornell_box(res=32, spp=4, max_depth=40,
+    p_scene, p_cfg = presets.cornell_box(res=32, spp=MLT_SPP, max_depth=40,
                                          integrator="pssmlt")
     p_scene = p_scene.to(dev)
     first = _estimator_render(p_scene, p_cfg, dev, "pssmlt at 32^2")[0]
@@ -5098,7 +5208,8 @@ def _estimator_phases(dev, card, results):
             f"{name} at 32^2")[0]
         _bits_equal(again.cpu(), first.cpu(), f"{name} against pssmlt")
     round_prof = _profile_round(scene, cfg, dev, card, "a pssmlt round")
-    print(f"pssmlt, config 1 ({c_res}x{c_res} spp 4 depth 40): {n_chains} "
+    print(f"pssmlt, config 1 ({c_res}x{c_res} spp {MLT_SPP} depth 40): "
+          f"{n_chains} "
           f"chains, {rounds} rounds, D {D}, 65536 bootstrap lanes: wall "
           f"{wall:.3f} s (bootstrap {stats['bootstrap_s']:.3f} s), "
           f"{li_calls[0]} path.li calls, no kernel; one round "
@@ -5110,11 +5221,12 @@ def _estimator_phases(dev, card, results):
                          chains=n_chains, rounds=rounds, li_calls=li_calls[0],
                          round=round_prof, mean=img.mean().item(),
                          mean_rel=rel)
-    s_scene, s_cfg = presets.cornell_box(res=small, spp=4, max_depth=40,
-                                         integrator="pssmlt")
+    s_scene, s_cfg = presets.cornell_box(res=small, spp=MLT_SPP,
+                                         max_depth=40, integrator="pssmlt")
     out["pssmlt"]["card_vs_cpu"] = _mlt_card_vs_cpu("pssmlt", s_scene,
                                                     s_cfg, dev)
     del img, ref
+    lap("44a")
 
     # ---- phase 44(b): pssmlt_volpath on the main path's volume ----
     scene, cfg = presets.volumetric_box(res=v_res, spp=1,
@@ -5170,6 +5282,7 @@ def _estimator_phases(dev, card, results):
     out["pssmlt_volpath"]["card_vs_cpu"] = _mlt_card_vs_cpu(
         "pssmlt_volpath", s_scene, s_cfg, dev)
     del img, ref
+    lap("44b")
 
     # ---- phase 44(c): erpt on tests/test_erpt.py's caustic scene ----
     e_res = EST["caustic_res"]
@@ -5192,6 +5305,7 @@ def _estimator_phases(dev, card, results):
     out["erpt"]["card_vs_cpu"] = _mlt_card_vs_cpu(
         "erpt", s_scene, dataclasses.replace(s_cfg, integrator="erpt"), dev)
     del img, ref
+    lap("44c")
 
     # ---- phase 44(d): the specular manifold at 2^16 lanes ----
     n = EST["chain_lanes"]
@@ -5225,7 +5339,7 @@ def _estimator_phases(dev, card, results):
                              "disagree")
     out["manifold"] = dict(lanes=n, card_ms=card_s * 1e3, cpu_ms=cpu_s * 1e3,
                            flags_apart=flags, roots_apart=roots)
-    lap(44)
+    lap("44d")
 
     # ---- phase 45: the photon mappers on config 1 ----
     scene, cfg = presets.cornell_box(res=c_res, spp=16, max_depth=40,
@@ -5335,6 +5449,330 @@ def _estimator_phases(dev, card, results):
     lap(46)
     print(json.dumps({"estimators": out}))
 
+
+
+# ---------------------------------------------------------------------------
+# Phases 47-50: the last integrators (singlescatter, dipole, irrcache, vpl)
+# ---------------------------------------------------------------------------
+# phases 47-50's sizes: the full-width renders' width, the eta-1 anchor's
+# width, the card against CPU width, the dipole cache there, and the
+# irradiance cache's records there (a rehearsal on the CPU shrinks them)
+STEP12B = dict(res=256, anchor_res=32, small_res=16, small_cache=512,
+               small_sites=64, small_hemi=8)
+# phase 47: tests/test_singlescatter.py's bars: the eta-1 sphere's mean
+# within 8% of the quadrature and its median relative error under 0.15;
+# the mesh boundary's mean within 15% of the sphere's
+SS_ANCHOR_MEAN, SS_ANCHOR_MEDIAN, SS_MESH_TOL = 0.08, 0.15, 0.15
+# phase 49: tests/test_irrcache.py's bar on irrcache over path
+IRR_RATIO = (0.75, 1.3)
+# phase 50: JAX's render_vpl over JAX's path render on config 1 at 32^2
+# (vpl spp 4: the same 64 VPLs as at 256^2; path spp 64), on the CPU
+# (scripts/vpl_ratio_check.py); the card's ratio is held within 10% of it
+VPL_JAX_RATIO, VPL_RATIO_TOL = 0.8386, 0.10
+
+
+def _octasphere(subdiv):
+    """tests/test_singlescatter.py's unit sphere mesh: an octahedron
+    subdivided `subdiv` times (8 4^subdiv triangles, outward winding)."""
+    import numpy as np
+
+    v = np.array([[1, 0, 0], [-1, 0, 0], [0, 1, 0], [0, -1, 0],
+                  [0, 0, 1], [0, 0, -1]], np.float64)
+    f = np.array([[0, 2, 4], [2, 1, 4], [1, 3, 4], [3, 0, 4],
+                  [2, 0, 5], [1, 2, 5], [3, 1, 5], [0, 3, 5]], np.int64)
+    for _ in range(subdiv):
+        nv = list(map(tuple, v))
+        index = {p: i for i, p in enumerate(nv)}
+        nf = []
+
+        def mid(i, j):
+            p = tuple((np.array(nv[i]) + np.array(nv[j])) / 2.0)
+            if p not in index:
+                index[p] = len(nv)
+                nv.append(p)
+            return index[p]
+
+        for a, b, c in f:
+            ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+            nf += [[a, ab, ca], [ab, b, bc], [ca, bc, c], [ab, bc, ca]]
+        v = np.array(nv, np.float64)
+        f = np.array(nf, np.int64)
+    v = v / np.linalg.norm(v, axis=-1, keepdims=True)
+    return v.astype(np.float32), f.astype(np.int32)
+
+
+def _ss_scene(res, spp, eta, sigma_s=0.4, sigma_a=0.05, subdiv=None,
+              integrator="singlescatter"):
+    """tests/test_singlescatter.py's scene in the port: a unit sphere (or
+    the subdivided octahedron) of a homogeneous isotropic medium behind a
+    dielectric boundary, a point light at (2.5, 1.5, 0), the camera at
+    (0, 0, -4), fov 35."""
+    import dataclasses
+
+    from mitsubaer_tpu_torch.core import transform as tf
+    from mitsubaer_tpu_torch.scene import types as T
+    from mitsubaer_tpu_torch.scene.build import SceneBuilder
+
+    b = SceneBuilder()
+    med = b.add_medium(kind=T.MED_HOMOGENEOUS, sigma_a=(sigma_a,) * 3,
+                       sigma_s=(sigma_s,) * 3, phase_kind=T.PH_ISOTROPIC)
+    bs = b.add_bsdf(kind=T.BSDF_DIELECTRIC, eta=eta)
+    if subdiv is None:
+        b.add_sphere((0.0, 0.0, 0.0), 1.0, bsdf=bs, interior=med)
+    else:
+        b.add_mesh(*_octasphere(subdiv), bsdf=bs, interior=med)
+    b.add_emitter(T.EM_POINT, radiance=(10.0, 10.0, 10.0),
+                  position=(2.5, 1.5, 0.0))
+    b.set_perspective_sensor(
+        to_world=tf.look_at([0, 0, -4], [0, 0, 0], [0, 1, 0]), fov_deg=35)
+    scene = b.build()
+    return scene, dataclasses.replace(b.config, width=res, height=res,
+                                      spp=spp, filter="box",
+                                      integrator=integrator)
+
+
+def _ss_quadrature(scene, res, nq=600):
+    """tests/test_singlescatter.py's exact eta-1 single scatter of
+    _ss_scene(res, ..., 1.0) by dense quadrature at each pixel centre
+    (straight connections, attenuation inside the sphere only): (res,
+    res, 3) float64."""
+    import numpy as np
+    import torch
+
+    from mitsubaer_tpu_torch.models import sensor as sensor_m
+
+    pix = np.arange(res * res)
+    rays = sensor_m.sample_rays(
+        scene.sensor.to("cpu"),
+        torch.from_numpy(((pix % res) + 0.5).astype(np.float32)),
+        torch.from_numpy(((pix // res) + 0.5).astype(np.float32)), res, res)
+    o, d = rays.o.double().numpy(), rays.d.double().numpy()
+    l, sig, ss = np.array([2.5, 1.5, 0.0]), 0.45, 0.4
+    b = np.sum(o * d, -1)
+    disc = b * b - (np.sum(o * o, -1) - 1.0)
+    t0 = -b - np.sqrt(np.maximum(disc, 0))
+    t1 = -b + np.sqrt(np.maximum(disc, 0))
+    out = np.zeros((res * res, 3))
+    for i in np.nonzero(disc > 0)[0]:
+        ts = np.linspace(t0[i], t1[i], nq)
+        x = o[i] + ts[:, None] * d[i]
+        to_l = l[None, :] - x
+        dist = np.linalg.norm(to_l, axis=-1)
+        w = to_l / dist[:, None]
+        bb = np.sum(x * w, -1)
+        t_exit = -bb + np.sqrt(np.maximum(bb * bb - (np.sum(x * x, -1) - 1),
+                                          0))
+        f = (ss / (4 * np.pi) * np.exp(-sig * (ts - t0[i]))
+             * np.exp(-sig * t_exit) * 10.0 / dist ** 2)
+        out[i, :] = np.trapezoid(f, ts)
+    return out.reshape(res, res, 3)
+
+
+def _s12_card_vs_cpu(scene, cfg, dev, what, fn=None, **kw):
+    """An estimator at the small width on the card and on the CPU, held by
+    phase 8's rule."""
+    from mitsubaer_tpu_torch.integrators import render as render_m
+
+    if fn is None:
+        img_g = render_m.render(scene, cfg, seed=3, device=dev).cpu()
+        img_c = render_m.render(scene, cfg, seed=3, device="cpu")
+    else:
+        img_g = fn(scene.to(dev), cfg, seed=3, **kw).cpu()
+        img_c = fn(scene.to("cpu"), cfg, seed=3, **kw)
+    return _card_vs_cpu(img_g, img_c, what)
+
+
+def _step12b_phases(dev, card, results):
+    """Phases 47-50: single scattering through a refractive boundary
+    (sphere and mesh), the dipole BSSRDF, the irradiance cache and the
+    VPL integrator, each through render(); none may launch a kernel."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from mitsubaer_tpu_torch.integrators import dipole, irrcache, vpl
+    from mitsubaer_tpu_torch.integrators import render as render_m
+    from mitsubaer_tpu_torch.scene import presets
+
+    out = {"phase_s": {}}
+    lap = _lap_clock(out["phase_s"])
+    res, small = STEP12B["res"], STEP12B["small_res"]
+    gib = 2 ** 30
+
+    # ---- phase 47: single scattering through a refractive boundary ----
+    a_res = STEP12B["anchor_res"]
+    scene, cfg = _ss_scene(a_res, 32, 1.0)
+    img = _surface_render(scene.to(dev), cfg, dev, card,
+                          "the eta-1 sphere")[0]
+    img = img.cpu().double().numpy()
+    ref = _ss_quadrature(scene, a_res)
+    mean_rel = img.mean() / ref.mean() - 1
+    mask = ref[..., 0] > 0.2 * ref[..., 0].max()
+    median = float(np.median(np.abs(img[..., 0] - ref[..., 0])[mask]
+                             / ref[..., 0][mask]))
+    print(f"singlescatter, the eta-1 sphere at {a_res}x{a_res} spp 32 "
+          f"against the quadrature: mean {img.mean():.6f} against "
+          f"{ref.mean():.6f} (rel {mean_rel:+.4f}, bar {SS_ANCHOR_MEAN}), "
+          f"median relative error {median:.4f} (bar {SS_ANCHOR_MEDIAN})",
+          flush=True)
+    if not (abs(mean_rel) < SS_ANCHOR_MEAN and median < SS_ANCHOR_MEDIAN):
+        raise AssertionError("singlescatter misses the eta-1 quadrature")
+    rows = {}
+    for name, subdiv, integrator in (("sphere", None, "singlescatter"),
+                                     ("mesh", 3, "singlescatter_mesh")):
+        scene, cfg = _ss_scene(res, 2, 1.33, subdiv=subdiv,
+                               integrator=integrator)
+        img, stats, wall, peak = _surface_render(
+            scene.to(dev), cfg, dev, card, f"singlescatter, the {name}")
+        rows[name] = dict(wall_s=wall, peak_gib=peak / gib,
+                          mean=img.mean().item())
+        if name == "mesh":
+            rows[name]["connect_s"] = stats["singlescatter_mesh_connect_s"]
+        tris = "" if subdiv is None else (f", {8 * 4 ** subdiv} triangles "
+                                          f"(connections "
+                                          f"{rows[name]['connect_s']:.3f} s)")
+        print(f"singlescatter, the {name} at eta 1.33 ({res}x{res} spp 2, "
+              f"n_dist 4{tris}): wall {wall:.3f} s, peak device memory "
+              f"{peak / gib:.3f} GiB, mean {img.mean().item():.6f}, no "
+              f"kernel [{card}]", flush=True)
+        s_scene, s_cfg = _ss_scene(small, 2, 1.33, subdiv=subdiv,
+                                   integrator=integrator)
+        rows[name]["card_vs_cpu"] = _s12_card_vs_cpu(
+            s_scene, s_cfg, dev, f"singlescatter, the {name}, "
+            f"{small}x{small} spp 2")
+    mesh_rel = rows["mesh"]["mean"] / rows["sphere"]["mean"] - 1
+    print(f"singlescatter: the mesh's mean over the sphere's {mesh_rel:+.4f} "
+          f"(bar {SS_MESH_TOL})", flush=True)
+    if not abs(mesh_rel) < SS_MESH_TOL:
+        raise AssertionError("the mesh boundary and the sphere disagree")
+    out["singlescatter"] = dict(anchor_mean_rel=mean_rel,
+                                anchor_median=median, mesh_rel=mesh_rel,
+                                **rows)
+    lap(47)
+
+    # ---- phase 48: the dipole BSSRDF ----
+    r = torch.linspace(0.01, 2.0, 64, device=dev)[:, None]
+    rd = dipole.rd_dipole(r, torch.full((1, 3), 0.05, device=dev),
+                          torch.full((1, 3), 2.0, device=dev), 1.3).cpu()
+    if not (bool((rd > 0).all()) and bool((rd[1:, 0] < rd[:-1, 0]).all())):
+        raise AssertionError("R_d is not positive and falling with r")
+    rows = {}
+    for sa in (0.05, 0.8):
+        scene, cfg = _ss_scene(res, 2, 1.3, sigma_s=2.0, sigma_a=sa,
+                               subdiv=2, integrator="dipole")
+        img, stats, wall, peak = _surface_render(scene.to(dev), cfg, dev,
+                                                 card, f"dipole, sigma_a {sa}")
+        split = stats["dipole_stage_s"]
+        rows[sa] = dict(wall_s=wall, stages_s=split, peak_gib=peak / gib,
+                        mean=img.mean().item())
+        print(f"dipole, the subdivision-2 sphere (eta 1.3, sigma_s 2.0, "
+              f"sigma_a {sa}; {res}x{res} spp 2, n_cache 4096, chunk 1024): "
+              f"wall {wall:.3f} s (cache {split['cache']:.3f}, camera "
+              f"{split['camera']:.3f}, gather {split['gather']:.3f}), peak "
+              f"device memory {peak / gib:.3f} GiB, mean "
+              f"{img.mean().item():.6f}, no kernel [{card}]", flush=True)
+    if not rows[0.8]["mean"] < rows[0.05]["mean"]:
+        raise AssertionError("dipole: more absorption is not dimmer")
+    s_scene, s_cfg = _ss_scene(small, 2, 1.3, sigma_s=2.0, sigma_a=0.05,
+                               subdiv=2, integrator="dipole")
+    m = STEP12B["small_cache"]
+    cmp = {f"{n}/{c}": _s12_card_vs_cpu(
+        s_scene, s_cfg, dev, f"dipole, {small}x{small} spp 2, n_cache {n}, "
+        f"chunk {c}", fn=dipole.render_dipole, n_cache=n, chunk=c)
+        for n, c in ((m, m // 2), (m - 12, m // 4))}
+    out["dipole"] = dict(rd_falls=True, card_vs_cpu=cmp,
+                         **{f"sigma_a_{k}": v for k, v in rows.items()})
+    lap(48)
+
+    # ---- phase 49: the irradiance cache on BASELINE config 1 ----
+    scene, cfg = presets.cornell_box(res=res, spp=8, max_depth=40,
+                                     integrator="irrcache")
+    scene = scene.to(dev)
+    img, stats, wall, peak = _surface_render(scene, cfg, dev, card,
+                                             "irrcache")
+    if "config1_path" in IMAGES and res == 256:
+        ref = IMAGES["config1_path"]
+        ref_what = "phase 26's config 1 path render"
+    else:
+        ref = render_m.render(scene, dataclasses.replace(
+            cfg, spp=64, integrator="path"), seed=0, device=dev).cpu()
+        ref_what = "config 1's path render (spp 64)"
+    ratio = img.mean().item() / ref.mean().item()
+    split = stats["irrcache_stage_s"]
+    print(f"irrcache, config 1 ({res}x{res} spp 8: 2 passes of 256 records "
+          f"x 32 gather rays through path.li at 8192 lanes): wall "
+          f"{wall:.3f} s (camera and NEE {split['camera']:.3f}, record "
+          f"gather {split['gather']:.3f}, Ward blend {split['blend']:.3f}), "
+          f"peak device memory {peak / gib:.3f} GiB; mean "
+          f"{img.mean().item():.6f} over {ref_what}'s "
+          f"{ref.mean().item():.6f}: {ratio:.4f} (bar {IRR_RATIO}), no "
+          f"kernel [{card}]", flush=True)
+    if not IRR_RATIO[0] < ratio < IRR_RATIO[1]:
+        raise AssertionError(f"irrcache's mean is {ratio:.4f} of path's")
+    s_scene, s_cfg = presets.cornell_box(res=small, spp=4, max_depth=40,
+                                         integrator="irrcache")
+    out["irrcache"] = dict(
+        wall_s=wall, stages_s=split, peak_gib=peak / gib,
+        mean=img.mean().item(), ratio=ratio,
+        card_vs_cpu=_s12_card_vs_cpu(
+            s_scene, s_cfg, dev, f"irrcache, {small}x{small} spp 4, "
+            f"{STEP12B['small_sites']} records x {STEP12B['small_hemi']}",
+            fn=irrcache.render_irrcache, n_sites=STEP12B["small_sites"],
+            n_hemi=STEP12B["small_hemi"]))
+    del img, ref
+    lap(49)
+
+    # ---- phase 50: VPLs on configs 1 and 2 ----
+    rows = {}
+    for name, medium in (("config1", None), ("config2", CBOX_MEDIUM)):
+        scene, cfg = presets.cornell_box(res=res, spp=4, max_depth=40,
+                                         medium=medium, integrator="vpl")
+        scene = scene.to(dev)
+        img, stats, wall, peak = _surface_render(scene, cfg, dev, card,
+                                                 f"vpl, {name}")
+        split = stats["vpl_stage_s"]
+        rows[name] = dict(wall_s=wall, stages_s=split, vpls=stats["vpls"],
+                          peak_gib=peak / gib, mean=img.mean().item())
+        # one shading step (the first surface VPL with flux) profiled
+        vs = vpl.make_vpl_set(scene, cfg, 0)
+        _, cam, smp = vpl.camera_sample(scene, cfg, 0, 0, vs.grid)
+        v = vs.host.index((vpl.K_SURFACE, True))
+        step = _profile_pass(lambda: vpl.shade(scene, cfg, vs, v, cam, smp),
+                             card, f"a vpl shading step, {name}")[1]
+        rows[name]["step"] = step
+        if name == "config1":
+            if "config1_path" in IMAGES and res == 256:
+                ref = IMAGES["config1_path"]
+            else:
+                ref = render_m.render(scene, dataclasses.replace(
+                    cfg, spp=64, integrator="path"), seed=0,
+                    device=dev).cpu()
+            ratio = img.mean().item() / ref.mean().item()
+            rows[name]["ratio_path"] = ratio
+        print(f"vpl, {name} ({res}x{res} spp 4: {stats['vpls']} VPLs, "
+              f"{stats['vpls'] * 4} shading steps): wall {wall:.3f} s "
+              f"(VPLs {split['generate']:.3f}, camera {split['camera']:.3f}, "
+              f"shading {split['shading']:.3f}), peak device memory "
+              f"{peak / gib:.3f} GiB, mean {img.mean().item():.6f}; one "
+              f"shading step {step['wall_s'] * 1e3:.2f} ms, "
+              f"{step['launches']} device launches, "
+              f"{step['device_s'] * 1e3:.3f} ms of device time, no kernel "
+              f"[{card}]", flush=True)
+        s_scene, s_cfg = presets.cornell_box(res=small, spp=1, max_depth=40,
+                                             medium=medium, integrator="vpl")
+        rows[name]["card_vs_cpu"] = _s12_card_vs_cpu(
+            s_scene, s_cfg, dev, f"vpl, {name}, {small}x{small} spp 1")
+    rel = rows["config1"]["ratio_path"] / VPL_JAX_RATIO - 1
+    print(f"vpl, config 1 over config 1's path render: "
+          f"{rows['config1']['ratio_path']:.4f}, JAX's on the CPU at 32^2 "
+          f"{VPL_JAX_RATIO} (rel {rel:+.4f}, bar {VPL_RATIO_TOL})",
+          flush=True)
+    if not abs(rel) <= VPL_RATIO_TOL:
+        raise AssertionError("vpl's ratio to the path render is off JAX's")
+    out["vpl"] = rows
+    lap(50)
+    print(json.dumps({"step12b": out}))
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -16,7 +16,11 @@ JAX render() does:
 - the eikonal (refractive) road, `integrator="volpath_er"`
   (`scene.presets.refractive_sphere(...)`);
 - bidirectional path tracing and the particle tracer,
-  `integrator="bdpt"` and `"ptracer"`.
+  `integrator="bdpt"` and `"ptracer"`;
+- the estimators with passes of their own: pssmlt, mlt and erpt, the
+  photon mappers and bre, vpl, irrcache, singlescatter (sphere and mesh)
+  and dipole, each returning its own image.
+`render()` accepts every integrator name the JAX package's does.
 The loop and eikonal roads and bdpt render every film decomposition:
 transient and bounce frames ((H, W, 3F) images) and CW-ToF weights.
 The training path, `diff.render` (`render_diff`, `loss_and_grad`,
@@ -37,10 +41,3 @@ over torch.distributed, bit-identically at every world size for one
 layout of shards.
 """
 
-
-def not_ported(what: str, step: int) -> NotImplementedError:
-    """The error for a part of the JAX package the port does not have yet,
-    naming the ROADMAP Queue 1 step that will port it."""
-    return NotImplementedError(
-        f"{what} is not ported to mitsubaer_tpu_torch yet (ROADMAP Queue 1 "
-        f"step {step})")

@@ -5,9 +5,13 @@ film or engine is chosen, as in the JAX render(): "bdpt" and "ptracer"
 (`bdpt.render_bdpt`, `ptracer.render_ptracer`), "pssmlt",
 "pssmlt_volpath" and "mlt" (`pssmlt.render_pssmlt`), "erpt"
 (`erpt.render_erpt`), "photonmapper", "ppm" and "sppm"
-(`photonmap.render_photonmap`) and "bre" (`bre.render_bre`); the last four
-return their (H, W, 3) image with no film filter and no beam splat. Four
-roads are ported for the others, chosen as the JAX render() chooses them:
+(`photonmap.render_photonmap`), "bre" (`bre.render_bre`), "vpl"
+(`vpl.render_vpl`), "irrcache" (`irrcache.render_irrcache`),
+"singlescatter" and "singlescatter_mesh"
+(`singlescatter.render_singlescatter`, `render_singlescatter_mesh`) and
+"dipole" (`dipole.render_dipole`); all but the first two return their
+(H, W, 3) image with no film filter and no beam splat. Four roads are
+ported for the others, chosen as the JAX render() chooses them:
 - loop: the loop engines, taken by integrators "volpath" and "path" with
   any film filter but box (the default is gaussian) or with
   engine="loop", by "volpath_simple" unless engine="wavefront", and by
@@ -41,9 +45,7 @@ checkpoints and resumes (checkpoint_path / checkpoint_every, in the JAX
 package's npz layout, utils/checkpoint.py). Every road adds its seconds
 to utils/stats.py's "render.wall", and the loop, boxwalk and wavefront
 roads count "render.passes" and "render.camera_rays", as the JAX render()
-does. Every other integrator of the JAX package ("vpl",
-"singlescatter", "singlescatter_mesh", "dipole", "irrcache") raises
-NotImplementedError with the ROADMAP Queue 1 step that will port it.
+does. render() accepts every integrator name the JAX package's does.
 """
 from __future__ import annotations
 
@@ -54,7 +56,6 @@ from dataclasses import replace
 
 import torch
 
-from .. import not_ported
 from ..core import rng
 from ..models import film as film_m
 from ..models import medium as medium_m
@@ -70,10 +71,6 @@ from . import volpath as volpath_m
 from . import volpath_er as er_m
 from . import wavefront as wf_m
 
-_NOT_PORTED = {
-    "vpl": 12, "singlescatter": 12, "singlescatter_mesh": 12, "dipole": 12,
-    "irrcache": 12,
-}
 # the estimators that render through their own passes, before any film
 # (render.py:272-313): module and entry, imported at the call as in the
 # JAX render() (pssmlt imports this module)
@@ -85,6 +82,10 @@ _ESTIMATORS = {
     "photonmapper": ("photonmap", "render_photonmap"),
     "ppm": ("photonmap", "render_photonmap"),
     "sppm": ("photonmap", "render_photonmap"), "bre": ("bre", "render_bre"),
+    "vpl": ("vpl", "render_vpl"), "irrcache": ("irrcache", "render_irrcache"),
+    "singlescatter": ("singlescatter", "render_singlescatter"),
+    "singlescatter_mesh": ("singlescatter", "render_singlescatter_mesh"),
+    "dipole": ("dipole", "render_dipole"),
 }
 _PORTED = ("volpath", "volpath_simple", "volpath_er", "path", "direct",
            "ao", "field") + tuple(_ESTIMATORS)
@@ -278,7 +279,8 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
     device="cpu" is passed.
 
     Roads: the estimators of _ESTIMATORS render through their own passes
-    (bdpt, ptracer, pssmlt, erpt, photonmap, bre); "volpath_er" takes
+    (bdpt, ptracer, pssmlt, erpt, photonmap, bre, vpl, irrcache,
+    singlescatter, dipole); "volpath_er" takes
     the eikonal road; "volpath" or "path" with a box filter and a steady
     film takes boxwalk on a scene of the boxwalk class and the wavefront
     engine on any other; "volpath" or "path" with another filter, a film
@@ -286,20 +288,18 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
     "volpath_simple" unless engine="wavefront", and "direct" take a loop
     engine. "ao" and "field" take the loop road's camera rays (misc.py).
     With frames the image is (H, W, 3F). engine="wavefront" with frames or
-    a modulation raises ValueError. The JAX package's other integrators
-    (vpl, singlescatter, dipole, irrcache) raise NotImplementedError
-    naming their ROADMAP Queue 1 step (step 12).
-    A name the JAX package does not know raises ValueError, as its
-    get_integrator does.
+    a modulation raises ValueError. A name the JAX package does not know
+    raises ValueError, as its get_integrator does.
 
     If `stats` is a dict it receives, per pass, "passes" ([segments, taps,
     iters, unfinished] on the boxwalk and wavefront roads, [bounces,
     Woodcock tracking iterations] on the volpath loop road, [bounces] on
     the path loop road and the eikonal road) and the seconds of the
     passes, timed with a device synchronize around each, as "boxwalk_s",
-    "wavefront_s", "loop_s", "er_s", "bdpt_s" or "ptracer_s"; the
-    Metropolis and photon estimators add their wall as "pssmlt_s",
-    "erpt_s", "photonmap_s" or "bre_s" and their stages' seconds (the
+    "wavefront_s", "loop_s", "er_s", "bdpt_s" or "ptracer_s"; the other
+    estimators add their wall as "pssmlt_s", "erpt_s", "photonmap_s",
+    "bre_s", "vpl_s", "irrcache_s", "singlescatter_s",
+    "singlescatter_mesh_s" or "dipole_s" and their stages' seconds (the
     entries' docstrings).
 
     spp_per_pass fixes the samples of a pass (default min(spp, 2^21 //
@@ -311,9 +311,6 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
     resumed render equal to an uninterrupted one."""
     if spp is not None:
         cfg = replace(cfg, spp=spp)
-    if cfg.integrator in _NOT_PORTED:
-        raise not_ported(f"integrator {cfg.integrator!r}",
-                          _NOT_PORTED[cfg.integrator])
     if cfg.integrator not in _PORTED:
         raise ValueError(f"unknown integrator {cfg.integrator}")
     if cfg.integrator in _ESTIMATORS:

@@ -10,7 +10,10 @@ volume on the wavefront road (super-iterations 6-10 of a pass of sppc 4);
 BASELINE config 1 with a thin lens; the sky-lit floor and boxes at 256^2
 spp 64; config 1 with the ldsampler. Prints for each its wall, launches
 (a bounce or a super-iteration), device time and busy share, with the
-card's name and power limit, and one JSON line of them.
+card's name and power limit, and one JSON line of them. Then config 1's
+wall with the independent sampler and the ldsampler in turns
+(independent, ldsampler, ldsampler, independent), which chip_smoke.py
+phase 35 renders once each.
 """
 from __future__ import annotations
 
@@ -75,7 +78,18 @@ def main() -> int:
         else:
             out[name] = c._loop_pass_profile(scene, cfg, dev, card, name)
         del scene
-    print(json.dumps({"card": card, "profiles": out}))
+    c1, c1_cfg = presets.cornell_box(res=256, spp=64, max_depth=40)
+    c1 = c1.to(dev)
+    walls = {}
+    for name in ("independent", "ldsampler", "ldsampler", "independent"):
+        walls.setdefault(name, []).append(c._model_render(
+            c1, dataclasses.replace(c1_cfg, sampler=name), dev, card,
+            f"cbox path (BASELINE config 1), sampler {name}")[2])
+    print(f"config 1 with the ldsampler against independent: walls {walls}, "
+          f"ratio {sum(walls['ldsampler']) / sum(walls['independent']):.4f} "
+          f"[{card}]", flush=True)
+    print(json.dumps({"card": card, "profiles": out,
+                      "config1_sampler_walls": walls}))
     return 0
 
 
