@@ -3381,6 +3381,7 @@ def _surface_phases(dev, card, results):
     from mitsubaer_tpu_torch.scene import intersect as isect
     from mitsubaer_tpu_torch.scene import presets
     from mitsubaer_tpu_torch.scene import types as T
+    from mitsubaer_tpu_torch.utils import stats as tstats
 
     surf = {"phase_s": {}}
     lap = _lap_clock(surf["phase_s"])
@@ -3498,13 +3499,15 @@ def _surface_phases(dev, card, results):
     n = rays.o.shape[0]
     t_min = torch.full((n,), 1e-2, device=dev)
     t_max = torch.full((n,), isect.INF, device=dev)
-    bstats = {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    t_b, packed, _, _ = bvh_m.intersect_bvh(geo.bvh, rays.o, rays.d, t_min,
-                                            t_max, stats=bstats)
+    with tstats.tracing():
+        t_b, packed, _, _ = bvh_m.intersect_bvh(geo.bvh, rays.o, rays.d,
+                                                t_min, t_max)
     torch.cuda.synchronize()
     bvh_s = time.perf_counter() - t0
+    bstats = next(s for s in reversed(tstats.spans())
+                  if s.name == "bvh.walk").counts
     prim_b = geo.bvh.tri_id[packed].long()
     flat = dataclasses.replace(geo, bvh=T.empty_bvh().to(dev))
     torch.cuda.synchronize()

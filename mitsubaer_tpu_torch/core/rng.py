@@ -22,6 +22,8 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from ..utils import stats
+
 # the JAX package's sampler modes; VECTOR (replayable: draws come from an
 # explicit (N, D) table of uniforms, the reference's ReplayableSampler,
 # rsampler.cpp, which the primary-sample-space MLT chains mutate) is no
@@ -37,8 +39,11 @@ _ONE_MINUS_EPS = 0.99999994            # largest float32 below 1
 
 
 def u32(x, device=None) -> torch.Tensor:
-    """A Python int or integer tensor as an int64 tensor holding uint32 bits."""
-    return torch.as_tensor(x, dtype=torch.int64, device=device) & M32
+    """A Python int or integer tensor as an int64 tensor holding uint32 bits;
+    a Python int sent to a device is the host read "rng.u32"."""
+    if device is None or isinstance(x, torch.Tensor):
+        return torch.as_tensor(x, dtype=torch.int64, device=device) & M32
+    return stats.to_device("rng.u32", x, device, torch.int64) & M32
 
 
 def mul32(x: torch.Tensor, c) -> torch.Tensor:
@@ -62,11 +67,14 @@ def _combine(h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def hash_combine(*xs) -> torch.Tensor:
-    ts = [x if isinstance(x, torch.Tensor) else u32(x) for x in xs]
-    device = next((t.device for t in ts if t.dim() > 0), ts[0].device)
+    device = next((x.device for x in xs
+                   if isinstance(x, torch.Tensor) and x.dim() > 0),
+                  xs[0].device if isinstance(xs[0], torch.Tensor)
+                  else torch.device("cpu"))
     h = u32(0x9E3779B9, device)
-    for x in ts:
-        h = _combine(h, x.to(device))
+    for x in xs:
+        h = _combine(h, x.to(device) if isinstance(x, torch.Tensor)
+                     else u32(x, device))
     return h
 
 
@@ -244,7 +252,8 @@ def radical_inverse(index, base, scramble_key):
         r = r + f * d.to(torch.float32)
         f = f * inv
         quarter_ulp = (torch.nextafter(r, torch.full_like(r, 2.0)) - r) * 0.25
-        if bool((f * top < quarter_ulp).all()):
+        if stats.host_read("rng.radical_inverse", stats.all_of,
+                           f * top < quarter_ulp):
             break
     return torch.clamp_max(r, _ONE_MINUS_EPS)
 
@@ -279,7 +288,7 @@ def _kensler_permute(i, n: int, key):
         return x ^ (x >> 5)
 
     x = rounds(i)
-    while bool((x >= n).any()):
+    while stats.host_read("rng.permute", stats.any_of, x >= n):
         x = torch.where(x >= n, rounds(x), x)
     return ((x + key) & M32) % max(n, 1)
 

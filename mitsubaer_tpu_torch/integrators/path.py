@@ -27,6 +27,7 @@ from ..models import emitter as emitter_m
 from ..models import texture as texture_m
 from ..scene import intersect as isect
 from ..scene.types import RenderConfig, Scene
+from ..utils import stats as stats_m
 from . import common
 
 
@@ -161,7 +162,10 @@ def li(scene: Scene, cfg: RenderConfig, o, d, sampler: rng.Sampler,
         sampler=sampler)
     eps = common.scene_epsilon(scene)
     bounces = 0
-    while bool(s.active.any()):
-        s = body(scene, cfg, s, eps)
+    # while tracing, the same one read counts the active lanes
+    read = stats_m.count_of if stats_m.on() else stats_m.any_of
+    while live := stats_m.host_read("path.bounce", read, s.active):
+        with stats_m.span("path.bounce", lanes=n, active=int(live)):
+            s = body(scene, cfg, s, eps)
         bounces += 1
     return s.sink, s.sampler, [bounces]

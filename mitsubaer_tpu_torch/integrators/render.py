@@ -104,7 +104,8 @@ def _use_wavefront(cfg: RenderConfig) -> bool:
 
 
 def _has_beam(scene: Scene) -> bool:
-    return bool((scene.emitters.kind == EM_COLLIMATED).any())
+    return stats_m.host_read("render.has_beam", stats_m.any_of,
+                             scene.emitters.kind == EM_COLLIMATED)
 
 
 def _has_direct(scene: Scene) -> bool:
@@ -243,7 +244,8 @@ def add_rows(flat, key, value):
         step *= 2
     last = torch.ones_like(key_s, dtype=torch.bool)
     last[:-1] = key_s[1:] != key_s[:-1]
-    flat[key_s[last]] += v[last]
+    rows = stats_m.host_read("render.add_rows", stats_m.indices_of, last)
+    flat[key_s[rows]] += v[rows]
     return flat
 
 
@@ -313,6 +315,16 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
         cfg = replace(cfg, spp=spp)
     if cfg.integrator not in _PORTED:
         raise ValueError(f"unknown integrator {cfg.integrator}")
+    with stats_m.span("render.image",
+                      samples=cfg.width * cfg.height * cfg.spp):
+        return _render(scene, cfg, seed, device, stats, spp_per_pass,
+                       checkpoint_path, checkpoint_every)
+
+
+def _render(scene: Scene, cfg: RenderConfig, seed: int, device, stats,
+            spp_per_pass: int | None, checkpoint_path: str | None,
+            checkpoint_every: int):
+    """render() once cfg holds the samples: the choice of road."""
     if cfg.integrator in _ESTIMATORS:
         module, entry = _ESTIMATORS[cfg.integrator]
         fn = getattr(importlib.import_module(f".{module}", __package__),
@@ -324,7 +336,7 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
         return _render_film(scene.to(_device(device)), cfg, seed, stats,
                             "er_s", _er_pass, spp_per_pass, count=False)
     if not _use_wavefront(cfg):
-        scene = scene.to(_device(device))
+        scene = _on_device(scene, _device(device))
         img = _render_film(scene, cfg, seed, stats, "loop_s", render_pass,
                            spp_per_pass, checkpoint_path, checkpoint_every)
         return _add_beam_splat(scene, cfg, img, seed)
@@ -350,6 +362,14 @@ def render(scene: Scene, cfg: RenderConfig, spp: int | None = None,
     return _add_beam_splat(scene, cfg, img, seed)
 
 
+def _on_device(scene: Scene, dev) -> Scene:
+    """scene.to(dev); the copies from host memory to a card are the host
+    read "render.scene" (the loop road's, as one)."""
+    if scene.aabb_min.device.type == "cpu" and dev.type != "cpu":
+        return stats_m.host_read("render.scene", lambda s: s.to(dev), scene)
+    return scene.to(dev)
+
+
 def _add_beam_splat(scene: Scene, cfg: RenderConfig, img, seed: int):
     """img plus 4 beam-splat passes of 4 npix samples each, where the
     scene has a collimated emitter (render.py:380-389, 420-429); frame by
@@ -358,11 +378,13 @@ def _add_beam_splat(scene: Scene, cfg: RenderConfig, img, seed: int):
         return img
     n_splat = 4 * cfg.width * cfg.height
     n_passes = 4
-    splat = torch.zeros((cfg.height, cfg.width, 3 * cfg.n_frames),
-                        dtype=torch.float32, device=img.device)
-    for i in range(n_passes):
-        beam_splat_pass(scene, splat, cfg, n_splat, seed, i)
-    return img + splat / float(n_splat * n_passes)
+    with stats_m.synced_span("render.beam_splat", img.device,
+                             samples=n_splat * n_passes):
+        splat = torch.zeros((cfg.height, cfg.width, 3 * cfg.n_frames),
+                            dtype=torch.float32, device=img.device)
+        for i in range(n_passes):
+            beam_splat_pass(scene, splat, cfg, n_splat, seed, i)
+        return img + splat / float(n_splat * n_passes)
 
 
 def _spp_per_pass(cfg: RenderConfig) -> int:
@@ -379,7 +401,9 @@ def _run_passes(dev, cfg: RenderConfig, stats, timer: str,
     chunk of spp_per_pass samples, from pass pass_idx (a resumed render's)
     to cfg.spp; after(acc, pass_idx) follows each pass where given. Feeds
     the `stats` dict (timer, "passes") and utils/stats.py ("render.wall";
-    where `count`, "render.passes" and "render.camera_rays")."""
+    where `count`, "render.passes" and "render.camera_rays"). Each pass is
+    the span "render.pass" (synchronised at its edges), with its lanes and
+    the counts named by PASS_COUNTS[timer]."""
     if stats is not None:
         stats.setdefault("passes", [])
         stats.setdefault(timer, 0.0)
@@ -391,7 +415,10 @@ def _run_passes(dev, cfg: RenderConfig, stats, timer: str,
             if stats is not None:
                 common.sync(dev)
                 t0 = time.perf_counter()
-            acc, counts = pass_fn(acc, sppc, pass_idx)
+            with stats_m.synced_span("render.pass", dev,
+                                     lanes=npix * sppc) as sp:
+                acc, counts = pass_fn(acc, sppc, pass_idx)
+                sp.add(**dict(zip(PASS_COUNTS[timer], counts)))
             if stats is not None:
                 common.sync(dev)
                 stats[timer] += time.perf_counter() - t0
@@ -405,6 +432,12 @@ def _run_passes(dev, cfg: RenderConfig, stats, timer: str,
                 after(acc, pass_idx)
         common.sync(dev)
     return acc
+
+
+# what each road's pass counts (render's `stats["passes"]` rows)
+PASS_COUNTS = {"loop_s": ("bounces", "woodcock"), "er_s": ("bounces",),
+               "boxwalk_s": ("segments", "taps", "iters", "unfinished"),
+               "wavefront_s": ("segments", "taps", "iters", "unfinished")}
 
 
 def _render_film(scene: Scene, cfg: RenderConfig, seed: int, stats,

@@ -12,7 +12,9 @@ emitter NEE connection and, with `cfg.has_beam`, one beam NEE connection
 vertex); both shadow segments are walked in one batched
 `attenuated_visibility` call. The bounce loop runs on the host, one `body`
 a bounce, while some lane is active and `iters < 2 max_depth + 8`: the
-JAX `li`'s while loop, with one device sync a bounce.
+JAX `li`'s while loop, with one device sync a bounce (the host read
+"volpath.bounce"; while tracing it counts the active lanes, and each
+bounce is the span "volpath.bounce" with its lanes and active lanes).
 
 `li(..., differentiable=True)` is the JAX package's differentiable mode
 (diff/render.py): sampling decisions detached, weights attached, the
@@ -49,6 +51,7 @@ from ..scene import intersect as isect
 from ..scene.types import (BSDF_NULL, EM_COLLIMATED, MED_HETEROGENEOUS,
                            MED_HOMOGENEOUS, MED_REFRACTIVE, RenderConfig,
                            Scene)
+from ..utils import stats as stats_m
 from . import common
 
 
@@ -132,7 +135,8 @@ def attenuated_visibility(scene: Scene, eps, o, d, dist, medium_idx, smp,
              torch.ones((n, 3), dtype=torch.float32, device=o.device),
              active, smp)
     (_, _, _, tr, _, smp), _ = medium_m.bounded_while(
-        lambda st: st[4], crossing_trip, state, max_crossings, differentiable,
+        "crossing", lambda st: st[4], crossing_trip, state, max_crossings,
+        differentiable,
         lambda st, k: st[:5] + (medium_m.skip_draws(st[5], k * draws),))
     return tr, smp
 
@@ -151,7 +155,8 @@ class Beam:
 def get_beam(scene: Scene) -> Beam:
     em = scene.emitters
     is_coll = em.kind == EM_COLLIMATED
-    e = torch.argmax(is_coll.to(torch.int32))      # first collimated emitter
+    # the first collimated emitter
+    e = stats_m.host_read("volpath.beam", _first, is_coll)
     o, d = em.position[e], em.direction[e]
     tn, tf = isect.ray_aabb(o, d, scene.aabb_min, scene.aabb_max)
     s0 = torch.clamp_min(tn, 0.0)
@@ -163,6 +168,10 @@ def get_beam(scene: Scene) -> Beam:
     med = torch.where(hit.valid, torch.where(entering, m_in, m_ex), -1)[0]
     return Beam(exists=torch.any(is_coll), o=o, d=d, power=em.radiance[e],
                 s0=s0, s1=s1, medium=med)
+
+
+def _first(mask) -> int:
+    return int(torch.argmax(mask.to(torch.int32)))
 
 
 def sample_beam_point(beam: Beam, p, u):
@@ -528,7 +537,13 @@ def li(scene: Scene, cfg: RenderConfig, o, d, sampler: rng.Sampler,
     step = functools.partial(body, scene, cfg, tabs=tabs, simple=simple,
                              differentiable=differentiable)
     wood = 0
-    while s.iters < 2 * cfg.max_depth + 8 and bool(s.active.any()):
-        s, k = _checkpointed(step, s) if differentiable else step(s)
+    # while tracing, the same one read counts the active lanes
+    read = stats_m.count_of if stats_m.on() else stats_m.any_of
+    while s.iters < 2 * cfg.max_depth + 8:
+        live = stats_m.host_read("volpath.bounce", read, s.active)
+        if not live:
+            break
+        with stats_m.span("volpath.bounce", lanes=n, active=int(live)):
+            s, k = _checkpointed(step, s) if differentiable else step(s)
         wood += k
     return s.sink, s.sampler, [s.iters, wood]

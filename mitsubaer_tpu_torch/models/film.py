@@ -18,6 +18,7 @@ import math
 import torch
 
 from ..scene.types import RenderConfig
+from ..utils import stats
 
 _RADIUS = {"box": 0, "tent": 1, "gaussian": 2, "mitchell": 2,
            "catmullrom": 2, "lanczos": 3}
@@ -38,7 +39,8 @@ def _filter_eval(name: str, x):
     if name == "gaussian":
         # stddev 0.5, radius 2, truncated (rfilters/gaussian.cpp)
         alpha = 2.0                     # 1 / (2 sigma^2) with sigma = 0.5
-        tail = torch.exp(torch.tensor(-alpha * 4.0, device=x.device))
+        tail = torch.exp(stats.to_device("film.filter", -alpha * 4.0,
+                                         x.device))
         return torch.clamp_min(torch.exp(-alpha * x * x) - tail, 0.0)
     if name == "lanczos":
         # 3-lobed Lanczos-sinc window (rfilters/lanczos.cpp)
@@ -83,10 +85,12 @@ def splat(accum, values, jitter, filter_name: str):
     """Add one chunk of (S, H, W, 3) samples with in-pixel offsets jitter
     (S, H, W, 2) in [0, 1)^2 (x, y), weighing each sample's contribution to
     the pixel (dx, dy) away by the filter at its offset from that pixel's
-    centre; the weight channel gets the weights, for `develop`."""
-    img, wsum = _splat_planes(accum[..., :3], accum[..., -1:], values,
-                              jitter, filter_name)
-    return torch.cat([img, accum[..., 3:-1], wsum], dim=-1)
+    centre; the weight channel gets the weights, for `develop`. The span
+    "film.splat" counts the samples."""
+    with stats.span("film.splat", samples=values.numel() // values.shape[-1]):
+        img, wsum = _splat_planes(accum[..., :3], accum[..., -1:], values,
+                                  jitter, filter_name)
+        return torch.cat([img, accum[..., 3:-1], wsum], dim=-1)
 
 
 def _splat_planes(img, wsum, values, jitter, filter_name: str):
@@ -115,10 +119,13 @@ def splat_frames(accum, values, jitter, filter_name: str):
 
 def develop(accum):
     """Divide every frame by the weight channel (ImageBlock develop):
-    (H, W, 3F)."""
-    w = accum[..., -1:]
-    return torch.where(w > 0, accum[..., :-1] / torch.clamp_min(w, 1e-20),
-                       0.0)
+    (H, W, 3F). While tracing, the span "film.develop" (synchronised at
+    its edges) counts the pixels."""
+    with stats.synced_span("film.develop", accum.device,
+                           pixels=accum.shape[0] * accum.shape[1]):
+        w = accum[..., -1:]
+        return torch.where(w > 0, accum[..., :-1] / torch.clamp_min(w, 1e-20),
+                           0.0)
 
 
 def bin_index(cfg: RenderConfig, path_length):

@@ -30,6 +30,7 @@ from ..core import rng, spline
 from ..core.math import take_rows
 from ..scene.types import (STRAT_MANUAL, STRAT_MAXIMUM, STRAT_SINGLE,
                            Media)
+from ..utils import stats
 
 INF = 3.0e38
 UNROLL = 4      # collision tests a trip of the tracking loops, as in JAX
@@ -41,12 +42,15 @@ _MAX_STEP = 17.0
 DIFF_MAX_TESTS = 64     # the differentiable tracking loops' cap in tests
 
 
-def bounded_while(running_of, body, state, max_trips: int,
+def bounded_while(loop: str, running_of, body, state, max_trips: int,
                   differentiable: bool, skip, settled_of=None):
     """The tracking loops' host loop (medium.py:37-45): body(state) while
     some lane of running_of(state) runs, at most max_trips times. Returns
-    (state, trips run). The JAX package runs a while loop in forward mode
-    and, when it differentiates, a scan of exactly max_trips trips. The
+    (state, trips run). `loop` names the caller's loop: the span
+    "medium.track:<loop>" counts its trips, and each test of running_of is
+    the host read "medium.<loop>". The JAX package runs a while loop in
+    forward mode and, when it differentiates, a scan of exactly max_trips
+    trips. The
     bodies mask themselves on their running flags, so a trip after the
     last lane stopped changes nothing but the sampler: every lane still
     draws its numbers. In differentiable mode skip(state, k) therefore
@@ -57,13 +61,20 @@ def bounded_while(running_of, body, state, max_trips: int,
     and to run to the cap (the while loop's own end), which skip(state, k)
     then stands for."""
     trips = 0
-    while trips < max_trips and bool(running_of(state).any()):
-        state = body(state)
-        trips += 1
-        if (settled_of is not None and trips % SETTLE_EVERY == 0
-                and trips < max_trips
-                and settled_of(state, max_trips - trips)):
-            return skip(state, max_trips - trips), max_trips
+    site = "medium." + loop
+    with stats.span("medium.track:" + loop) as sp:
+        while trips < max_trips and stats.host_read(site, stats.any_of,
+                                                    running_of(state)):
+            state = body(state)
+            trips += 1
+            if (settled_of is not None and trips % SETTLE_EVERY == 0
+                    and trips < max_trips
+                    and stats.host_read(
+                        "medium.settled",
+                        lambda st: settled_of(st, max_trips - trips), state)):
+                sp.add(trips=max_trips)
+                return skip(state, max_trips - trips), max_trips
+        sp.add(trips=trips)
     if differentiable and trips < max_trips:
         state = skip(state, max_trips - trips)
     return state, trips
@@ -505,7 +516,7 @@ def transmittance_ratio_tracking(media: Media, sigma_a, sigma_s, scale, o, d,
              torch.ones((n, 3), dtype=torch.float32, device=o.device),
              active, smp)
     (_, tr, _, smp), _ = bounded_while(
-        lambda st: st[2], body, state,
+        "ratio", lambda st: st[2], body, state,
         tracking_trips(max_steps, differentiable), differentiable,
         lambda st, k: st[:3] + (skip_draws(st[3], k * UNROLL),))
     return torch.clamp_min(tr, 0.0), smp
@@ -594,7 +605,7 @@ def sample_distance_woodcock(media: Media, sigma_a, sigma_s, scale, o, d,
              torch.ones((n, 3), dtype=torch.float32, device=o.device),
              zeros if differentiable else None)
     (t, hit, _, smp, w, log_p), it = bounded_while(
-        lambda st: st[2], body, state,
+        "woodcock", lambda st: st[2], body, state,
         tracking_trips(max_steps, differentiable), differentiable,
         lambda st, k: st[:3] + (skip_draws(st[3], 2 * k * UNROLL),) + st[4:],
         None if differentiable else settled)

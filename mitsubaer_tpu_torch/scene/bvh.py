@@ -9,7 +9,7 @@ A leaf holds up to LEAF_MAX triangles packed in one row each
 equal to its own.
 
 `intersect_bvh` drives that traversal from the host, one trip of every
-lane a loop iteration with a sync to test whether some lane still walks;
+lane a loop iteration with a sync to count the lanes that still walk;
 lanes that finished are dropped from the working set once they are half of
 it (each lane's walk is its own, so that changes no result).
 """
@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import stats
 from .types import Bvh
 
 LEAF_MAX = 4
@@ -156,11 +157,15 @@ def _trip(bvh: Bvh, o, d, inv_d, t_min, t_max, node, t_best, prim, uu, vv):
     return torch.where(active, nxt, node), t_best, prim, uu, vv
 
 
-def intersect_bvh(bvh: Bvh, o, d, t_min, t_max, stats: dict | None = None):
+def intersect_bvh(bvh: Bvh, o, d, t_min, t_max):
     """Closest hit over the BVH for (n, 3) rays and (n,) t ranges: returns
     (t, packed_prim, u, v) with t = INF on a miss; packed_prim indexes
-    bvh.tri_id. `stats`, where given, gains "trips" (loop iterations) and
-    "lane_trips" (lanes stepped, summed over the trips)."""
+    bvh.tri_id. The walk is the span "bvh.walk", which counts its "trips"
+    (loop iterations) and "lane_trips" (lanes stepped, summed over the
+    trips). Each trip reads the walking lanes' count (host read
+    "bvh.walk"); where at most half the lanes still walk, the finished and
+    the walking lanes' indices are read (two host reads "bvh.compact") and
+    the walk goes on with the walking ones."""
     n = o.shape[0]
     dev = o.device
     NN = bvh.nodes.shape[0]
@@ -175,23 +180,24 @@ def intersect_bvh(bvh: Bvh, o, d, t_min, t_max, stats: dict | None = None):
     node = torch.zeros((n,), dtype=torch.int64, device=dev)
     best = (t_out.clone(), prim_out.clone(), u_out.clone(), v_out.clone())
     trips = lane_trips = 0
-    while lanes.numel() > 0:
-        node, *best = _trip(bvh, *st, node, *best)
-        trips += 1
-        lane_trips += lanes.numel()
-        walking = node < NN
-        n_walk = int(walking.sum())
-        if 2 * n_walk > lanes.numel():
-            continue
-        done = ~walking
-        idx = lanes[done]
-        t_out[idx], prim_out[idx], u_out[idx], v_out[idx] = (
-            b[done] for b in best)
-        lanes = lanes[walking]
-        st = tuple(a[walking] for a in st)
-        node = node[walking]
-        best = [b[walking] for b in best]
-    if stats is not None:
-        stats["trips"] = stats.get("trips", 0) + trips
-        stats["lane_trips"] = stats.get("lane_trips", 0) + lane_trips
+    with stats.span("bvh.walk") as sp:
+        while lanes.numel() > 0:
+            node, *best = _trip(bvh, *st, node, *best)
+            trips += 1
+            lane_trips += lanes.numel()
+            walking = node < NN
+            n_walk = stats.host_read("bvh.walk", stats.count_of, walking)
+            if 2 * n_walk > lanes.numel():
+                continue
+            gone = stats.host_read("bvh.compact", stats.indices_of, ~walking)
+            keep = stats.host_read("bvh.compact", stats.indices_of, walking)
+            idx = lanes[gone]
+            t_out[idx], prim_out[idx], u_out[idx], v_out[idx] = (
+                b[gone] for b in best)
+            lanes = lanes[keep]
+            st = tuple(a[keep] for a in st)
+            node = node[keep]
+            best = [b[keep] for b in best]
+        sp.add(trips=trips, lane_trips=lane_trips)
     return t_out, prim_out, u_out, v_out
+

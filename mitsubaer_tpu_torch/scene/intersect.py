@@ -15,6 +15,7 @@ from dataclasses import dataclass
 import torch
 
 from ..core.math import normalize
+from ..utils import stats
 from . import bvh as bvh_m
 from .types import Geometry
 
@@ -119,15 +120,20 @@ def _spheres(geo: Geometry, o, d, t_min, t_max):
     return best_t, best, best_t < INF
 
 
+def _lane_range(t, device):
+    """t (a tensor or a Python number; the number sent to the device is
+    the host read "intersect.range") as a float32 tensor on device."""
+    if isinstance(t, torch.Tensor):
+        return torch.as_tensor(t, dtype=torch.float32, device=device)
+    return stats.to_device("intersect.range", t, device, torch.float32)
+
+
 def intersect(geo: Geometry, o, d, t_min, t_max,
               need_uv: bool = False) -> Hit:
     """Closest hit over triangles and spheres of (N, 3) rays; with need_uv
     the hit's interpolated texture coordinates (a sphere's lat-long)."""
     n = o.shape[0]
-    t_min = torch.as_tensor(t_min, dtype=torch.float32,
-                            device=o.device).expand(n)
-    t_max = torch.as_tensor(t_max, dtype=torch.float32,
-                            device=o.device).expand(n)
+    t_min, t_max = (_lane_range(t, o.device).expand(n) for t in (t_min, t_max))
     tt, tprim, tu, tv, tok = _triangles(geo, o, d, t_min, t_max)
     st, sprim, sok = _spheres(geo, o, d, t_min, t_max)
     inf = torch.full_like(tt, INF)

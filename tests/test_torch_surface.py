@@ -41,6 +41,7 @@ from mitsubaer_tpu_torch.scene import bvh as tbvh
 from mitsubaer_tpu_torch.scene import intersect as tisect
 from mitsubaer_tpu_torch.scene import presets as tpresets
 from mitsubaer_tpu_torch.scene import types as T
+from mitsubaer_tpu_torch.utils import stats as tstats
 
 torch.set_num_threads(1)
 
@@ -275,12 +276,13 @@ def test_intersect_bvh_matches_jax_and_brute_force():
     jt, jp, ju, jv = (np.asarray(a) for a in jax.jit(
         lambda o, d: jbvh.intersect_bvh(jb, o, d, t_min, t_max))(o, d))
     tb = tbvh.build_bvh(v0, e1, e2)
-    stats = {}
-    tt, tp, tu, tv = (a.numpy() for a in tbvh.intersect_bvh(
-        tb, torch.from_numpy(o), torch.from_numpy(d),
-        torch.from_numpy(t_min), torch.from_numpy(t_max), stats=stats))
+    with tstats.tracing():
+        tt, tp, tu, tv = (a.numpy() for a in tbvh.intersect_bvh(
+            tb, torch.from_numpy(o), torch.from_numpy(d),
+            torch.from_numpy(t_min), torch.from_numpy(t_max)))
+    walk = [s for s in tstats.spans() if s.name == "bvh.walk"][-1]
     hit = jt < 1e30
-    assert hit.mean() > 0.05 and stats["trips"] > 10
+    assert hit.mean() > 0.05 and walk.counts["trips"] > 10
     np.testing.assert_array_equal(tt < 1e30, hit)
     np.testing.assert_array_equal(tp[hit], jp[hit])
     for a, b in ((tt, jt), (tu, ju), (tv, jv)):
